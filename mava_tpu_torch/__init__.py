@@ -1,0 +1,11 @@
+"""mava_tpu_torch: the PyTorch + CUDA port of `mava_tpu`, for one NVIDIA H100.
+
+The JAX package `mava_tpu` is the reference this port is held against; every
+module here mirrors the module of the same path there. The port imports
+`torch` and never JAX. It reads the YAML config tree under
+`mava_tpu/configs/` as data.
+
+Ported so far: recurrent IPPO on RobotWarehouse, with the GRU sequence
+recurrence (`ops/gru.py`) as hand-written CUDA kernels for Hopper
+(`csrc/gru_sequence.cu`).
+"""

@@ -1,0 +1,106 @@
+"""The port's GRU sequence op (`mava_tpu_torch/ops/gru.py`) against the JAX
+Pallas kernel (`mava_tpu/ops/pallas_gru.py`, interpret mode on the CPU) and its
+scan reference.
+
+On CPU tensors the op runs its plain PyTorch versions; the CUDA kernels are
+checked on the card by `test_torch_gru_cuda.py` and `chip_smoke.py`.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mava_tpu.ops.pallas_gru import gru_sequence as jax_gru_sequence
+from mava_tpu_torch.ops import gru
+from test_pallas_gru import _ref_gru
+
+torch.set_num_threads(1)
+
+
+def _inputs(t_len, b, h, seed, reset_p=0.3):
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    resets = rng.random((t_len, b)) < reset_p
+    keep = np.broadcast_to(1.0 - resets[..., None].astype(np.float32), (t_len, b, h))
+    args = (f32(t_len, b, 3 * h), keep, f32(b, h), f32(h, 3 * h) / np.sqrt(h), 0.1 * f32(h))
+    return tuple(np.ascontiguousarray(a, dtype=np.float32) for a in args)
+
+
+def _torch(args, requires_grad=False):
+    return [torch.tensor(a, requires_grad=requires_grad and i != 1) for i, a in enumerate(args)]
+
+
+def _loss_weights(t_len, b, h):
+    return np.arange(1, t_len * b * h + 1, dtype=np.float32).reshape(t_len, b, h) / (t_len * b * h)
+
+
+@pytest.mark.parametrize("t_len,b,h", [(7, 5, 8), (4, 3, 16), (1, 2, 8), (8, 9, 16)])
+def test_forward_matches_jax(t_len, b, h):
+    args = _inputs(t_len, b, h, seed=t_len + 10 * b + h)
+    hs = gru.gru_sequence(*_torch(args)).numpy()
+    jargs = [jnp.asarray(a) for a in args]
+    np.testing.assert_allclose(hs, np.asarray(jax_gru_sequence(*jargs)), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(hs, np.asarray(_ref_gru(*jargs)), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "t_len,b,h,reset_p",
+    [(6, 4, 8, 0.3), (5, 7, 16, 0.5), (1, 3, 8, 0.0), (8, 2, 16, 1.0)],
+    ids=["resets", "ragged-rows", "T1", "all-reset"],
+)
+def test_backward_matches_jax_grad(t_len, b, h, reset_p):
+    args = _inputs(t_len, b, h, seed=100 + t_len * b, reset_p=reset_p)
+    w = _loss_weights(t_len, b, h)
+
+    targs = _torch(args, requires_grad=True)
+    hs = gru.GRUSequenceFn.apply(*targs)
+    torch.sum(torch.sin(hs) * torch.tensor(w)).backward()
+    assert targs[1].grad is None  # keep is the reset mask: no gradient
+
+    def loss(g, h0, wh, bhn):
+        out = jax_gru_sequence(g, jnp.asarray(args[1]), h0, wh, bhn)
+        return jnp.sum(jnp.sin(out) * w)
+
+    jgrads = jax.grad(loss, argnums=(0, 1, 2, 3))(
+        *[jnp.asarray(args[i]) for i in (0, 2, 3, 4)]
+    )
+    for tg, jg, name in zip([targs[i].grad for i in (0, 2, 3, 4)], jgrads,
+                            ("dgates_i", "dh0", "dWh", "db_hn")):
+        np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+def test_backward_reference_matches_autograd_of_forward():
+    """The plain backward (recompute, reverse loop) equals PyTorch autograd
+    through the plain forward: rtol 1e-5, atol 1e-6."""
+    args = _torch(_inputs(9, 6, 16, seed=7))
+    leaves = [a.clone().requires_grad_(i != 1) for i, a in enumerate(args)]
+    hs = gru.gru_sequence_reference(*leaves)
+    g_hs = torch.tensor(_loss_weights(9, 6, 16))
+    auto = torch.autograd.grad(hs, [leaves[i] for i in (0, 2, 3, 4)], g_hs)
+    manual = gru.gru_sequence_backward_reference(*args, hs.detach(), g_hs)
+    for a, m in zip(auto, manual):
+        np.testing.assert_allclose(m.numpy(), a.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_cpu_tensors_never_launch_kernels():
+    before = (gru.fwd_launches, gru.bwd_launches)
+    targs = _torch(_inputs(5, 4, 8, seed=3), requires_grad=True)
+    gru.gru_sequence(*targs).sum().backward()
+    assert (gru.fwd_launches, gru.bwd_launches) == before == (0, 0)
+
+
+@pytest.mark.parametrize("fault", ["float64", "non-contiguous", "bad-shape", "mixed-device"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(fault):
+    args = _torch(_inputs(4, 3, 8, seed=5))
+    if fault == "float64":
+        args[0] = args[0].double()
+    elif fault == "non-contiguous":
+        args[1] = args[1].transpose(0, 1).contiguous().transpose(0, 1)
+    elif fault == "bad-shape":
+        args[3] = args[3][:, :-3]
+    else:
+        args[2] = args[2].to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        gru.gru_sequence_forward(*args)

@@ -1,0 +1,71 @@
+"""The GRU kernels (`mava_tpu_torch/csrc/gru_sequence.cu`) against their plain
+PyTorch versions, on a CUDA device.
+
+This file imports neither JAX nor `mava_tpu`, so it also runs where JAX is not
+installed; `tests/conftest.py` imports JAX, so there run it without conftest:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gru_cuda.py -q
+
+Without a CUDA device the tests skip: the kernels have no CPU mode.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mava_tpu_torch.ops import gru
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.gpu
+TOL = dict(rtol=1e-4, atol=1e-4)  # fp32 vs fp32, different summation order
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the GRU kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(t_len, b, h, seed, device):
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    keep = np.broadcast_to((rng.random((t_len, b, 1)) >= 0.2).astype(np.float32), (t_len, b, h))
+    args = (f32(t_len, b, 3 * h), keep, f32(b, h), f32(h, 3 * h) / np.sqrt(h), 0.1 * f32(h))
+    args = [torch.tensor(np.ascontiguousarray(a, dtype=np.float32), device=device) for a in args]
+    return args, torch.tensor(f32(t_len, b, h), device=device)
+
+
+@pytest.mark.parametrize("t_len,b,h", [(128, 16, 128), (128, 32, 128), (7, 5, 128), (9, 3, 256), (1, 1, 8)])
+def test_kernels_match_plain_versions(cuda, t_len, b, h):
+    args, g_hs = _inputs(t_len, b, h, seed=b, device=cuda)
+    before = (gru.fwd_launches, gru.bwd_launches)
+    hs = gru.gru_sequence_forward(*args)
+    torch.testing.assert_close(hs, gru.gru_sequence_reference(*args), **TOL)
+    got = gru.gru_sequence_backward(*args, hs, g_hs)
+    want = gru.gru_sequence_backward_reference(*args, hs, g_hs)
+    for name, g, w in zip(("dgates_i", "dh0", "dWh", "db_hn"), got, want):
+        torch.testing.assert_close(g, w, **TOL, msg=name)
+    again = gru.gru_sequence_backward(*args, hs, g_hs)
+    assert torch.equal(again[2], got[2]) and torch.equal(again[3], got[3])
+    assert (gru.fwd_launches, gru.bwd_launches) == (before[0] + 1, before[1] + 2)
+
+
+def test_autograd_through_kernels(cuda):
+    args, g_hs = _inputs(16, 6, 32, seed=1, device=cuda)
+    leaves = [a.clone().requires_grad_(i != 1) for i, a in enumerate(args)]
+    (gru.gru_sequence(*leaves) * g_hs).sum().backward()
+    ref = [a.clone().requires_grad_(i != 1) for i, a in enumerate(args)]
+    (gru.gru_sequence_reference(*ref) * g_hs).sum().backward()
+    assert leaves[1].grad is None
+    for i in (0, 2, 3, 4):
+        torch.testing.assert_close(leaves[i].grad, ref[i].grad, **TOL)
+
+
+def test_cuda_wrapper_rejects_bad_inputs(cuda):
+    args, _ = _inputs(4, 3, 8, seed=2, device=cuda)
+    with pytest.raises(ValueError):
+        gru.gru_sequence_forward(args[0], args[1].cpu(), *args[2:])
+    with pytest.raises(TypeError):
+        gru.gru_sequence_forward(args[0].double(), *args[1:])
