@@ -1,23 +1,35 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Run from the root of the repository. It
   1. prints the torch and CUDA versions and the card's name and power limit;
-  2. builds the GRU kernels of `mava_tpu_torch/csrc/gru_sequence.cu` with nvcc;
-  3. kernel phase: runs K1 (forward) and K2a + K2b (backward) against their
-     plain PyTorch versions on the card at the shapes of the rec-IPPO slice
-     (T=128, H=128, B=32 and B=16) and at ragged shapes, checks them to
-     rtol = atol = 1e-4, checks that dWh and db_hn are bitwise equal across two
-     backward runs, and times kernel against plain version with CUDA events;
+  2. builds the GRU kernels of `mava_tpu_torch/csrc/gru_sequence.cu` with nvcc,
+     twice in parallel: as the port runs them, and with per-phase clock marks;
+  3. kernel phase: runs K1 (forward), K2p (gate recompute), K2a (reverse
+     recurrence) and K2b (dWh / db_hn reduction) against their plain PyTorch
+     versions on the card at the shapes of the rec-IPPO slice (T=128, H=128,
+     B=32 and B=16), at ragged shapes and at shapes of every route, checks them
+     to rtol = atol = 1e-4, checks that every gradient is bitwise equal across
+     two backward runs, prints which route each shape took, and times with CUDA
+     events: each kernel on its route, K1 and K2a on the streaming route too (the
+     earlier design, for both on one card in one call), the plain versions,
+     and one library call per kernel that the port never makes (the cuDNN GRU
+     through `torch.nn.GRU`, `torch.mm` for K2b). It computes each
+     kernel's roofline bound from the shape and prints the cycles per step and
+     phase of the resident K1 and K2a;
   4. slice phase: trains rec-IPPO on RWARE tiny-2ag at the shipped network
      width (`default_rec_ippo`: 16 envs, rollout 128, 4 epochs x 2 minibatches)
      for 4 updates through `run_experiment`, and checks that every parameter is
      on the card, the losses are finite, the parameters changed and the main
-     path launched the kernels (>= 17 forward and >= 16 backward launches per
-     update); then runs one update through the kernels and one through the
-     plain GRU from the same state and draws, and checks that they agree.
+     path launched every kernel (>= 17 forward and >= 16 backward launches per
+     update); then runs updates through the kernels and through the plain GRU
+     from the same state and draws, checks that they agree, and reports
+     env-steps/s of the update on the resident and on the streaming kernels;
+  5. with `--profile`: one full-width update under `torch.profiler`: host ms,
+     launches and kernel ms per `rec_ippo/*` span, per-kernel totals and the
+     device's idle share.
 It prints one JSON line with the kernels' records, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -27,6 +39,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -39,6 +52,20 @@ SLICE_OVERRIDES = [
     "arch.absolute_metric=False",
     "+arch.device=cuda",
 ]
+# Published peaks of an H100 SXM: fp32 outside the tensor cores, and HBM3.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+SOURCE = "mava_tpu_torch/csrc/gru_sequence.cu"
+SLICE_SHAPES = [(128, 16, 128), (128, 32, 128)]
+SHAPES = SLICE_SHAPES + [(7, 5, 128), (9, 3, 256), (33, 17, 128), (5, 40, 256), (6, 4, 72),
+                         (3, 2, 512)]
+# name in the record, counter in `gru.kernel_launches`, reference kernel, launches per update
+KERNELS = [
+    ("gru_sequence_fwd (K1)", "fwd", "mava_tpu/ops/pallas_gru.py:69", 17),
+    ("gru_sequence_bwd_gates (K2p)", "bwd_gates", "mava_tpu/ops/pallas_gru.py:88", 16),
+    ("gru_sequence_bwd_recurrence (K2a)", "bwd_recurrence", "mava_tpu/ops/pallas_gru.py:88", 16),
+    ("gru_sequence_bwd_reduce (K2b)", "bwd_reduce", "mava_tpu/ops/pallas_gru.py:88", 16),
+]
 
 
 def check(cond: bool, what: str) -> None:
@@ -46,9 +73,9 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def card() -> str:
+def card(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
@@ -66,58 +93,246 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def gru_inputs(t_len: int, b: int, h: int, seed: int):
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
-    resets = torch.rand(t_len, b, 1, generator=g, device="cuda") < 0.1
-    keep = (1.0 - resets.float()).expand(t_len, b, h).contiguous()
+def abba_ms(a, b):
+    """Times of `a` and `b`, each the mean of two turns taken as a, b, b, a."""
+    a1, b1, b2, a2 = time_ms(a), time_ms(b), time_ms(b), time_ms(a)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def on_streaming(gru, fn):
+    """`fn` with every call of the op sent to the streaming kernels."""
+    def run():
+        gru.forced_route = gru.STREAMING
+        try:
+            return fn()
+        finally:
+            gru.forced_route = None
+    return run
+
+
+def gru_inputs(t_len: int, b: int, h: int, seed: int, resets: float = 0.1, device="cuda"):
+    g = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=device)  # noqa: E731
+    reset = torch.rand(t_len, b, 1, generator=g, device=device) < resets
+    keep = (1.0 - reset.float()).expand(t_len, b, h).contiguous()
     args = (rnd(t_len, b, 3 * h), keep, rnd(b, h), rnd(h, 3 * h) / h**0.5, 0.1 * rnd(h))
     return args, rnd(t_len, b, h)
 
 
-def max_errs(got: torch.Tensor, want: torch.Tensor):
+# ------------------------------------------------------------------ bounds
+def kernel_work(kernel: str, t_len: int, b: int, h: int):
+    """(FLOP, bytes) one call of `kernel` needs: the matrix product's multiply-adds
+    counted as 2, every input read once and every output written once, fp32."""
+    n, w = t_len * b, h * 3 * h
+    product = 2 * n * h * 3 * h
+    floats = {
+        # gates_i, keep, h0, Wh, b_hn -> hs
+        "fwd": n * 3 * h + n * h + b * h + w + h + n * h,
+        # gates_i, keep, h0, Wh, b_hn, hs -> gates (4 per unit)
+        "bwd_gates": n * 3 * h + n * h + b * h + w + h + n * h + n * 4 * h,
+        # gates, keep, h0, Wh, hs, g_hs -> dgates_i, dgh, dh0
+        "bwd_recurrence": n * 4 * h + n * h + b * h + w + n * h + n * h + 2 * n * 3 * h + b * h,
+        # keep, h0, hs, dgh -> dWh, db_hn; the row of ones adds 3H columns' sums
+        "bwd_reduce": n * h + b * h + n * h + n * 3 * h + w + h,
+    }[kernel]
+    flop = product + (2 * n * 3 * h if kernel == "bwd_reduce" else 0)
+    return flop, 4 * floats
+
+
+def bound_ms(kernel: str, t_len: int, b: int, h: int):
+    """(least ms the card could take, which resource sets it)."""
+    flop, nbytes = kernel_work(kernel, t_len, b, h)
+    by_flop, by_bytes = flop / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (by_flop, "operations") if by_flop >= by_bytes else (by_bytes, "bytes")
+
+
+def serial_floor_ms(t_len: int, h: int, cluster: int, sm_mhz: float, chain_cycles: float):
+    """T times the shortest step of a design that splits H over `cluster` SMs:
+    the FMA issue of one SM's share of 16 rows x H x 3H (128 FMA a cycle), plus
+    `chain_cycles` for what cannot overlap it (the gate math's transcendentals
+    and one hand-off between the SMs). Returns (ms, FMA cycles per step)."""
+    fma_cycles = 16 * h * 3 * h / cluster / 128
+    return t_len * (fma_cycles + chain_cycles) / (sm_mhz * 1e3), fma_cycles
+
+
+# ------------------------------------------------------------------ yardstick
+def cudnn_gru(w_h: torch.Tensor, b_hn: torch.Tensor) -> torch.nn.GRU:
+    """`torch.nn.GRU` computing `gru_sequence` at keep == 1 on input gates_i:
+    gate order (r, z, n), b_hn inside r * (...), h' = (1-z) n + z h are shared;
+    weight_ih = I(3H), bias_ih = 0, weight_hh = Wh^T, bias_hh = [0, 0, b_hn]. On
+    a CUDA device it runs cuDNN. A yardstick only: the port never calls it."""
+    h = w_h.shape[0]
+    rnn = torch.nn.GRU(input_size=3 * h, hidden_size=h).to(w_h.device)
+    with torch.no_grad():
+        rnn.weight_ih_l0.copy_(torch.eye(3 * h))
+        rnn.bias_ih_l0.zero_()
+        rnn.weight_hh_l0.copy_(w_h.T)
+        rnn.bias_hh_l0.zero_()
+        rnn.bias_hh_l0[2 * h:] = b_hn
+    rnn.weight_ih_l0.requires_grad_(False)
+    rnn.bias_ih_l0.requires_grad_(False)
+    return rnn
+
+
+def cudnn_gru_backward(rnn: torch.nn.GRU, gates_i, h0, g_hs):
+    """(hs, (dgates_i, dh0, dWh, db_hn)) through `rnn` and autograd; the last
+    element is a function that runs the backward alone again."""
+    h = h0.shape[-1]
+    gates_i, h0 = gates_i.detach().requires_grad_(), h0.detach().requires_grad_()
+    hs, _ = rnn(gates_i, h0[None])
+    leaves = [gates_i, h0, rnn.weight_hh_l0, rnn.bias_hh_l0]
+    backward = lambda: torch.autograd.grad(hs, leaves, g_hs, retain_graph=True)  # noqa: E731
+    dg, dh0, dw_hh, db_hh = backward()
+    return hs.detach(), (dg, dh0, dw_hh.T, db_hh[2 * h:]), backward
+
+
+# ------------------------------------------------------------------ kernel phase
+def compare(name: str, got, want, shape, errs: dict, key: str) -> None:
     diff = (got - want).abs()
-    return diff.max().item(), (diff / want.abs().clamp(min=1e-6)).max().item()
+    abs_err = diff.max().item()
+    rel_err = (diff / want.abs().clamp(min=1e-6)).max().item()
+    errs[key] = max(errs.get(key, 0.0), abs_err)
+    print(f"  T={shape[0]} B={shape[1]} H={shape[2]} {name}: max_abs_err={abs_err:.3e} "
+          f"max_rel_err={rel_err:.3e}")
+    check(torch.isfinite(got).all().item(), f"{name} not finite at {shape}")
+    check(torch.allclose(got, want, rtol=RTOL, atol=ATOL), f"{name} disagrees at {shape}")
+
+
+def check_shape(gru, shape, errs: dict) -> None:
+    """Every kernel against its plain version on the same inputs, on `shape`'s route."""
+    t_len, b, h = shape
+    route = gru.kernel_route(*shape)
+    built = gru.built_route(h)
+    print(f"  T={t_len} B={b} H={h} route: {route.route}, cluster {route.cluster}, "
+          f"{route.blocks} blocks; K1 {route.fwd_threads} threads {route.fwd_smem} B shared, "
+          f"K2a {route.bwd_threads} threads {route.bwd_smem} B shared")
+    check(route.fwd_smem <= gru.SMEM_LIMIT and route.bwd_smem <= gru.SMEM_LIMIT, "shared memory")
+    if route.route == "resident":
+        check(built == (route.cluster, route.fwd_threads, route.fwd_smem, route.bwd_threads,
+                        route.bwd_smem), f"kernel_route and the library disagree at H={h}: {built}")
+    else:
+        check(built is None, f"the library has resident kernels for H={h}, kernel_route does not")
+    for resets in (0.1, 0.0):
+        args, g_hs = gru_inputs(*shape, seed=t_len * 1000 + b, resets=resets)
+        tag = "" if resets else " keep==1"
+        hs_ref = gru.gru_sequence_reference(*args)
+        compare("hs" + tag, gru.gru_sequence_forward(*args), hs_ref, shape, errs, "fwd")
+        gates_ref = gru.gru_backward_gates_reference(*args, hs_ref)
+        compare("gates" + tag, gru.gru_backward_gates(*args, hs_ref), gates_ref, shape, errs,
+                "bwd_gates")
+        got = gru.gru_backward_recurrence(*args, hs_ref, g_hs, gates_ref)
+        want = gru.gru_backward_recurrence_reference(gates_ref, args[1], args[2], args[3], hs_ref,
+                                                     g_hs)
+        for name, g, w in zip(("dgates_i", "dgh", "dh0"), got, want):
+            compare(f"K2a {name}{tag}", g, w, shape, errs, "bwd_recurrence")
+        reduced = gru.gru_backward_reduce(args[1], args[2], hs_ref, want[1])
+        for name, g, w in zip(("dWh", "db_hn"), reduced,
+                              gru.gru_backward_reduce_reference(args[1], args[2], hs_ref, want[1])):
+            compare(f"K2b {name}{tag}", g, w, shape, errs, "bwd_reduce")
+        # The whole backward as the op runs it, against the plain reverse loop.
+        grads = gru.gru_sequence_backward(*args, hs_ref, g_hs)
+        grads_ref = gru.gru_sequence_backward_reference(*args, hs_ref, g_hs)
+        for name, g, w in zip(("dgates_i", "dh0", "dWh", "db_hn"), grads, grads_ref):
+            compare(name + tag, g, w, shape, errs, "bwd")
+        again = gru.gru_sequence_backward(*args, hs_ref, g_hs)
+        check(all(torch.equal(a, g) for a, g in zip(again, grads)),
+              f"gradients not bitwise equal across runs at {shape}")
+    torch.cuda.synchronize()
+
+
+def time_shape(gru, shape) -> dict:
+    """ms of every kernel, plain version and library call at one of the slice's shapes."""
+    t_len, b, h = shape
+    out = {}
+    for resets, tag in ((0.1, ""), (0.0, "_keep1")):
+        args, g_hs = gru_inputs(*shape, seed=t_len * 1000 + b, resets=resets)
+        hs = gru.gru_sequence_forward(*args)
+        gates = gru.gru_backward_gates(*args, hs)
+        dgh = gru.gru_backward_recurrence(*args, hs, g_hs, gates)[1]
+        fwd = lambda: gru.gru_sequence_forward(*args)  # noqa: E731
+        recurrence = lambda: gru.gru_backward_recurrence(*args, hs, g_hs, gates)  # noqa: E731
+        bwd = lambda: gru.gru_sequence_backward(*args, hs, g_hs)  # noqa: E731
+        for name, fn in (("fwd", fwd), ("bwd_recurrence", recurrence), ("bwd", bwd)):
+            out[name + tag], out[f"{name}_streaming{tag}"] = abba_ms(fn, on_streaming(gru, fn))
+        out["bwd_gates" + tag] = time_ms(lambda: gru.gru_backward_gates(*args, hs))
+        out["bwd_reduce" + tag] = time_ms(lambda: gru.gru_backward_reduce(args[1], args[2], hs, dgh))
+        if resets:
+            out["fwd_plain"] = time_ms(lambda: gru.gru_sequence_reference(*args), iters=5)
+            out["bwd_plain"] = time_ms(
+                lambda: gru.gru_sequence_backward_reference(*args, hs, g_hs), iters=5)
+            out["bwd_gates_plain"] = time_ms(lambda: gru.gru_backward_gates_reference(*args, hs))
+            out["bwd_recurrence_plain"] = time_ms(
+                lambda: gru.gru_backward_recurrence_reference(gates, args[1], args[2], args[3], hs,
+                                                              g_hs), iters=5)
+            out["bwd_reduce_plain"] = time_ms(
+                lambda: gru.gru_backward_reduce_reference(args[1], args[2], hs, dgh))
+            hk = (torch.cat([args[2][None], hs[:-1]]) * args[1]).reshape(-1, h)
+            flat = dgh.reshape(-1, 3 * h)
+            out["mm"] = time_ms(lambda: torch.mm(hk.T, flat))
+        else:
+            # The library's GRU cannot reset its carry: it is timed, and held
+            # against the kernels, at keep == 1.
+            rnn = cudnn_gru(args[3], args[4])
+            hs_lib, grads_lib, backward = cudnn_gru_backward(rnn, args[0], args[2], g_hs)
+            grads = gru.gru_sequence_backward(*args, hs, g_hs)
+            check(torch.allclose(hs_lib, hs, rtol=RTOL, atol=ATOL), "cuDNN GRU and K1 disagree")
+            for name, g, w in zip(("dgates_i", "dh0", "dWh", "db_hn"), grads, grads_lib):
+                check(torch.allclose(g, w, rtol=1e-3, atol=1e-3), f"cuDNN GRU and K2 disagree: {name}")
+            with torch.no_grad():
+                out["cudnn_fwd"] = time_ms(lambda: rnn(args[0], args[2][None]))
+            out["cudnn_bwd"] = time_ms(backward)
+    print(f"  T={t_len} B={b} H={h} ms: " + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    return out
 
 
 def kernel_phase(gru) -> dict:
-    """Kernel vs plain version at the slice's shapes and at ragged ones."""
-    shapes = [(128, 32, 128), (128, 16, 128), (7, 5, 128), (9, 3, 256)]
-    errs = {"fwd": 0.0, "bwd": 0.0}
-    times = {}
-    for t_len, b, h in shapes:
-        args, g_hs = gru_inputs(t_len, b, h, seed=t_len * 1000 + b)
-        hs = gru.gru_sequence_forward(*args)
-        hs_ref = gru.gru_sequence_reference(*args)
-        grads = gru.gru_sequence_backward(*args, hs, g_hs)
-        grads_ref = gru.gru_sequence_backward_reference(*args, hs, g_hs)
+    errs: dict = {}
+    for shape in SHAPES:
+        check_shape(gru, shape, errs)
+    for shape, want in zip(SHAPES, ["resident"] * 6 + ["streaming"] * 2):
+        check(gru.kernel_route(*shape).route == want, f"{shape} is not on the {want} route")
+    times = {shape[1]: time_shape(gru, shape) for shape in SLICE_SHAPES}
+
+    sm_mhz = float(card("clocks.max.sm").split()[0])
+    args, g_hs = gru_inputs(*SLICE_SHAPES[0], seed=1, resets=0.0)
+    clocks = gru.measure_step_clocks(*args, g_hs)
+    for name, phases in clocks.items():
+        total = sum(phases.values())
+        print(f"  {name} resident, T=128 B=16 H=128, cycles per step at {sm_mhz:.0f} MHz: "
+              + ", ".join(f"{k} {v:.0f}" for k, v in phases.items())
+              + f" | step {total:.0f} = {total / sm_mhz:.3f} us (with the clock marks in)")
+    # The chain a step cannot hide behind its product: the gate math, and the
+    # shortest phase in which a block waits for its peers.
+    chain = clocks["fwd"]["gates"] + clocks["fwd"]["wait"]
+    floor, fma = serial_floor_ms(128, 128, 8, sm_mhz, chain)
+    print(f"  serial-chain floor at T=128 H=128, 8 SMs a cluster: {fma:.0f} FMA issue cycles + "
+          f"{chain:.0f} chain cycles a step -> {floor:.4f} ms a launch")
+    return {"errs": errs, "times": times, "clocks": clocks, "serial_floor_ms": floor}
+
+
+# ------------------------------------------------------------------ slice phase
+def one_update(rec_ippo, environments, load_config, device, overrides, repeats: int):
+    """`repeats` timed updates from the seed's state; returns (seconds, params, losses of
+    the first)."""
+    cfg = load_config("default_rec_ippo", SLICE_OVERRIDES + overrides)
+    cfg.arch.n_devices = 1
+    cfg.system.recurrent_chunk_size = cfg.system.rollout_length
+    cfg.system.num_updates_per_eval = 1
+    env, _ = environments.make(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(cfg.system.seed)
+    learn, _, state = rec_ippo.learner_setup(env, gen, cfg, device)
+    seconds, first = [], None
+    for _ in range(repeats):
         torch.cuda.synchronize()
-        outs = [("hs", hs, hs_ref, "fwd")] + [
-            (n, k, r, "bwd") for n, k, r in zip(("dgates_i", "dh0", "dWh", "db_hn"), grads, grads_ref)
-        ]
-        for name, got, want, which in outs:
-            abs_err, rel_err = max_errs(got, want)
-            errs[which] = max(errs[which], abs_err)
-            print(f"  T={t_len} B={b} H={h} {name}: max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e}")
-            check(torch.isfinite(got).all().item(), f"{name} not finite at {(t_len, b, h)}")
-            check(torch.allclose(got, want, rtol=RTOL, atol=ATOL), f"{name} disagrees at {(t_len, b, h)}")
-        again = gru.gru_sequence_backward(*args, hs, g_hs)
-        check(torch.equal(again[2], grads[2]) and torch.equal(again[3], grads[3]),
-              f"dWh / db_hn not bitwise equal across runs at {(t_len, b, h)}")
-        if t_len == 128:
-            # Plain, kernel, kernel, plain: both orders on one card.
-            fwd = lambda: gru.gru_sequence_forward(*args)  # noqa: E731
-            fwd_ref = lambda: gru.gru_sequence_reference(*args)  # noqa: E731
-            bwd = lambda: gru.gru_sequence_backward(*args, hs, g_hs)  # noqa: E731
-            bwd_ref = lambda: gru.gru_sequence_backward_reference(*args, hs, g_hs)  # noqa: E731
-            p1, k1, k2, p2 = time_ms(fwd_ref), time_ms(fwd), time_ms(fwd), time_ms(fwd_ref)
-            bp1, bk1, bk2, bp2 = time_ms(bwd_ref), time_ms(bwd), time_ms(bwd), time_ms(bwd_ref)
-            times[b] = {"fwd": (k1 + k2) / 2, "fwd_plain": (p1 + p2) / 2,
-                        "bwd": (bk1 + bk2) / 2, "bwd_plain": (bp1 + bp2) / 2}
-            print(f"  T={t_len} B={b} H={h} ms: fwd kernel {times[b]['fwd']:.4f} plain "
-                  f"{times[b]['fwd_plain']:.4f} | bwd kernel {times[b]['bwd']:.4f} plain "
-                  f"{times[b]['bwd_plain']:.4f}")
-    return {"errs": errs, "times": times}
+        t0 = time.perf_counter()
+        out = learn(state)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if first is None:
+            params = [p.detach().clone() for net in out.learner_state.params for p in net.parameters()]
+            first = (params, out.train_metrics)
+        state = out.learner_state
+    return seconds, first[0], first[1], cfg.system.rollout_length * cfg.arch.num_envs
 
 
 def slice_phase(gru, gpu: str) -> dict:
@@ -132,12 +347,12 @@ def slice_phase(gru, gpu: str) -> dict:
     initial = [p.detach().clone() for net in rec_ippo.make_networks(env, config, device, config.system.seed)
                for p in net.parameters()]
 
-    gru.fwd_launches = gru.bwd_launches = 0
+    gru.reset_launch_counts()
     start = time.perf_counter()
     performance, output = rec_ippo.run_experiment(config)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    launches = {"fwd": gru.fwd_launches, "bwd": gru.bwd_launches}
+    launches = dict(gru.kernel_launches, fwd_calls=gru.fwd_launches, bwd_calls=gru.bwd_launches)
 
     updates = config.system.num_updates
     actor, critic = output.learner_state.params
@@ -147,43 +362,94 @@ def slice_phase(gru, gpu: str) -> dict:
         check(torch.isfinite(values).all().item(), f"loss {name} not finite")
     changed = [not torch.equal(a, b) for a, b in zip(initial, final)]
     check(all(changed), f"parameters unchanged after training: {changed}")
-    check(launches["fwd"] >= 17 * updates, f"forward kernel launched {launches['fwd']} times")
-    check(launches["bwd"] >= 16 * updates, f"backward kernel launched {launches['bwd']} times")
+    check(launches["fwd_calls"] >= 17 * updates, f"forward launched {launches['fwd_calls']} times")
+    check(launches["bwd_calls"] >= 16 * updates, f"backward launched {launches['bwd_calls']} times")
+    for _, counter, _, per_update in KERNELS:
+        check(launches[counter] >= per_update * updates,
+              f"{counter} launched {launches[counter]} times on the main path")
     print(f"  run_experiment: {updates} updates, eval return {performance:.3f}, "
           f"{wall:.1f} s wall, launches {launches}")
 
-    # One update through the kernels and one through the plain GRU, from the
-    # same seed, generator stream and therefore the same rollout.
-    results = {}
-    for impl in ("pallas", "hoisted"):
-        cfg = load_config("default_rec_ippo", SLICE_OVERRIDES + [f"network.gru_impl={impl}"])
-        cfg.arch.n_devices = 1
-        cfg.system.recurrent_chunk_size = cfg.system.rollout_length
-        cfg.system.num_updates_per_eval = 1
-        env, _ = environments.make(cfg, device)
-        gen = torch.Generator(device=device).manual_seed(cfg.system.seed)
-        learn, _, state = rec_ippo.learner_setup(env, gen, cfg, device)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = learn(state)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        params = [p.detach() for net in out.learner_state.params for p in net.parameters()]
-        results[impl] = (seconds, params, out.train_metrics)
-    steps = cfg.system.rollout_length * cfg.arch.num_envs
-    param_err = max((a - b).abs().max().item() for a, b in zip(results["pallas"][1], results["hoisted"][1]))
-    kernel_losses, plain_losses = results["pallas"][2], results["hoisted"][2]
-    loss_err = max((kernel_losses[k] - plain_losses[k]).abs().max().item() for k in plain_losses)
+    # Updates through the kernels and through the plain GRU, from the same
+    # seed, generator stream and therefore the same first rollout.
+    setup = (rec_ippo, environments, load_config, device)
+    k_s, k_params, k_losses, steps = one_update(*setup, ["network.gru_impl=pallas"], repeats=6)
+    p_s, p_params, p_losses, _ = one_update(*setup, ["network.gru_impl=hoisted"], repeats=2)
+    param_err = max((a - b).abs().max().item() for a, b in zip(k_params, p_params))
+    loss_err = max((k_losses[k] - p_losses[k]).abs().max().item() for k in p_losses)
     print(f"  one update, kernels vs plain GRU: max |param diff| {param_err:.3e}, "
           f"max |loss diff| {loss_err:.3e}")
     check(param_err <= 1e-3, "kernel and plain updates disagree on the parameters")
-    check(all(torch.allclose(kernel_losses[k], plain_losses[k], rtol=1e-3, atol=1e-5)
-              for k in plain_losses), "kernel and plain updates disagree on the losses")
-    for impl, label in (("pallas", "kernels"), ("hoisted", "plain GRU")):
-        seconds = results[impl][0]
-        print(f"  update with {label}: {seconds * 1e3:.1f} ms, "
-              f"{steps / seconds:.0f} env-steps/s on {gpu}")
+    check(all(torch.allclose(k_losses[k], p_losses[k], rtol=1e-3, atol=1e-5)
+              for k in p_losses), "kernel and plain updates disagree on the losses")
+    # The same updates on the streaming kernels: every call of the op is sent
+    # there for the length of these runs.
+    s_s, s_params, _, _ = on_streaming(
+        gru, lambda: one_update(*setup, ["network.gru_impl=pallas"], repeats=6))()
+    stream_err = max((a - b).abs().max().item() for a, b in zip(k_params, s_params))
+    check(stream_err <= 1e-3, "resident and streaming updates disagree on the parameters")
+    for label, seconds in (("resident kernels", k_s), ("streaming kernels", s_s), ("plain GRU", p_s)):
+        mean = sum(seconds) / len(seconds)
+        print(f"  update with {label}: " + " ".join(f"{x * 1e3:.1f}" for x in seconds)
+              + f" ms; mean {mean * 1e3:.1f} ms, {steps / mean:.1f} env-steps/s "
+              f"(range {steps / max(seconds):.1f}-{steps / min(seconds):.1f}) on {gpu}")
     return {"launches": launches}
+
+
+# ------------------------------------------------------------------ profile
+def profile_phase(gru) -> None:
+    """One full-width update under torch.profiler: where its time goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mava_tpu_torch import envs as environments
+    from mava_tpu_torch.systems.ppo import rec_ippo
+    from mava_tpu_torch.utils.config import load_config
+
+    cfg = load_config("default_rec_ippo", SLICE_OVERRIDES)
+    cfg.arch.n_devices = 1
+    cfg.system.recurrent_chunk_size = cfg.system.rollout_length
+    cfg.system.num_updates_per_eval = 1
+    device = torch.device("cuda")
+    env, _ = environments.make(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(cfg.system.seed)
+    learn, _, state = rec_ippo.learner_setup(env, gen, cfg, device)
+    state = learn(state).learner_state  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        learn(state)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = list(prof.events())
+    # The spans are mirrored on the device's timeline as annotations: not work.
+    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.name.startswith("rec_ippo/")]
+    kernels = [e for e in on_device if not e.name.lower().startswith(("memcpy", "memset"))]
+    check(len(kernels) > 0, "the profile shows no kernel: time with CUDA events instead")
+    launches = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                and "launch" in e.name.lower() and e.name.startswith(("cuda", "cu"))]
+    spans = [e for e in events if e.name.startswith("rec_ippo/")
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    print(f"  update: {wall_ms:.1f} ms host, {len(launches)} launches, {len(kernels)} kernels")
+    for span in sorted(spans, key=lambda e: e.time_range.start):
+        lo, hi = span.time_range.start, span.time_range.end
+        # A kernel belongs to the span whose host interval holds the launch
+        # call it is correlated with (the two share an id).
+        inside = [e for e in launches if lo <= e.time_range.start <= hi]
+        ids = {e.id for e in inside}
+        ms = sum(k.time_range.end - k.time_range.start for k in kernels if k.id in ids) / 1e3
+        print(f"  {span.name}: {(hi - lo) / 1e3:.1f} ms host, {len(inside)} launches, "
+              f"{ms:.2f} ms of kernels")
+    for _, counter, _, _ in KERNELS:
+        mine = [k for k in kernels if f"gru_{counter}" in k.name]
+        ms = sum(k.time_range.end - k.time_range.start for k in mine) / 1e3
+        print(f"  gru_{counter}*: {len(mine)} launches, {ms:.3f} ms")
+    busy, end = 0.0, float("-inf")
+    for lo, hi in sorted((e.time_range.start, e.time_range.end) for e in on_device):
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    print(f"  device busy {busy / 1e3:.1f} ms of {wall_ms:.1f} ms: idle share "
+          f"{1.0 - busy / 1e3 / wall_ms:.3f}")
 
 
 def main() -> int:
@@ -203,7 +469,10 @@ def main() -> int:
     print(gpu)
 
     start = time.perf_counter()
+    marked = threading.Thread(target=gru.build_kernels, kwargs={"step_clocks": True})
+    marked.start()
     gru.build_kernels()
+    marked.join()
     print(f"build: {time.perf_counter() - start:.1f} s")
     if gru.build_log:
         print(gru.build_log.strip())
@@ -212,20 +481,31 @@ def main() -> int:
     kernels = kernel_phase(gru)
     print("slice phase:")
     sliced = slice_phase(gru, gpu)
+    if "--profile" in sys.argv[1:]:
+        print("profile phase:")
+        profile_phase(gru)
 
-    times = kernels["times"][16]
-    record = {"kernels": [
-        {"name": "gru_sequence_fwd (K1)", "route": "cuda",
-         "source": "mava_tpu_torch/csrc/gru_sequence.cu",
-         "replaces": "mava_tpu/ops/pallas_gru.py:69",
-         "launches": sliced["launches"]["fwd"], "max_abs_err": kernels["errs"]["fwd"],
-         "ms": times["fwd"], "plain_ms": times["fwd_plain"]},
-        {"name": "gru_sequence_bwd (K2a + K2b)", "route": "cuda",
-         "source": "mava_tpu_torch/csrc/gru_sequence.cu",
-         "replaces": "mava_tpu/ops/pallas_gru.py:88",
-         "launches": sliced["launches"]["bwd"], "max_abs_err": kernels["errs"]["bwd"],
-         "ms": times["bwd"], "plain_ms": times["bwd_plain"]},
-    ]}
+    t16, t32 = kernels["times"][16], kernels["times"][32]
+    library = {"fwd": ("cudnn_fwd", "torch.nn.GRU forward (cuDNN), keep == 1"),
+               "bwd_gates": (None, None),
+               "bwd_recurrence": ("cudnn_bwd", "torch.nn.GRU backward (cuDNN), keep == 1: "
+                                               "the whole of K2p + K2a + K2b"),
+               "bwd_reduce": ("mm", "torch.mm on hprev*keep formed beforehand")}
+    record = {"kernels": []}
+    for name, counter, replaces, _ in KERNELS:
+        bound, bound_by = bound_ms(counter, *SLICE_SHAPES[0])
+        lib_key, lib_what = library[counter]
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "launches": sliced["launches"][counter], "max_abs_err": kernels["errs"][counter],
+            "ms": t16[counter], "plain_ms": t16[counter + "_plain"],
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": t16[lib_key] if lib_key else None, "library": lib_what,
+            "shape": list(SLICE_SHAPES[0]), "ms_keep1": t16[counter + "_keep1"],
+            "ms_b32": t32[counter], "bound_ms_b32": bound_ms(counter, *SLICE_SHAPES[1])[0],
+            "streaming_ms": t16.get(counter + "_streaming"),
+            "kernel_route": gru.kernel_route(*SLICE_SHAPES[0]).route,
+        })
     print(gpu)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -9,47 +9,74 @@
 // b_hn (H), hs (T,B,H). All float32, row-major, contiguous. No TF32: every
 // product is an fp32 FMA.
 //
-// Three kernels, bound by a plain C interface (ctypes) at the bottom of the file:
+// Two hand-written routes, chosen by shape in `ops/gru.py` (`kernel_route`), bound
+// by a plain C interface (ctypes) at the bottom of the file.
 //
-// K1 gru_fwd_kernel replaces `_fwd_kernel` (mava_tpu/ops/pallas_gru.py:69-85,
-//    launched by `_fwd_call` at :190). The TPU grid (row_blocks, T) runs in
-//    order on one core and carries h in a VMEM scratch. Here one thread block
-//    owns a tile of kRows batch rows and loops over T itself; its carry stays
-//    in shared memory for the whole sequence, and there is one launch per call.
-//    Wh is read from global memory each step (192 KiB at H = 128: it stays
-//    resident in the 50 MB L2).
+// What bounds the recurrence on an H100: at the batch sizes of the training
+// path (B <= 32 rows, H = 128) neither bytes nor FLOPs. The T steps depend on
+// each other, so a call costs T times the latency of one step, and the design's
+// job is to make that step short.
 //
-// K2a gru_bwd_recurrence_kernel and K2b gru_bwd_reduce_kernel together replace
-//    `_bwd_kernel` (:88-145, launched by `_gru_bwd` at :230). The TPU kernel
-//    accumulates dWh and db_hn in constant-index output blocks across its
-//    sequential grid; Hopper blocks run in parallel and in no order, so the
-//    work is split in two:
-//    K2a walks time in reverse per row tile (the layout of K1), recomputes the
-//        gates from hprev = [h0, hs[:-1]] (no activations are saved), writes
-//        dgates_i and dh0, and writes the recurrent-side cotangent
-//        dgh = [dar, daz, dan*r] (T,B,3H) to a scratch buffer.
-//    K2b reduces dWh = sum_{t,b} (hprev*keep)^T dgh and db_hn = sum dgh_n. Each
-//        block owns one 32x32 tile of dWh (with one extra row of ones for
-//        db_hn) and walks all T*B rows in a fixed order, with no atomics: the
-//        result is bitwise the same from run to run.
+// Resident route (H a multiple of 64, H <= 256): a cluster of 8 thread blocks
+// owns 16 batch rows. Block c owns hidden units [c*H/8, (c+1)*H/8) and with them
+// the r, z and n columns of Wh for those units. Its slice of Wh is loaded once,
+// into registers, and stays for the whole sequence; the blocks exchange their
+// pieces of the carry through distributed shared memory: bulk copies that count
+// their bytes on the receiver's mbarrier, so that no fence and no cluster
+// barrier sits on the chain. Further groups of 16 rows go to further clusters.
 //
-// What bounds them on an H100: at the slice's batch (B <= 32 rows, H = 128)
-// K1 and K2a are latency-bound by the serial T loop. ceil(B/8) blocks run on
-// a few of the 132 SMs, each doing an 8 x 128 x 384 product per step from
-// L2-resident Wh plus three block barriers. K2b is small and parallel
-// (60 blocks at H = 128).
+// K1 gru_fwd_resident_kernel replaces `_fwd_kernel`
+//    (mava_tpu/ops/pallas_gru.py:69-85, launched by `_fwd_call` at :190). The TPU
+//    grid (row_blocks, T) runs in order on one core and carries h in a VMEM
+//    scratch. Here a thread owns one hidden unit and one sixteenth of the
+//    product's depth: 3H/16 elements of Wh in registers. Per step it forms
+//    partial sums for all 16 rows from the carry in shared memory, a fixed-order
+//    butterfly over 16 lanes leaves lane s with the full sums of row s, the lane
+//    applies the gates for (row s, its unit) and puts the new carry, already
+//    multiplied by keep[t+1], into the block's piece of the other buffer, which
+//    one bulk copy per peer carries to the other 7 blocks. gates_i and keep of
+//    step t+1 are loaded into registers before step t's product.
 //
-// Left for later: split the three gate blocks of Wh over a 3-CTA cluster
-// (each CTA keeps a 64 KiB block in shared memory or registers and the CTAs
-// exchange h through distributed shared memory), feed the per-step product to
-// wgmma with TMA-staged tiles, and spread rows over more SMs.
+// `_bwd_kernel` (:88-145, launched by `_gru_bwd` at :230) accumulates dWh and
+//    db_hn in constant-index output blocks across its sequential grid and
+//    recomputes the gates inside the reverse loop. Hopper blocks run in parallel
+//    and in no order, and the recompute does not depend on the reverse carry, so
+//    the work is split in three:
+// K2p gru_bwd_gates_kernel recomputes r, z, n and hnb = (hk @ Wh)n + b_hn from
+//    hprev = [h0, hs[:-1]] for all T*B rows at once (a tiled fp32 product over
+//    all SMs with the gate math as its epilogue) into a (T,B,H,4) scratch.
+// K2a gru_bwd_recurrence_resident_kernel walks time in reverse with the cluster
+//    layout of K1. A thread owns one k of dh = dgh @ Wh^T and keeps Wh[k, own
+//    columns] in registers: the same slice of Wh as in K1, so no transposed copy
+//    exists. Each block forms the partial sum over its own columns for every k,
+//    copies it into the shared memory of the block that owns unit k, and that
+//    block adds the 8 partials in block order. Two block barriers and one
+//    mbarrier wait per step. It writes dgates_i, dh0 and the recurrent-side
+//    cotangent dgh = [dar, daz, dan*r] (T,B,3H) to a scratch buffer.
+// K2b gru_bwd_reduce_kernel reduces dWh = sum_{t,b} (hprev*keep)^T dgh and
+//    db_hn = sum dgh_n. Each block owns one 32x32 tile of dWh (with one extra
+//    row of ones for db_hn) and walks all T*B rows in a fixed order.
+// No atomics anywhere: every output is bitwise the same from run to run.
+//
+// Streaming route (every other H up to 1024, where a slice of Wh does not fit
+// a block's registers): gru_fwd_kernel and gru_bwd_recurrence_kernel. One block
+// owns 8 rows, loops over T with its carry in shared memory and reads Wh from
+// L2 each step (the backward also a transposed copy made by the wrapper, and it
+// recomputes the gates in the loop); K2b follows as above.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRows = 8;         // batch rows per block in K1 and K2a
-constexpr int kMaxThreads = 512; // threads per block in K1 and K2a
+constexpr int kRows = 8;         // streaming route: batch rows per block
+constexpr int kMaxThreads = 512; // streaming route: threads per block
+constexpr int kCluster = 8;      // resident route: blocks per cluster
+constexpr int kClusterRows = 16; // resident route: batch rows per cluster
+constexpr int kGateTile = 32;    // K2p: rows, units and depth of one tile
+constexpr int kGateThreads = 256;
 constexpr int kTile = 32;        // K2b: dWh tile edge
 constexpr int kChunk = 32;       // K2b: rows staged in shared memory per pass
 constexpr int kReduceThreads = 256;
@@ -75,7 +102,8 @@ __device__ __forceinline__ void tile_times_wh(const float* __restrict__ h_s,
   }
 }
 
-// K1. Grid: ceil(B / kRows) blocks. Shared memory: kRows * 4H floats.
+// K1, streaming route. Grid: ceil(B / kRows) blocks. Shared memory: kRows * 4H
+// floats.
 __global__ void __launch_bounds__(kMaxThreads)
 gru_fwd_kernel(const float* __restrict__ gates_i, const float* __restrict__ keep,
                const float* __restrict__ h0, const float* __restrict__ w_h,
@@ -120,7 +148,8 @@ gru_fwd_kernel(const float* __restrict__ gates_i, const float* __restrict__ keep
   }
 }
 
-// K2a. Grid: ceil(B / kRows) blocks. Shared memory: kRows * 5H floats.
+// K2a, streaming route. Grid: ceil(B / kRows) blocks. Shared memory: kRows * 5H
+// floats.
 __global__ void __launch_bounds__(kMaxThreads)
 gru_bwd_recurrence_kernel(const float* __restrict__ gates_i,
                           const float* __restrict__ keep, const float* __restrict__ h0,
@@ -271,6 +300,608 @@ gru_bwd_reduce_kernel(const float* __restrict__ keep, const float* __restrict__ 
   }
 }
 
+// ------------------------------------------------------------ resident route
+// Built with -DGRU_STEP_CLOCKS, thread 0 of block 0 of K1 and K2a sums the SM
+// clock cycles it spends in each phase of a step, and `gru_sequence_step_clocks`
+// reads the sums back. The compiler moves instructions across the marks, so
+// neighbouring phases blur; their sum is the step. Without the flag the marks
+// are empty.
+#ifdef GRU_STEP_CLOCKS
+__device__ long long g_step_clocks[2][8];
+#define STEP_CLOCKS_BEGIN                             \
+  long long clocks_[8] = {0, 0, 0, 0, 0, 0, 0, 0};    \
+  long long last_clock_ = clock64();
+#define STEP_CLOCK(phase)                     \
+  {                                           \
+    const long long now_ = clock64();         \
+    clocks_[phase] += now_ - last_clock_;     \
+    last_clock_ = now_;                       \
+  }
+#define STEP_CLOCKS_END(kernel)                                      \
+  if (threadIdx.x == 0 && blockIdx.x == 0) {                         \
+    for (int i_ = 0; i_ < 8; ++i_) g_step_clocks[kernel][i_] = clocks_[i_]; \
+  }
+#else
+#define STEP_CLOCKS_BEGIN
+#define STEP_CLOCK(phase)
+#define STEP_CLOCKS_END(kernel)
+#endif
+
+// The blocks of a cluster hand each other data with bulk copies from their own
+// shared memory into a peer's: one copy per peer and step, which on landing
+// counts its bytes on an mbarrier in that peer's shared memory. The receiver
+// arms the barrier with the bytes it expects and polls it. No fence at cluster
+// scope and no cluster barrier sits on the chain.
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// Address, in the cluster's shared window, of `local` in the block of rank `rank`.
+__device__ __forceinline__ unsigned peer_address(const void* local, unsigned rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(shared_address(local)), "r"(rank));
+  return remote;
+}
+// Copy `bytes` (a multiple of 16) from this block's shared memory to `address`
+// in a peer's, counting them on the peer's `barrier`. The source was written by
+// ordinary stores: `publish_to_copies` + a block barrier come first.
+__device__ __forceinline__ void copy_to_peer(unsigned address, const void* source,
+                                             unsigned bytes, unsigned barrier) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      :
+      : "r"(address), "r"(shared_address(source)), "r"(bytes), "r"(barrier)
+      : "memory");
+}
+__device__ __forceinline__ void publish_to_copies() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// Thread 0 of each block sets up its barriers (one arrival each: its own
+// `barrier_expect`) before the cluster-wide start barrier.
+__device__ __forceinline__ void barrier_init(unsigned long long* bars, int n) {
+  for (int i = 0; i < n; ++i) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :
+                 : "r"(shared_address(bars + i)), "r"(1)
+                 : "memory");
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void barrier_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :
+               : "r"(shared_address(bar)), "r"(bytes)
+               : "memory");
+}
+// Wait for the completion of the barrier's phase of parity `parity`: the data
+// sent under it is then visible. A wait that outlasts any real step (a peer
+// that died) traps, so that the launch fails instead of hanging the card.
+__device__ __forceinline__ void barrier_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned address = shared_address(bar);
+  for (unsigned spins = 0;; ++spins) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}"
+        : "=r"(done)
+        : "r"(address), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1u << 26)) __trap();
+  }
+}
+
+// One stage of the butterfly over the 16 lanes that share a hidden unit. Before
+// it acc[0 .. 2*HALF) holds partial sums of 2*HALF rows; a lane keeps the half
+// its bit HALF selects, sends the other half to lane ^ HALF and adds what it
+// gets. After the stages 8, 4, 2, 1 lane s holds in acc[0] the sum over all 16
+// lanes for row s. The order of the additions is fixed.
+template <int HALF>
+__device__ __forceinline__ void butterfly_stage(float (&acc)[kClusterRows][3], int s) {
+  const bool upper = (s & HALF) != 0;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      const float send = upper ? acc[i][g] : acc[i + HALF][g];
+      const float mine = upper ? acc[i + HALF][g] : acc[i][g];
+      acc[i][g] = mine + __shfl_xor_sync(0xffffffffu, send, HALF);
+    }
+  }
+}
+
+// Shared memory of the resident kernels, in floats, for U = H / kCluster units a
+// block. K1: the carry (2 buffers of 8 pieces), the step's inputs (2 buffers of
+// 16 rows of [gr, gz, gn, next keep]) and its output rows (2 buffers). K2a: dgh
+// for the product, the step's outputs, partials in and out (2 buffers each) and
+// the step's inputs (2 buffers of 16 rows of [4 gates x U, g_hs, keep, hprev]).
+// Rows are padded by 4 floats so that the 16 rows do not share a bank.
+__host__ __device__ constexpr int fwd_piece_stride(int U) { return kClusterRows * U + 16; }
+__host__ __device__ constexpr int fwd_in_stride(int U) { return 4 * U + 4; }
+__host__ __device__ constexpr int fwd_out_stride(int U) { return U + 4; }
+__host__ __device__ constexpr int fwd_resident_floats(int U) {
+  return 2 * kCluster * fwd_piece_stride(U) + 2 * kClusterRows * fwd_in_stride(U) +
+         2 * kClusterRows * fwd_out_stride(U);
+}
+__host__ __device__ constexpr int bwd_in_stride(int U) { return 7 * U + 4; }
+__host__ __device__ constexpr int bwd_out_stride(int U) { return 4 * U + 4; }
+__host__ __device__ constexpr int bwd_resident_floats(int U) {
+  return 3 * U * kClusterRows + kClusterRows * bwd_out_stride(U) +
+         4 * kCluster * U * kClusterRows + 2 * kClusterRows * bwd_in_stride(U);
+}
+
+// K1, resident route. Grid: kCluster * ceil(B / 16) blocks in clusters of
+// kCluster; 16 * H / kCluster threads. Thread (s, ul) = (tid % 16, tid / 16)
+// holds Wh[k, {r,z,n} of unit u] for the H/16 values k = 64 j + 4 s + i, and
+// does the gate math of (row s, unit u). (Two units a thread, with half the
+// threads, halve the product's reads of the carry from shared memory; at
+// T=128, H=128 on an H100 that came out slightly slower and was not kept.) The
+// carry buffers hold h * keep, i.e. the reset is applied by the thread that
+// produces h', with its own keep[t+1].
+// The carry is laid out by owner: piece c holds (16 rows, units of block c), so
+// that a block's output is one contiguous piece, copied to each of its 7 peers.
+// A peer can only be one step ahead, and what it writes then is the buffer this
+// block reads two steps from now: it got there on this block's output, which
+// is sent after every thread's last read (the block barrier before the copies).
+// Global memory is touched only in runs of 64 bytes and more: each thread
+// loads one float4 of step t+1's gates_i and keep into registers before step
+// t's product and puts it into a shared tile after it, and hs[t] leaves through
+// a staging tile. (With each thread loading and storing its own element, a warp
+// touched 16 cache lines per instruction, and those instructions held up the
+// product's shared-memory reads behind them; `cp.async` in place of the
+// register hop stalled its warp at issue for far longer than a plain load.)
+template <int H>
+__global__ void __launch_bounds__(kClusterRows * (H / kCluster), 1)
+gru_fwd_resident_kernel(const float* __restrict__ gates_i, const float* __restrict__ keep,
+                        const float* __restrict__ h0, const float* __restrict__ w_h,
+                        const float* __restrict__ b_hn, float* __restrict__ hs, int T, int B) {
+  constexpr int U = H / kCluster;  // hidden units per block
+  constexpr int KPT = H / 16;      // depth of the product per thread
+  constexpr int PIECE = kClusterRows * U;  // floats in one block's piece of the carry
+  constexpr int PSTRIDE = fwd_piece_stride(U);  // pieces 16 banks apart: the product's
+                                                // float4 reads take two wavefronts
+  constexpr int IN = fwd_in_stride(U), OUT = fwd_out_stride(U);
+  constexpr int H3 = 3 * H;
+  static_assert(H % 64 == 0 && U % 4 == 0, "resident route needs H % 64 == 0");
+  extern __shared__ __align__(16) float smem[];
+  float* h_s = smem;                                // [2][kCluster][PSTRIDE]
+  float* in_s = h_s + 2 * kCluster * PSTRIDE;       // [2][16][IN]
+  float* out_s = in_s + 2 * kClusterRows * IN;      // [2][16][OUT]
+  __shared__ __align__(8) unsigned long long full[2];  // full[b]: carry buffer b has landed
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int row0 = (blockIdx.x / kCluster) * kClusterRows;
+  const int nrows = min(kClusterRows, B - row0);
+  const int s = threadIdx.x % 16;
+  const int ul = threadIdx.x / 16;
+  const int u = rank * U + ul;
+  const bool valid = s < nrows;
+
+  float w[KPT][3];
+#pragma unroll
+  for (int j = 0; j < KPT / 4; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = 64 * j + 4 * s + i;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) w[4 * j + i][g] = w_h[(size_t)k * H3 + g * H + u];
+    }
+  }
+  const float bh = b_hn[u];
+  // Where the product's float4 reads start in a carry buffer, for row 0.
+  int h_at[KPT / 4];
+#pragma unroll
+  for (int j = 0; j < KPT / 4; ++j) {
+    const int k = 64 * j + 4 * s;
+    h_at[j] = (k / U) * PSTRIDE + k % U;
+  }
+
+  // One float4 of a step's inputs per thread: row p_r, segment p_seg of
+  // [gr, gz, gn, keep of the step after], float4 number p_q of the block's
+  // units. Rows past B, and the keep after the last step, read as zeros.
+  const int p_r = threadIdx.x / U, p_seg = (threadIdx.x % U) / (U / 4);
+  const int p_q = threadIdx.x % (U / 4);
+  const float* p_from =
+      p_seg < 3 ? gates_i + ((size_t)row0 + p_r) * H3 + p_seg * H + rank * U + 4 * p_q
+                : keep + ((size_t)B + row0 + p_r) * H + rank * U + 4 * p_q;
+  const size_t p_stride = (size_t)B * (p_seg < 3 ? H3 : H);
+  const int p_steps = p_r < nrows ? (p_seg < 3 ? T : T - 1) : 0;
+  float* p_to = in_s + p_r * IN + p_seg * U + 4 * p_q;
+  auto fetch = [&](int step) {
+    return step < p_steps ? __ldg(reinterpret_cast<const float4*>(p_from + step * p_stride))
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  };
+  auto stash = [&](int step, float4 v) {
+    *reinterpret_cast<float4*>(p_to + (step & 1) * kClusterRows * IN) = v;
+  };
+
+  // Every block fills its own copy of the first carry, h0 * keep[0]. Rows past
+  // B stay zero throughout (ragged last cluster).
+  for (int i = threadIdx.x; i < kClusterRows * H; i += blockDim.x) {
+    const int r = i / H, c = i % H;
+    const size_t at = (size_t)(row0 + r) * H + c;
+    h_s[(c / U) * PSTRIDE + r * U + c % U] = r < nrows ? h0[at] * keep[at] : 0.0f;
+  }
+  stash(0, fetch(0));
+  if (threadIdx.x == 0) barrier_init(full, 2);
+  // All blocks of the cluster have started, filled their carry and set up
+  // their barriers.
+  cluster.sync();
+
+  STEP_CLOCKS_BEGIN
+  for (int t = 0; t < T; ++t) {
+    const int cur = t & 1;
+    if (threadIdx.x == 0) {
+      barrier_expect(&full[cur ^ 1], sizeof(float) * (kCluster - 1) * PIECE);
+    }
+    const float4 next_in = fetch(t + 1);  // off the chain
+
+    const float* h_cur = h_s + cur * kCluster * PSTRIDE;
+    float acc[kClusterRows][3];
+#pragma unroll
+    for (int r = 0; r < kClusterRows; ++r) {
+      acc[r][0] = acc[r][1] = acc[r][2] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < KPT / 4; ++j) {
+        const float4 hv = *reinterpret_cast<const float4*>(h_cur + h_at[j] + r * U);
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          acc[r][g] = fmaf(hv.x, w[4 * j + 0][g], acc[r][g]);
+          acc[r][g] = fmaf(hv.y, w[4 * j + 1][g], acc[r][g]);
+          acc[r][g] = fmaf(hv.z, w[4 * j + 2][g], acc[r][g]);
+          acc[r][g] = fmaf(hv.w, w[4 * j + 3][g], acc[r][g]);
+        }
+      }
+    }
+    STEP_CLOCK(0)  // fetch + product
+    butterfly_stage<8>(acc, s);
+    butterfly_stage<4>(acc, s);
+    butterfly_stage<2>(acc, s);
+    butterfly_stage<1>(acc, s);
+    STEP_CLOCK(1)  // butterfly
+
+    const float* in = in_s + (cur * kClusterRows + s) * IN + ul;
+    const float hk = h_cur[rank * PSTRIDE + s * U + ul];
+    const float rg = sigmoid_f(in[0] + acc[0][0]);
+    const float z = sigmoid_f(in[U] + acc[0][1]);
+    const float n = tanhf(in[2 * U] + rg * (acc[0][2] + bh));
+    const float h_new = (1.0f - z) * n + z * hk;
+    STEP_CLOCK(2)  // gates
+    float* piece = h_s + ((cur ^ 1) * kCluster + rank) * PSTRIDE;
+    piece[s * U + ul] = valid ? h_new * in[3 * U] : 0.0f;
+    float* out = out_s + cur * kClusterRows * OUT;
+    out[s * OUT + ul] = h_new;
+    stash(t + 1, next_in);
+    STEP_CLOCK(3)  // stage
+    publish_to_copies();
+    __syncthreads();
+    if (threadIdx.x < kCluster && threadIdx.x != rank) {
+      copy_to_peer(peer_address(piece, threadIdx.x), piece, sizeof(float) * PIECE,
+                   peer_address(&full[cur ^ 1], threadIdx.x));
+    }
+    if (threadIdx.x < 4 * U) {
+      const int r = threadIdx.x / (U / 4), q = threadIdx.x % (U / 4);
+      if (r < nrows) {
+        *reinterpret_cast<float4*>(hs + ((size_t)t * B + row0 + r) * H + rank * U + 4 * q) =
+            *reinterpret_cast<const float4*>(out + r * OUT + 4 * q);
+      }
+    }
+    STEP_CLOCK(4)  // fence + block barrier + copies + hs store
+    // The whole new carry has landed here. The buffer's barrier is used every
+    // second step.
+    barrier_wait(&full[cur ^ 1], (t >> 1) & 1);
+    STEP_CLOCK(5)  // wait for the peers' pieces
+  }
+  STEP_CLOCKS_END(0)
+  // No block leaves while a copy out of its shared memory may still be read:
+  // every peer gets here only after its last wait, i.e. with all copies landed.
+  cluster.sync();
+}
+
+// K2p. Grid: (ceil(T*B / 32), ceil(H / 32)), 256 threads. Thread (tx, ty) owns
+// unit u0 + tx of rows n0 + ty + 8q, q < 4, with the three gates' sums.
+__global__ void __launch_bounds__(kGateThreads)
+gru_bwd_gates_kernel(const float* __restrict__ gates_i, const float* __restrict__ keep,
+                     const float* __restrict__ h0, const float* __restrict__ w_h,
+                     const float* __restrict__ b_hn, const float* __restrict__ hs,
+                     float* __restrict__ gates, int T, int B, int H) {
+  __shared__ float a_s[kGateTile][kGateTile + 1];     // (hprev * keep)[n0 + rr][k0 + cc]
+  __shared__ float b_s[3][kGateTile][kGateTile + 1];  // Wh[k0 + kk][g*H + u0 + uu]
+  constexpr int kRowStep = kGateThreads / kGateTile;  // 8
+  constexpr int kPerThread = kGateTile / kRowStep;    // 4
+  const int H3 = 3 * H;
+  const int N = T * B;
+  const int n0 = blockIdx.x * kGateTile, u0 = blockIdx.y * kGateTile;
+  const int tx = threadIdx.x % kGateTile, ty = threadIdx.x / kGateTile;
+
+  float acc[kPerThread][3];
+#pragma unroll
+  for (int q = 0; q < kPerThread; ++q) acc[q][0] = acc[q][1] = acc[q][2] = 0.0f;
+
+  for (int k0 = 0; k0 < H; k0 += kGateTile) {
+    for (int i = threadIdx.x; i < kGateTile * kGateTile; i += kGateThreads) {
+      const int rr = i / kGateTile, cc = i % kGateTile;
+      const int n = n0 + rr, k = k0 + cc;
+      float a = 0.0f;
+      if (n < N && k < H) {
+        const int t = n / B, row = n % B;
+        const float hp = t == 0 ? h0[(size_t)row * H + k]
+                                : hs[((size_t)(t - 1) * B + row) * H + k];
+        a = hp * keep[(size_t)n * H + k];
+      }
+      a_s[rr][cc] = a;
+    }
+    for (int i = threadIdx.x; i < 3 * kGateTile * kGateTile; i += kGateThreads) {
+      const int g = i / (kGateTile * kGateTile), kk = (i / kGateTile) % kGateTile;
+      const int uu = i % kGateTile;
+      const int k = k0 + kk, u = u0 + uu;
+      b_s[g][kk][uu] = (k < H && u < H) ? w_h[(size_t)k * H3 + g * H + u] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kGateTile; ++kk) {
+      const float b0 = b_s[0][kk][tx], b1 = b_s[1][kk][tx], b2 = b_s[2][kk][tx];
+#pragma unroll
+      for (int q = 0; q < kPerThread; ++q) {
+        const float a = a_s[ty + q * kRowStep][kk];
+        acc[q][0] = fmaf(a, b0, acc[q][0]);
+        acc[q][1] = fmaf(a, b1, acc[q][1]);
+        acc[q][2] = fmaf(a, b2, acc[q][2]);
+      }
+    }
+    __syncthreads();
+  }
+  const int u = u0 + tx;
+  if (u >= H) return;
+  const float bh = b_hn[u];
+#pragma unroll
+  for (int q = 0; q < kPerThread; ++q) {
+    const int n = n0 + ty + q * kRowStep;
+    if (n >= N) continue;
+    const float* g = gates_i + (size_t)n * H3 + u;
+    const float rg = sigmoid_f(g[0] + acc[q][0]);
+    const float z = sigmoid_f(g[H] + acc[q][1]);
+    const float hnb = acc[q][2] + bh;
+    *reinterpret_cast<float4*>(gates + ((size_t)n * H + u) * 4) =
+        make_float4(rg, z, tanhf(g[2 * H] + rg * hnb), hnb);
+  }
+}
+
+// K2a, resident route. Grid as K1; H * RH threads. In the product thread
+// (k, rh) = (tid % H, tid / H) owns dh[rows of half rh][k] and keeps
+// Wh[k, own 3U columns] in registers. The product is bound by its reads of dgh
+// from shared memory: each lane gets its own copy of a value the whole warp
+// shares. (Two k a lane, with half the threads, halved those reads and came out
+// no faster to speak of at T=128, H=128 on an H100: not kept.) In the
+// elementwise phases thread slots (s, ul) = (slot % 16, slot / 16) own
+// (row s, unit ul), SPT slots a thread.
+// As in K1, global memory is touched in runs of 64 bytes and more: step t-1's
+// gates, g_hs, keep and hprev come in as float4s, through registers, while step
+// t computes, and dgates_i and dgh leave through a staging tile.
+template <int H, int RH>
+__global__ void __launch_bounds__(H * RH, 1)
+gru_bwd_recurrence_resident_kernel(const float* __restrict__ gates,
+                                   const float* __restrict__ keep,
+                                   const float* __restrict__ h0,
+                                   const float* __restrict__ w_h,
+                                   const float* __restrict__ hs,
+                                   const float* __restrict__ g_hs, float* __restrict__ dgates,
+                                   float* __restrict__ dgh, float* __restrict__ dh0, int T,
+                                   int B) {
+  constexpr int U = H / kCluster;
+  constexpr int C3 = 3 * U;                      // this block's columns of Wh
+  constexpr int NT = H * RH;                     // threads
+  constexpr int RPT = kClusterRows / RH;         // rows per thread in the product
+  constexpr int SPT = kClusterRows * U / NT;     // (row, unit) slots per thread
+  constexpr int H3 = 3 * H;
+  constexpr int PIECE = U * kClusterRows;
+  constexpr int IN = bwd_in_stride(U), OUT = bwd_out_stride(U);
+  static_assert(kClusterRows * U % NT == 0 && RPT % 4 == 0 && U % 4 == 0, "thread layout");
+  extern __shared__ __align__(16) float smem[];
+  float* dgh_s = smem;                             // [C3][16]: own columns of dgh
+  float* od_s = dgh_s + C3 * kClusterRows;         // [16][OUT]: dar, daz, dan, dan*r to store
+  float* part_s = od_s + kClusterRows * OUT;       // [2][source block][U][16]: partials in
+  float* out_s = part_s + 2 * kCluster * PIECE;    // [2][H][16]: partials out, piece c to block c
+  float* in_s = out_s + 2 * kCluster * PIECE;      // [2][16][IN]: the step's inputs
+  __shared__ __align__(8) unsigned long long full[2];  // full[b]: part_s[b] has landed
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int row0 = (blockIdx.x / kCluster) * kClusterRows;
+  const int nrows = min(kClusterRows, B - row0);
+  const int k = threadIdx.x % H;
+  const int rh = threadIdx.x / H;
+
+  float w[C3];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+#pragma unroll
+    for (int i = 0; i < U; ++i) w[g * U + i] = w_h[(size_t)k * H3 + g * H + rank * U + i];
+  }
+
+  // A step's inputs, a float4 a piece: per row [r,z,n,hnb of each unit | g_hs |
+  // keep | hprev], all independent of the reverse carry. Piece c = tid + i NT
+  // is float4 number c % CH of row c / CH. Rows past B read as zeros, which
+  // makes every cotangent of theirs zero.
+  constexpr int CH = 7 * U / 4;                               // pieces per row
+  constexpr int CPT = (kClusterRows * CH + NT - 1) / NT;      // pieces per thread
+  const float* p_from[CPT];  // the piece's place in its array at step 0
+  size_t p_stride[CPT];      // and how far it moves per step
+  int p_to[CPT];             // its place in a shared tile, -1 for no piece
+  bool p_on[CPT], p_hprev[CPT];
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) {
+    const int c = threadIdx.x + i * NT;
+    const int r = c / CH, o = 4 * (c % CH);
+    const size_t row = (size_t)row0 + r;
+    p_to[i] = c < kClusterRows * CH ? r * IN + o : -1;
+    p_on[i] = c < kClusterRows * CH && r < nrows;
+    p_hprev[i] = o >= 6 * U;
+    p_stride[i] = (size_t)B * (o < 4 * U ? 4 * H : H);
+    if (o < 4 * U) {
+      p_from[i] = gates + row * 4 * H + rank * 4 * U + o;
+    } else if (o < 5 * U) {
+      p_from[i] = g_hs + row * H + rank * U + (o - 4 * U);
+    } else if (o < 6 * U) {
+      p_from[i] = keep + row * H + rank * U + (o - 5 * U);
+    } else {
+      p_from[i] = h0 + row * H + rank * U + (o - 6 * U);  // step 0; later hs[step - 1]
+    }
+  }
+  auto fetch = [&](int step, float4 (&v)[CPT]) {
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const float* from = p_from[i] + step * p_stride[i];
+      if (p_hprev[i] && step > 0) from = hs + (from - h0) - p_stride[i];
+      v[i] = p_on[i] && step >= 0 ? __ldg(reinterpret_cast<const float4*>(from))
+                                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  };
+  auto stash = [&](int step, const float4 (&v)[CPT]) {
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      if (p_to[i] >= 0) {
+        *reinterpret_cast<float4*>(in_s + (step & 1) * kClusterRows * IN + p_to[i]) = v[i];
+      }
+    }
+  };
+
+  float4 next_in[CPT];
+  fetch(T - 1, next_in);
+  stash(T - 1, next_in);
+  float dh[SPT];
+#pragma unroll
+  for (int i = 0; i < SPT; ++i) dh[i] = 0.0f;
+  if (threadIdx.x == 0) barrier_init(full, 2);
+  // All blocks of the cluster have started and set up their barriers before
+  // the first copy.
+  cluster.sync();
+
+  STEP_CLOCKS_BEGIN
+  for (int t = T - 1; t >= 0; --t) {
+    const int buf = t & 1;
+    if (threadIdx.x == 0) {
+      barrier_expect(&full[buf], sizeof(float) * kCluster * PIECE);
+    }
+    fetch(t - 1, next_in);  // off the chain
+    STEP_CLOCK(0)  // fetch
+
+    // Gate cotangents of this thread's slots.
+    float dz_direct[SPT], keep_t[SPT];
+#pragma unroll
+    for (int i = 0; i < SPT; ++i) {
+      const int slot = threadIdx.x + i * NT;
+      const int s = slot % 16, ul = slot / 16;
+      const float* in = in_s + (buf * kClusterRows + s) * IN;
+      const float4 q = *reinterpret_cast<const float4*>(in + 4 * ul);
+      const float rg = q.x, z = q.y, n = q.z, hnb = q.w;
+      keep_t[i] = in[5 * U + ul];
+      const float hk = in[6 * U + ul] * keep_t[i];
+      const float d = in[4 * U + ul] + dh[i];
+      const float dn = d * (1.0f - z);
+      const float dz = d * (hk - n);
+      const float dan = dn * (1.0f - n * n);
+      const float dar = dan * hnb * rg * (1.0f - rg);
+      const float daz = dz * z * (1.0f - z);
+      const float dgn = dan * rg;
+      float* mine = dgh_s + ul * kClusterRows + s;
+      mine[0] = dar;
+      mine[PIECE] = daz;
+      mine[2 * PIECE] = dgn;
+      float* od = od_s + s * OUT + ul;
+      od[0] = dar;
+      od[U] = daz;
+      od[2 * U] = dan;
+      od[3 * U] = dgn;
+      dz_direct[i] = d * z;
+    }
+    STEP_CLOCK(1)  // gate cotangents
+    __syncthreads();
+    STEP_CLOCK(2)  // block barrier
+
+    // dgates_i = [dar, daz, dan] and dgh = [dar, daz, dan*r] of this block's units.
+    for (int c = threadIdx.x; c < kClusterRows * 6 * (U / 4); c += NT) {
+      const int r = c / (6 * (U / 4)), a = (c % (6 * (U / 4))) / (U / 4), q = c % (U / 4);
+      if (r >= nrows) continue;
+      const int seg = a < 3 ? a : (a == 5 ? 3 : a - 3);
+      float* to = (a < 3 ? dgates : dgh) + ((size_t)t * B + row0 + r) * H3 + (a % 3) * H +
+                  rank * U + 4 * q;
+      *reinterpret_cast<float4*>(to) =
+          *reinterpret_cast<const float4*>(od_s + r * OUT + seg * U + 4 * q);
+    }
+
+    // Partial dgh @ Wh^T over this block's columns, for k and RPT rows.
+    float acc[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) acc[r] = 0.0f;
+    const float* dgh_rows = dgh_s + rh * RPT;
+#pragma unroll
+    for (int j = 0; j < C3; ++j) {
+#pragma unroll
+      for (int r4 = 0; r4 < RPT / 4; ++r4) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(dgh_rows + j * kClusterRows + 4 * r4);
+        acc[4 * r4 + 0] = fmaf(v.x, w[j], acc[4 * r4 + 0]);
+        acc[4 * r4 + 1] = fmaf(v.y, w[j], acc[4 * r4 + 1]);
+        acc[4 * r4 + 2] = fmaf(v.z, w[j], acc[4 * r4 + 2]);
+        acc[4 * r4 + 3] = fmaf(v.w, w[j], acc[4 * r4 + 3]);
+      }
+    }
+    STEP_CLOCK(3)  // stores + product
+    float* out = out_s + buf * kCluster * PIECE;
+#pragma unroll
+    for (int r4 = 0; r4 < RPT / 4; ++r4) {
+      *reinterpret_cast<float4*>(out + k * kClusterRows + rh * RPT + 4 * r4) =
+          make_float4(acc[4 * r4], acc[4 * r4 + 1], acc[4 * r4 + 2], acc[4 * r4 + 3]);
+    }
+    stash(t - 1, next_in);
+    publish_to_copies();
+    // Also orders this step's reads of dgh_s, od_s and in_s before the next
+    // step's writes to them.
+    __syncthreads();
+    float* part = part_s + buf * kCluster * PIECE;
+    if (threadIdx.x < kCluster) {
+      // The partials for the units of block `threadIdx.x`, into its slot for this block.
+      copy_to_peer(peer_address(part + rank * PIECE, threadIdx.x), out + threadIdx.x * PIECE,
+                   sizeof(float) * PIECE, peer_address(&full[buf], threadIdx.x));
+    }
+    STEP_CLOCK(4)  // stage + fence + block barrier + copies
+    // All 8 partials for this block's units have landed. A peer can only be one
+    // step ahead and writes the other buffer; it reaches this one again on this
+    // block's next output, sent after the sums below are read.
+    barrier_wait(&full[buf], ((T - 1 - t) >> 1) & 1);
+    STEP_CLOCK(5)  // wait for the peers' partials
+
+    // dh = (d*z + dgh @ Wh^T) * keep, through the reset into h_{t-1}; the
+    // partials are added in block order.
+#pragma unroll
+    for (int i = 0; i < SPT; ++i) {
+      const int slot = threadIdx.x + i * NT;
+      const int s = slot % 16, ul = slot / 16;
+      const float* mine = part + ul * kClusterRows + s;
+      float sum = mine[0];
+#pragma unroll
+      for (int c = 1; c < kCluster; ++c) sum += mine[c * PIECE];
+      dh[i] = (dz_direct[i] + sum) * keep_t[i];
+    }
+    STEP_CLOCK(6)  // sum of the partials
+  }
+#pragma unroll
+  for (int i = 0; i < SPT; ++i) {
+    const int slot = threadIdx.x + i * NT;
+    const int s = slot % 16, ul = slot / 16;
+    if (s < nrows) dh0[(size_t)(row0 + s) * H + rank * U + ul] = dh[i];
+  }
+  STEP_CLOCKS_END(1)
+  // As in K1: all copies out of this block's shared memory have landed.
+  cluster.sync();
+}
+
 int block_threads(int H) {
   const int want = (3 * H + 31) / 32 * 32;
   return want < kMaxThreads ? want : kMaxThreads;
@@ -282,41 +913,167 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// Launch `kernel` in clusters of kCluster blocks on `stream`. `checked` caches,
+// per kernel, that the card can co-schedule one such cluster.
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), bool& checked, int B, int threads,
+                            size_t smem, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kCluster * ((B + kClusterRows - 1) / kClusterRows));
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeClusterDimension;
+  attribute[0].val.clusterDim.x = kCluster;
+  attribute[0].val.clusterDim.y = 1;
+  attribute[0].val.clusterDim.z = 1;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  if (!checked) {
+    cudaError_t err = set_smem((const void*)kernel, smem);
+    if (err != cudaSuccess) return err;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorLaunchOutOfResources;
+    checked = true;
+  }
+  return cudaLaunchKernelEx(&config, kernel, args...);
+}
+
+constexpr int bwd_row_halves(int H) { return H <= 128 ? 2 : 1; }
+
+template <int H>
+cudaError_t launch_fwd_resident(const float* gates_i, const float* keep, const float* h0,
+                                const float* w_h, const float* b_hn, float* hs, int T, int B,
+                                cudaStream_t stream) {
+  static bool checked = false;
+  return launch_clusters(gru_fwd_resident_kernel<H>, checked, B,
+                         kClusterRows * (H / kCluster),
+                         sizeof(float) * fwd_resident_floats(H / kCluster), stream, gates_i,
+                         keep, h0, w_h, b_hn, hs, T, B);
+}
+
+template <int H>
+cudaError_t launch_bwd_resident(const float* gates, const float* keep, const float* h0,
+                                const float* w_h, const float* hs, const float* g_hs,
+                                float* dgates, float* dgh, float* dh0, int T, int B,
+                                cudaStream_t stream) {
+  static bool checked = false;
+  constexpr int RH = bwd_row_halves(H);
+  return launch_clusters(gru_bwd_recurrence_resident_kernel<H, RH>, checked, B, H * RH,
+                         sizeof(float) * bwd_resident_floats(H / kCluster), stream, gates, keep,
+                         h0, w_h, hs, g_hs, dgates, dgh, dh0, T, B);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Each entry returns cudaGetLastError() after its launches (0 = success).
+// Each entry returns the launch's error code (0 = success) and never
+// synchronises. `cluster` is 0 for the streaming route and kCluster for the
+// resident one; the caller chooses by shape.
 
+// Shared memory and threads of the resident kernels for H, as
+// {cluster, K1 threads, K1 bytes, K2a threads, K2a bytes}; returns 1 where the
+// resident route does not take H.
+int gru_sequence_resident_config(int H, int* out) {
+  if (H < 64 || H > 256 || H % 64 != 0) return 1;
+  const int U = H / kCluster, RH = bwd_row_halves(H);
+  out[0] = kCluster;
+  out[1] = kClusterRows * U;
+  out[2] = (int)sizeof(float) * fwd_resident_floats(U) + 16;
+  out[3] = H * RH;
+  out[4] = (int)sizeof(float) * bwd_resident_floats(U) + 16;
+  return 0;
+}
+
+// K1.
 int gru_sequence_fwd(const float* gates_i, const float* keep, const float* h0,
                      const float* w_h, const float* b_hn, float* hs, int T, int B, int H,
-                     void* stream) {
+                     int cluster, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (cluster == kCluster) {
+    switch (H) {
+      case 64: return (int)launch_fwd_resident<64>(gates_i, keep, h0, w_h, b_hn, hs, T, B, st);
+      case 128: return (int)launch_fwd_resident<128>(gates_i, keep, h0, w_h, b_hn, hs, T, B, st);
+      case 192: return (int)launch_fwd_resident<192>(gates_i, keep, h0, w_h, b_hn, hs, T, B, st);
+      case 256: return (int)launch_fwd_resident<256>(gates_i, keep, h0, w_h, b_hn, hs, T, B, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (cluster != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * kRows * 4 * H;
   cudaError_t err = set_smem((const void*)gru_fwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + kRows - 1) / kRows);
-  gru_fwd_kernel<<<grid, block_threads(H), smem, (cudaStream_t)stream>>>(
-      gates_i, keep, h0, w_h, b_hn, hs, T, B, H);
+  gru_fwd_kernel<<<grid, block_threads(H), smem, st>>>(gates_i, keep, h0, w_h, b_hn, hs, T, B,
+                                                       H);
   return (int)cudaGetLastError();
 }
 
-int gru_sequence_bwd(const float* gates_i, const float* keep, const float* h0,
-                     const float* w_h, const float* w_h_t, const float* b_hn,
-                     const float* hs, const float* g_hs, float* dgates, float* dgh,
-                     float* dh0, float* dwh, float* dbhn, int T, int B, int H,
-                     void* stream) {
+// K2p: gates (T,B,H,4) = r, z, n, hnb of each unit, recomputed from hprev = [h0, hs[:-1]].
+int gru_sequence_bwd_gates(const float* gates_i, const float* keep, const float* h0,
+                           const float* w_h, const float* b_hn, const float* hs, float* gates,
+                           int T, int B, int H, void* stream) {
+  const dim3 grid((T * B + kGateTile - 1) / kGateTile, (H + kGateTile - 1) / kGateTile);
+  gru_bwd_gates_kernel<<<grid, kGateThreads, 0, (cudaStream_t)stream>>>(
+      gates_i, keep, h0, w_h, b_hn, hs, gates, T, B, H);
+  return (int)cudaGetLastError();
+}
+
+// K2a. The resident route reads `gates` (K2p's output); the streaming route
+// reads gates_i, b_hn and the transposed copy w_h_t and recomputes in its loop.
+int gru_sequence_bwd_recurrence(const float* gates_i, const float* keep, const float* h0,
+                                const float* w_h, const float* w_h_t, const float* b_hn,
+                                const float* hs, const float* g_hs, const float* gates,
+                                float* dgates, float* dgh, float* dh0, int T, int B, int H,
+                                int cluster, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (cluster == kCluster) {
+    switch (H) {
+      case 64:
+        return (int)launch_bwd_resident<64>(gates, keep, h0, w_h, hs, g_hs, dgates, dgh, dh0, T,
+                                            B, st);
+      case 128:
+        return (int)launch_bwd_resident<128>(gates, keep, h0, w_h, hs, g_hs, dgates, dgh, dh0,
+                                             T, B, st);
+      case 192:
+        return (int)launch_bwd_resident<192>(gates, keep, h0, w_h, hs, g_hs, dgates, dgh, dh0,
+                                             T, B, st);
+      case 256:
+        return (int)launch_bwd_resident<256>(gates, keep, h0, w_h, hs, g_hs, dgates, dgh, dh0,
+                                             T, B, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (cluster != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * kRows * 5 * H;
   cudaError_t err = set_smem((const void*)gru_bwd_recurrence_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid_a((B + kRows - 1) / kRows);
-  gru_bwd_recurrence_kernel<<<grid_a, block_threads(H), smem, (cudaStream_t)stream>>>(
+  const dim3 grid((B + kRows - 1) / kRows);
+  gru_bwd_recurrence_kernel<<<grid, block_threads(H), smem, st>>>(
       gates_i, keep, h0, w_h, w_h_t, b_hn, hs, g_hs, dgates, dgh, dh0, T, B, H);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_b((3 * H + kTile - 1) / kTile, (H + 1 + kTile - 1) / kTile);
-  gru_bwd_reduce_kernel<<<grid_b, kReduceThreads, 0, (cudaStream_t)stream>>>(
+  return (int)cudaGetLastError();
+}
+
+// K2b.
+int gru_sequence_bwd_reduce(const float* keep, const float* h0, const float* hs,
+                            const float* dgh, float* dwh, float* dbhn, int T, int B, int H,
+                            void* stream) {
+  const dim3 grid((3 * H + kTile - 1) / kTile, (H + 1 + kTile - 1) / kTile);
+  gru_bwd_reduce_kernel<<<grid, kReduceThreads, 0, (cudaStream_t)stream>>>(
       keep, h0, hs, dgh, dwh, dbhn, T, B, H);
   return (int)cudaGetLastError();
 }
+
+#ifdef GRU_STEP_CLOCKS
+// Cycles per phase, summed over the steps of the last K1 ([0..8)) and K2a
+// ([8..16)) launches. Synchronises.
+int gru_sequence_step_clocks(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_step_clocks, sizeof(long long) * 16);
+}
+#endif
 
 }  // extern "C"

@@ -12,16 +12,27 @@ encodes the boolean reset mask).
 
 Dispatch is by the device of the tensors and nothing else:
   * CPU tensors go to the plain PyTorch versions in this module,
-    `gru_sequence_reference` and `gru_sequence_backward_reference`;
-  * CUDA tensors go to the hand-written kernels of `csrc/gru_sequence.cu`
-    (K1 forward; K2a reverse recurrence + K2b deterministic dWh/db_hn
-    reduction), built with nvcc for sm_90a on first use into `build/kernels/`
-    and bound with ctypes. A CUDA tensor never falls back to the plain version:
-    a build or launch failure raises.
+    `gru_sequence_reference` and `gru_sequence_backward_reference` (and, for the
+    backward's three passes one by one, `gru_backward_gates_reference`,
+    `gru_backward_recurrence_reference`, `gru_backward_reduce_reference`);
+  * CUDA tensors go to the hand-written kernels of `csrc/gru_sequence.cu`, built
+    with nvcc for sm_90a on first use into `build/kernels/` and bound with
+    ctypes. A CUDA tensor never falls back to a plain version: a build or launch
+    failure raises.
 
-`fwd_launches` and `bwd_launches` count kernel launches (one per forward call,
-one per backward call, which runs K2a then K2b); the plain versions leave
-them alone.
+Which hand-written kernels a shape takes is `kernel_route(T, B, H)`, a pure
+function of the shape:
+  * "resident" (H a multiple of 64 up to 256): K1 forward and K2a reverse
+    recurrence run on clusters of 8 thread blocks that split the hidden units
+    and keep their slice of Wh in registers for the whole sequence; the gate
+    recompute of the backward is a parallel pre-pass, K2p;
+  * "streaming" (every other H up to 1024): one block per 8 rows reads Wh from
+    L2 each step and the backward recomputes the gates inside its loop.
+Both end with K2b, the deterministic dWh / db_hn reduction.
+
+`fwd_launches` and `bwd_launches` count calls that launched kernels (one per
+forward call, one per backward call); `kernel_launches` counts each kernel by
+name. The plain versions leave them alone.
 """
 
 from __future__ import annotations
@@ -32,7 +43,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -44,14 +55,97 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 MAX_HIDDEN = 1024
+SMEM_LIMIT = 232_448  # bytes of shared memory one block can use on an H100
+CLUSTER = 8  # blocks per cluster on the resident route (the portable maximum)
+CLUSTER_ROWS = 16  # batch rows per cluster on the resident route
+STREAM_ROWS = 8  # batch rows per block on the streaming route
+STREAMING = "streaming"
+
+# For measurements and tests only: `STREAMING` sends every CUDA call to the
+# streaming kernels whatever its shape, so that they can be checked and timed
+# at the shapes the resident kernels take. None in normal use.
+forced_route: Optional[str] = None
 
 fwd_launches = 0
 bwd_launches = 0
+KERNELS = ("fwd", "bwd_gates", "bwd_recurrence", "bwd_reduce")
+kernel_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
-_lib: Optional[ctypes.CDLL] = None
+
+def reset_launch_counts() -> None:
+    global fwd_launches, bwd_launches
+    fwd_launches = bwd_launches = 0
+    for name in KERNELS:
+        kernel_launches[name] = 0
+
+
+class KernelRoute(NamedTuple):
+    """Which hand-written kernels a shape takes, and their launch geometry."""
+
+    route: str  # "resident" or "streaming"
+    cluster: int  # blocks per cluster; 1 on the streaming route
+    fwd_threads: int
+    fwd_smem: int  # bytes of shared memory per block, K1
+    bwd_threads: int
+    bwd_smem: int  # bytes of shared memory per block, K2a
+    blocks: int  # blocks of K1 and of K2a
+
+
+def _check_dims(t_len: int, b: int, h: int) -> None:
+    if t_len < 1 or b < 1 or not 1 <= h <= MAX_HIDDEN:
+        raise ValueError(
+            f"gru_sequence: need T >= 1, B >= 1 and 1 <= H <= {MAX_HIDDEN}, "
+            f"got T={t_len}, B={b}, H={h}"
+        )
+
+
+def kernel_route(t_len: int, b: int, h: int) -> KernelRoute:
+    """The route of a (T, B, H) problem, from the shape alone.
+
+    The resident route splits H over 8 blocks, 16 lanes share a unit's product
+    and read the carry as float4, so it takes H % 64 == 0; up to H = 256 a
+    thread's slice of Wh (3H/16 floats forward, 3H/8 backward) fits its
+    registers. T and B do not matter: a cluster takes 16 rows, ragged or not.
+    """
+    _check_dims(t_len, b, h)
+    if h % 64 == 0 and h <= 256:
+        units = h // CLUSTER
+        return KernelRoute(
+            route="resident",
+            cluster=CLUSTER,
+            fwd_threads=CLUSTER_ROWS * units,
+            fwd_smem=4 * (2 * CLUSTER * (CLUSTER_ROWS * units + 16)
+                          + 2 * CLUSTER_ROWS * (4 * units + 4)
+                          + 2 * CLUSTER_ROWS * (units + 4)) + 16,
+            bwd_threads=h * (2 if h <= 128 else 1),
+            bwd_smem=4 * (3 * units * CLUSTER_ROWS + CLUSTER_ROWS * (4 * units + 4)
+                          + 4 * CLUSTER * units * CLUSTER_ROWS
+                          + 2 * CLUSTER_ROWS * (7 * units + 4)) + 16,
+            blocks=CLUSTER * -(-b // CLUSTER_ROWS),
+        )
+    threads = min(-(-3 * h // 32) * 32, 512)
+    return KernelRoute(
+        route=STREAMING,
+        cluster=1,
+        fwd_threads=threads,
+        fwd_smem=4 * STREAM_ROWS * 4 * h,
+        bwd_threads=threads,
+        bwd_smem=4 * STREAM_ROWS * 5 * h,
+        blocks=-(-b // STREAM_ROWS),
+    )
+
+
+# The loaded libraries: the kernels as the port runs them (False) and the same
+# kernels with per-phase clock marks compiled in (True, `measure_step_clocks`).
+_libs: Dict[bool, ctypes.CDLL] = {}
 # What nvcc printed (ptxas register and shared-memory use) for the library this
 # process built; empty when it was loaded from the build directory.
 build_log = ""
+PHASES = {
+    "fwd": ("fetch+product", "butterfly", "gates", "stage", "fence+barrier+copies+store", "wait"),
+    "bwd_recurrence": ("fetch", "gate cotangents", "block barrier", "stores+product",
+                       "stage+fence+barrier+copies", "wait", "sum of partials"),
+}
 
 
 # --------------------------------------------------------------------------- plain versions
@@ -117,6 +211,51 @@ def gru_sequence_backward_reference(
     return dgates, dh, dwh, dbhn
 
 
+def _hprev(h0: torch.Tensor, hs: torch.Tensor) -> torch.Tensor:
+    return torch.cat([h0[None], hs[:-1]], dim=0)
+
+
+def gru_backward_gates_reference(gates_i, keep, h0, w_h, b_hn, hs) -> torch.Tensor:
+    """Plain K2p: the gates of every step, recomputed from hprev = [h0, hs[:-1]].
+    Returns (T,B,4H), for each unit its (r, z, n, hnb) side by side, with
+    hnb = ((hprev*keep) @ Wh)n + b_hn."""
+    xr, xz, xn = gates_i.chunk(3, dim=-1)
+    hr, hz, hn = ((_hprev(h0, hs) * keep) @ w_h).chunk(3, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    hnb = hn + b_hn
+    return torch.stack([r, z, torch.tanh(xn + r * hnb), hnb], dim=-1).flatten(-2)
+
+
+def gru_backward_recurrence_reference(gates, keep, h0, w_h, hs, g_hs):
+    """Plain K2a on recomputed gates: the reverse loop alone. Returns
+    (dgates_i, dgh, dh0) with dgh = [dar, daz, dan*r] (T,B,3H)."""
+    r, z, n, hnb = gates.unflatten(-1, (-1, 4)).unbind(-1)
+    hk = _hprev(h0, hs) * keep
+    dh = torch.zeros_like(h0)
+    dgates = torch.empty_like(gates[..., : 3 * h0.shape[-1]])
+    dgh = torch.empty_like(dgates)
+    for t in reversed(range(gates.shape[0])):
+        d = g_hs[t] + dh
+        dn = d * (1.0 - z[t])
+        dz = d * (hk[t] - n[t])
+        dan = dn * (1.0 - n[t] * n[t])
+        dar = (dan * hnb[t]) * r[t] * (1.0 - r[t])
+        daz = dz * z[t] * (1.0 - z[t])
+        dgates[t] = torch.cat([dar, daz, dan], dim=-1)
+        dgh[t] = torch.cat([dar, daz, dan * r[t]], dim=-1)
+        dh = (d * z[t] + dgh[t] @ w_h.T) * keep[t]
+    return dgates, dgh, dh
+
+
+def gru_backward_reduce_reference(keep, h0, hs, dgh):
+    """Plain K2b: dWh = sum_{t,b} (hprev*keep)^T dgh and db_hn = sum dgh_n."""
+    h = h0.shape[-1]
+    hk = (_hprev(h0, hs) * keep).reshape(-1, h)
+    flat = dgh.reshape(-1, 3 * h)
+    return hk.T @ flat, flat[:, 2 * h :].sum(0)
+
+
 # --------------------------------------------------------------------------- build and bind
 def _nvcc() -> str:
     found = shutil.which("nvcc")
@@ -128,32 +267,46 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the GRU kernels need the CUDA toolkit to build.")
 
 
-def build_kernels() -> ctypes.CDLL:
-    """Build `csrc/gru_sequence.cu` (once per source hash) and load it."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    key = hashlib.sha256(_SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+def build_kernels(step_clocks: bool = False) -> ctypes.CDLL:
+    """Build `csrc/gru_sequence.cu` (once per source hash and flag set) and load
+    it. `step_clocks` builds the variant with -DGRU_STEP_CLOCKS."""
+    global build_log
+    if step_clocks in _libs:
+        return _libs[step_clocks]
+    flags = NVCC_FLAGS + (("-DGRU_STEP_CLOCKS",) if step_clocks else ())
+    key = hashlib.sha256(_SOURCE.read_bytes() + " ".join(flags).encode())
     out = BUILD_DIR / f"libgru_sequence_{key.hexdigest()[:16]}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
+            [_nvcc(), *flags, "-o", str(tmp), str(_SOURCE)],
             capture_output=True,
             text=True,
         )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {_SOURCE}:\n{proc.stderr}")
         os.replace(tmp, out)
-        build_log = proc.stderr + proc.stdout
+        if not step_clocks:
+            build_log = proc.stderr + proc.stdout
     lib = ctypes.CDLL(str(out))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gru_sequence_fwd.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
-    lib.gru_sequence_fwd.restype = i32
-    lib.gru_sequence_bwd.argtypes = [ptr] * 13 + [i32] * 3 + [ptr]
-    lib.gru_sequence_bwd.restype = i32
-    _lib = lib
+    for name, pointers in (
+        ("gru_sequence_fwd", 6),
+        ("gru_sequence_bwd_gates", 7),
+        ("gru_sequence_bwd_recurrence", 12),
+        ("gru_sequence_bwd_reduce", 6),
+    ):
+        fn = getattr(lib, name)
+        ints = 4 if name in ("gru_sequence_fwd", "gru_sequence_bwd_recurrence") else 3
+        fn.argtypes = [ptr] * pointers + [i32] * ints + [ptr]
+        fn.restype = i32
+    lib.gru_sequence_resident_config.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.gru_sequence_resident_config.restype = i32
+    if step_clocks:
+        lib.gru_sequence_step_clocks.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+        lib.gru_sequence_step_clocks.restype = i32
+    _libs[step_clocks] = lib
     return lib
 
 
@@ -166,6 +319,8 @@ def _check(name: str, x: torch.Tensor, shape: Tuple[int, ...], device: torch.dev
         raise ValueError(f"gru_sequence: {name} has shape {tuple(x.shape)}, expected {shape}")
     if not x.is_contiguous():
         raise ValueError(f"gru_sequence: {name} must be contiguous")
+    if x.is_cuda and x.data_ptr() % 16 != 0:  # the kernels move float4s
+        raise ValueError(f"gru_sequence: {name} must be 16-byte aligned")
 
 
 def _check_inputs(gates_i, keep, h0, w_h, b_hn) -> Tuple[int, int, int]:
@@ -173,11 +328,7 @@ def _check_inputs(gates_i, keep, h0, w_h, b_hn) -> Tuple[int, int, int]:
         raise ValueError(f"gru_sequence: gates_i must be (T, B, 3H), got {tuple(gates_i.shape)}")
     t_len, b, h3 = gates_i.shape
     h = h3 // 3
-    if t_len < 1 or b < 1 or not 1 <= h <= MAX_HIDDEN:
-        raise ValueError(
-            f"gru_sequence: need T >= 1, B >= 1 and 1 <= H <= {MAX_HIDDEN}, "
-            f"got T={t_len}, B={b}, H={h}"
-        )
+    _check_dims(t_len, b, h)
     dev = gates_i.device
     _check("gates_i", gates_i, (t_len, b, h3), dev)
     _check("keep", keep, (t_len, b, h), dev)
@@ -189,8 +340,8 @@ def _check_inputs(gates_i, keep, h0, w_h, b_hn) -> Tuple[int, int, int]:
     return t_len, b, h
 
 
-def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
+def _ptr(x: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if x is None else x.data_ptr())
 
 
 def _stream(device: torch.device) -> ctypes.c_void_p:
@@ -202,52 +353,144 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def gru_sequence_forward(gates_i, keep, h0, w_h, b_hn) -> torch.Tensor:
-    """hs (T,B,H). K1 on CUDA tensors, the plain loop on CPU tensors."""
+def built_route(h: int) -> Optional[Tuple[int, int, int, int, int]]:
+    """What the built library says of the resident kernels for H: (cluster, K1
+    threads, K1 shared bytes, K2a threads, K2a shared bytes), or None where it
+    has none. `kernel_route` must agree with it."""
+    out = (ctypes.c_int * 5)()
+    if build_kernels().gru_sequence_resident_config(h, out) != 0:
+        return None
+    return tuple(out)
+
+
+def _resident(t_len: int, b: int, h: int) -> bool:
+    """Whether this call takes the resident kernels."""
+    if forced_route not in (None, STREAMING):
+        raise ValueError(f"gru_sequence: no route {forced_route!r} to force")
+    return forced_route is None and kernel_route(t_len, b, h).route == "resident"
+
+
+def _launch(name: str, fn, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        err = fn(*[_ptr(a) if isinstance(a, torch.Tensor) else a for a in args], _stream(device))
+    _raise_on(err, fn.__name__)
+    kernel_launches[name] += 1
+
+
+def _empty(device: torch.device, *shape: int) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+
+def gru_sequence_forward(gates_i, keep, h0, w_h, b_hn, step_clocks: bool = False):
+    """hs (T,B,H). K1 on CUDA tensors, the plain loop on CPU tensors.
+    `step_clocks` runs the build with clock marks (see `measure_step_clocks`)."""
     global fwd_launches
     t_len, b, h = _check_inputs(gates_i, keep, h0, w_h, b_hn)
     if gates_i.device.type == "cpu":
         return gru_sequence_reference(gates_i, keep, h0, w_h, b_hn)
-    lib = build_kernels()
-    hs = torch.empty((t_len, b, h), dtype=torch.float32, device=gates_i.device)
-    with torch.cuda.device(gates_i.device):
-        err = lib.gru_sequence_fwd(
-            *map(_ptr, (gates_i, keep, h0, w_h, b_hn, hs)),
-            t_len, b, h, _stream(gates_i.device),
-        )
-    _raise_on(err, "gru_sequence_fwd")
+    lib = build_kernels(step_clocks)
+    dev = gates_i.device
+    cluster = CLUSTER if _resident(t_len, b, h) else 0
+    hs = _empty(dev, t_len, b, h)
+    _launch("fwd", lib.gru_sequence_fwd, dev, gates_i, keep, h0, w_h, b_hn, hs, t_len, b, h, cluster)
     fwd_launches += 1
     return hs
 
 
+def gru_backward_gates(gates_i, keep, h0, w_h, b_hn, hs) -> torch.Tensor:
+    """K2p: (T,B,4H), each unit's (r, z, n, hnb) recomputed for every step at once."""
+    t_len, b, h = _check_inputs(gates_i, keep, h0, w_h, b_hn)
+    _check("hs", hs, (t_len, b, h), gates_i.device)
+    if gates_i.device.type == "cpu":
+        return gru_backward_gates_reference(gates_i, keep, h0, w_h, b_hn, hs)
+    lib = build_kernels()
+    gates = _empty(gates_i.device, t_len, b, 4 * h)
+    _launch("bwd_gates", lib.gru_sequence_bwd_gates, gates_i.device,
+            gates_i, keep, h0, w_h, b_hn, hs, gates, t_len, b, h)
+    return gates
+
+
+def gru_backward_recurrence(gates_i, keep, h0, w_h, b_hn, hs, g_hs, gates=None,
+                            step_clocks: bool = False):
+    """K2a: (dgates_i, dgh, dh0). On the resident route it reads `gates` (K2p's
+    output); on the streaming route it recomputes them in its loop from a
+    transposed copy of Wh made here."""
+    t_len, b, h = _check_inputs(gates_i, keep, h0, w_h, b_hn)
+    dev = gates_i.device
+    _check("hs", hs, (t_len, b, h), dev)
+    _check("g_hs", g_hs, (t_len, b, h), dev)
+    resident = _resident(t_len, b, h)
+    if dev.type == "cpu" or resident:
+        if gates is None:
+            raise ValueError("gru_backward_recurrence: this route needs the recomputed gates")
+        _check("gates", gates, (t_len, b, 4 * h), dev)
+    if dev.type == "cpu":
+        return gru_backward_recurrence_reference(gates, keep, h0, w_h, hs, g_hs)
+    lib = build_kernels(step_clocks)
+    w_h_t = None
+    if not resident:
+        w_h_t = _empty(dev, 3 * h, h)
+        w_h_t.copy_(w_h.T)
+    dgates, dgh, dh0 = _empty(dev, t_len, b, 3 * h), _empty(dev, t_len, b, 3 * h), _empty(dev, b, h)
+    _launch("bwd_recurrence", lib.gru_sequence_bwd_recurrence, dev,
+            gates_i, keep, h0, w_h, w_h_t, b_hn, hs, g_hs, gates if resident else None,
+            dgates, dgh, dh0, t_len, b, h, CLUSTER if resident else 0)
+    return dgates, dgh, dh0
+
+
+def gru_backward_reduce(keep, h0, hs, dgh):
+    """K2b: (dWh, db_hn), bitwise the same from run to run."""
+    t_len, b, h = hs.shape
+    dev = hs.device
+    for name, x, shape in (("keep", keep, (t_len, b, h)), ("h0", h0, (b, h)),
+                           ("hs", hs, (t_len, b, h)), ("dgh", dgh, (t_len, b, 3 * h))):
+        _check(name, x, shape, dev)
+    if dev.type == "cpu":
+        return gru_backward_reduce_reference(keep, h0, hs, dgh)
+    lib = build_kernels()
+    dwh, dbhn = _empty(dev, h, 3 * h), _empty(dev, h)
+    _launch("bwd_reduce", lib.gru_sequence_bwd_reduce, dev, keep, h0, hs, dgh, dwh, dbhn, t_len, b, h)
+    return dwh, dbhn
+
+
 def gru_sequence_backward(gates_i, keep, h0, w_h, b_hn, hs, g_hs):
-    """(dgates_i, dh0, dWh, db_hn). K2a + K2b on CUDA, the plain loop on CPU."""
+    """(dgates_i, dh0, dWh, db_hn). On CUDA tensors K2p (resident route only),
+    K2a and K2b in turn; on CPU tensors the plain loop."""
     global bwd_launches
     t_len, b, h = _check_inputs(gates_i, keep, h0, w_h, b_hn)
     _check("hs", hs, (t_len, b, h), gates_i.device)
     _check("g_hs", g_hs, (t_len, b, h), gates_i.device)
     if gates_i.device.type == "cpu":
         return gru_sequence_backward_reference(gates_i, keep, h0, w_h, b_hn, hs, g_hs)
-    lib = build_kernels()
-    dev = gates_i.device
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
-    w_h_t = empty(3 * h, h)
-    w_h_t.copy_(w_h.T)
-    dgates, dgh = empty(t_len, b, 3 * h), empty(t_len, b, 3 * h)
-    dh0, dwh, dbhn = empty(b, h), empty(h, 3 * h), empty(h)
-    with torch.cuda.device(dev):
-        err = lib.gru_sequence_bwd(
-            *map(_ptr, (gates_i, keep, h0, w_h, w_h_t, b_hn, hs, g_hs)),
-            *map(_ptr, (dgates, dgh, dh0, dwh, dbhn)),
-            t_len, b, h, _stream(dev),
-        )
-    _raise_on(err, "gru_sequence_bwd")
+    gates = None
+    if _resident(t_len, b, h):
+        gates = gru_backward_gates(gates_i, keep, h0, w_h, b_hn, hs)
+    dgates, dgh, dh0 = gru_backward_recurrence(gates_i, keep, h0, w_h, b_hn, hs, g_hs, gates)
+    dwh, dbhn = gru_backward_reduce(keep, h0, hs, dgh)
     bwd_launches += 1
     return dgates, dh0, dwh, dbhn
 
 
+def measure_step_clocks(gates_i, keep, h0, w_h, b_hn, g_hs) -> Dict[str, Dict[str, float]]:
+    """SM clock cycles per step and phase (`PHASES`) of the resident K1 and K2a,
+    from one launch of each in the build with clock marks, as thread 0 of block 0
+    saw them. CUDA tensors of a shape on the resident route only."""
+    t_len, b, h = _check_inputs(gates_i, keep, h0, w_h, b_hn)
+    if gates_i.device.type != "cuda" or kernel_route(t_len, b, h).route != "resident":
+        raise ValueError("measure_step_clocks: needs CUDA tensors of a shape on the resident route")
+    hs = gru_sequence_forward(gates_i, keep, h0, w_h, b_hn, step_clocks=True)
+    gates = gru_backward_gates(gates_i, keep, h0, w_h, b_hn, hs)
+    gru_backward_recurrence(gates_i, keep, h0, w_h, b_hn, hs, g_hs, gates, step_clocks=True)
+    out = (ctypes.c_longlong * 16)()
+    _raise_on(build_kernels(True).gru_sequence_step_clocks(out), "gru_sequence_step_clocks")
+    return {
+        name: {phase: out[8 * i + j] / t_len for j, phase in enumerate(PHASES[name])}
+        for i, name in enumerate(PHASES)
+    }
+
+
 class GRUSequenceFn(torch.autograd.Function):
-    """forward = K1, backward = K2a + K2b (plain versions on CPU tensors)."""
+    """forward = K1, backward = K2p + K2a + K2b (plain versions on CPU tensors)."""
 
     @staticmethod
     def forward(ctx, gates_i, keep, h0, w_h, b_hn):

@@ -3,7 +3,9 @@ Pallas kernel (`mava_tpu/ops/pallas_gru.py`, interpret mode on the CPU) and its
 scan reference.
 
 On CPU tensors the op runs its plain PyTorch versions; the CUDA kernels are
-checked on the card by `test_torch_gru_cuda.py` and `chip_smoke.py`.
+checked on the card by `test_torch_gru_cuda.py` and `chip_smoke.py`. Also here:
+the choice of kernels by shape, the roofline bounds and the library yardstick
+that `chip_smoke.py` reports.
 """
 
 import jax
@@ -12,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from mava_tpu.ops.pallas_gru import gru_sequence as jax_gru_sequence
 from mava_tpu_torch.ops import gru
 from test_pallas_gru import _ref_gru
@@ -104,3 +107,96 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(fault):
         args[2] = args[2].to("meta")
     with pytest.raises((TypeError, ValueError)):
         gru.gru_sequence_forward(*args)
+
+
+# ---------------------------------------------------------------- the backward's three passes
+@pytest.mark.parametrize(
+    "t_len,b,h,reset_p",
+    [(6, 4, 8, 0.3), (5, 7, 16, 0.5), (1, 3, 8, 0.0), (8, 2, 16, 1.0)],
+    ids=["resets", "ragged-rows", "T1", "all-reset"],
+)
+def test_backward_passes_compose_to_the_backward(t_len, b, h, reset_p):
+    """K2p, K2a and K2b's plain versions, one after the other, equal the plain
+    reverse loop and the JAX gradient: rtol 1e-5, atol 1e-6."""
+    args = _inputs(t_len, b, h, seed=100 + t_len * b, reset_p=reset_p)
+    targs = _torch(args)
+    g_hs = torch.tensor(_loss_weights(t_len, b, h))
+    hs = gru.gru_sequence_reference(*targs)
+    gates = gru.gru_backward_gates(*targs, hs)
+    assert gates.shape == (t_len, b, 4 * h)
+    dgates, dgh, dh0 = gru.gru_backward_recurrence(*targs, hs, g_hs, gates)
+    dwh, dbhn = gru.gru_backward_reduce(targs[1], targs[2], hs, dgh)
+    whole = gru.gru_sequence_backward_reference(*targs, hs, g_hs)
+
+    def loss(g, h0, wh, bhn):
+        out = jax_gru_sequence(g, jnp.asarray(args[1]), h0, wh, bhn)
+        return jnp.sum(out * _loss_weights(t_len, b, h))
+
+    jgrads = jax.grad(loss, argnums=(0, 1, 2, 3))(*[jnp.asarray(args[i]) for i in (0, 2, 3, 4)])
+    for got, want, jg, name in zip((dgates, dh0, dwh, dbhn), whole, jgrads,
+                                   ("dgates_i", "dh0", "dWh", "db_hn")):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jg), rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+def test_recurrence_on_cpu_needs_the_gates():
+    targs = _torch(_inputs(4, 3, 8, seed=5))
+    hs = gru.gru_sequence_reference(*targs)
+    with pytest.raises(ValueError):
+        gru.gru_backward_recurrence(*targs, hs, torch.ones_like(hs))
+
+
+# ---------------------------------------------------------------- routes
+ROUTE_SHAPES = [(128, 16, 128), (128, 32, 128), (7, 5, 128), (9, 3, 256), (1, 1, 8), (6, 4, 72),
+                (3, 2, 512), (2, 2, 1024)]
+
+
+@pytest.mark.parametrize("t_len,b,h", ROUTE_SHAPES)
+def test_kernel_route(t_len, b, h):
+    """Every admitted shape has a route; H = 128 and H = 256 are resident; a
+    block's shared memory fits the card; the cluster divides the hidden units."""
+    route = gru.kernel_route(t_len, b, h)
+    assert route.route == ("resident" if h in (128, 256) else "streaming")
+    assert max(route.fwd_smem, route.bwd_smem) <= gru.SMEM_LIMIT == 232_448
+    assert 1 <= route.cluster <= 8 and h % route.cluster == 0
+    assert 32 <= route.fwd_threads <= 1024 and 32 <= route.bwd_threads <= 1024
+    rows = gru.CLUSTER_ROWS if route.route == "resident" else gru.STREAM_ROWS
+    assert route.blocks == route.cluster * -(-b // rows)
+    # The route is a function of the shape alone.
+    assert route == gru.kernel_route(t_len, b, h)
+
+
+def test_kernel_route_rejects_what_the_op_rejects():
+    for shape in [(0, 1, 8), (1, 0, 8), (1, 1, 0), (1, 1, gru.MAX_HIDDEN + 1)]:
+        with pytest.raises(ValueError):
+            gru.kernel_route(*shape)
+
+
+# ---------------------------------------------------------------- bounds and the yardstick
+def test_bound_calculator():
+    """K1 at the slice's shape: 201.3 MFLOP and 5.45 MB, bound by operations."""
+    flop, nbytes = chip_smoke.kernel_work("fwd", 128, 16, 128)
+    assert round(flop / 1e6, 1) == 201.3 and round(nbytes / 1e6, 2) == 5.45
+    ms, by = chip_smoke.bound_ms("fwd", 128, 16, 128)
+    assert by == "operations" and ms == pytest.approx(201.326592e6 / 67e12 * 1e3)
+    ms, by = chip_smoke.bound_ms("bwd_recurrence", 128, 16, 128)
+    assert by == "bytes" and ms == pytest.approx(13.84448e6 / 3.35e12 * 1e3)
+    for kernel in ("bwd_gates", "bwd_reduce"):
+        assert chip_smoke.bound_ms(kernel, 128, 32, 128)[0] > chip_smoke.bound_ms(kernel, 128, 16, 128)[0]
+
+
+@pytest.mark.parametrize("t_len,b,h", [(6, 4, 8), (9, 5, 16)])
+def test_library_yardstick_computes_the_same_function(t_len, b, h):
+    """`torch.nn.GRU`, set up as the chip script sets it up, equals the op at
+    keep == 1: forward 1e-5; gradients rtol 1e-4, atol 1e-5."""
+    args = _torch(_inputs(t_len, b, h, seed=t_len * b, reset_p=0.0))
+    assert bool((args[1] == 1).all())
+    g_hs = torch.tensor(_loss_weights(t_len, b, h))
+    rnn = chip_smoke.cudnn_gru(args[3], args[4])
+    hs, grads, _ = chip_smoke.cudnn_gru_backward(rnn, args[0], args[2], g_hs)
+    want = gru.gru_sequence_reference(*args)
+    np.testing.assert_allclose(hs.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    wants = gru.gru_sequence_backward_reference(*args, want, g_hs)
+    for got, ref, name in zip(grads, wants, ("dgates_i", "dh0", "dWh", "db_hn")):
+        np.testing.assert_allclose(got.detach().numpy(), ref.numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=name)

@@ -28,18 +28,23 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(t_len, b, h, seed, device):
+def _inputs(t_len, b, h, seed, device, reset_p=0.2):
     rng = np.random.default_rng(seed)
     f32 = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
-    keep = np.broadcast_to((rng.random((t_len, b, 1)) >= 0.2).astype(np.float32), (t_len, b, h))
+    keep = np.broadcast_to((rng.random((t_len, b, 1)) >= reset_p).astype(np.float32), (t_len, b, h))
     args = (f32(t_len, b, 3 * h), keep, f32(b, h), f32(h, 3 * h) / np.sqrt(h), 0.1 * f32(h))
     args = [torch.tensor(np.ascontiguousarray(a, dtype=np.float32), device=device) for a in args]
     return args, torch.tensor(f32(t_len, b, h), device=device)
 
 
-@pytest.mark.parametrize("t_len,b,h", [(128, 16, 128), (128, 32, 128), (7, 5, 128), (9, 3, 256), (1, 1, 8)])
-def test_kernels_match_plain_versions(cuda, t_len, b, h):
-    args, g_hs = _inputs(t_len, b, h, seed=b, device=cuda)
+SHAPES = [(128, 16, 128), (128, 32, 128), (7, 5, 128), (9, 3, 256), (1, 1, 8),
+          (33, 17, 128), (5, 40, 256), (6, 4, 72), (3, 2, 512)]
+
+
+@pytest.mark.parametrize("reset_p", [0.2, 0.0], ids=["resets", "keep1"])
+@pytest.mark.parametrize("t_len,b,h", SHAPES)
+def test_kernels_match_plain_versions(cuda, t_len, b, h, reset_p):
+    args, g_hs = _inputs(t_len, b, h, seed=b, device=cuda, reset_p=reset_p)
     before = (gru.fwd_launches, gru.bwd_launches)
     hs = gru.gru_sequence_forward(*args)
     torch.testing.assert_close(hs, gru.gru_sequence_reference(*args), **TOL)
@@ -47,9 +52,41 @@ def test_kernels_match_plain_versions(cuda, t_len, b, h):
     want = gru.gru_sequence_backward_reference(*args, hs, g_hs)
     for name, g, w in zip(("dgates_i", "dh0", "dWh", "db_hn"), got, want):
         torch.testing.assert_close(g, w, **TOL, msg=name)
+    # No atomics and a fixed order of every sum: bitwise the same from run to run.
     again = gru.gru_sequence_backward(*args, hs, g_hs)
-    assert torch.equal(again[2], got[2]) and torch.equal(again[3], got[3])
+    for name, g, a in zip(("dgates_i", "dh0", "dWh", "db_hn"), got, again):
+        assert torch.equal(a, g), name
     assert (gru.fwd_launches, gru.bwd_launches) == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.parametrize("t_len,b,h", SHAPES)
+def test_route_taken_and_its_passes(cuda, monkeypatch, t_len, b, h):
+    """The library has resident kernels exactly where `kernel_route` says so, and
+    K2p and K2a match their plain versions pass by pass; the streaming kernels
+    take every shape."""
+    route = gru.kernel_route(t_len, b, h)
+    built = gru.built_route(h)
+    if route.route == "resident":
+        assert built == (route.cluster, route.fwd_threads, route.fwd_smem, route.bwd_threads,
+                         route.bwd_smem)
+    else:
+        assert built is None
+    args, g_hs = _inputs(t_len, b, h, seed=t_len, device=cuda)
+    hs = gru.gru_sequence_reference(*args)
+    gates = gru.gru_backward_gates_reference(*args, hs)
+    torch.testing.assert_close(gru.gru_backward_gates(*args, hs), gates, **TOL)
+    counts = dict(gru.kernel_launches)
+    got = gru.gru_backward_recurrence(*args, hs, g_hs, gates)
+    want = gru.gru_backward_recurrence_reference(gates, args[1], args[2], args[3], hs, g_hs)
+    for name, g, w in zip(("dgates_i", "dgh", "dh0"), got, want):
+        torch.testing.assert_close(g, w, **TOL, msg=name)
+    assert gru.kernel_launches["bwd_recurrence"] == counts["bwd_recurrence"] + 1
+    assert gru.kernel_launches["bwd_gates"] == counts["bwd_gates"]
+    monkeypatch.setattr(gru, "forced_route", gru.STREAMING)
+    torch.testing.assert_close(gru.gru_sequence_forward(*args), hs, **TOL)
+    streamed = gru.gru_sequence_backward(*args, hs, g_hs)
+    for g, w in zip(streamed, gru.gru_sequence_backward_reference(*args, hs, g_hs)):
+        torch.testing.assert_close(g, w, **TOL)
 
 
 def test_autograd_through_kernels(cuda):
