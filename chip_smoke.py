@@ -8,17 +8,21 @@ Run from the root of the repository. It
   2. builds the GRU kernels of `mava_tpu_torch/csrc/gru_sequence.cu` with nvcc,
      twice in parallel: as the port runs them, and with per-phase clock marks;
   3. kernel phase: runs K1 (forward), K2p (gate recompute), K2a (reverse
-     recurrence) and K2b (dWh / db_hn reduction) against their plain PyTorch
-     versions on the card at the shapes of the rec-IPPO slice (T=128, H=128,
-     B=32 and B=16), at ragged shapes and at shapes of every route, checks them
-     to rtol = atol = 1e-4, checks that every gradient is bitwise equal across
-     two backward runs, prints which route each shape took, and times with CUDA
-     events: each kernel on its route, K1 and K2a on the streaming route too (the
-     earlier design, for both on one card in one call), the plain versions,
-     and one library call per kernel that the port never makes (the cuDNN GRU
-     through `torch.nn.GRU`, `torch.mm` for K2b). It computes each
-     kernel's roofline bound from the shape and prints the cycles per step and
-     phase of the resident K1 and K2a;
+     recurrence) and K2b (dWh / db_hn reduction: partial sums over slices of the
+     rows, then their sum in slice order) against their plain PyTorch versions
+     on the card at the shapes of the rec-IPPO slice (T=128, H=128, B=32 and
+     B=16), at ragged shapes and at shapes of every route, checks them to rtol =
+     atol = 1e-4, checks that every gradient is bitwise equal across runs, and
+     prints which route and row split each shape took. K2p and K2b are checked
+     and timed at two further shapes with 4x and 16x the rows, and K2b with one
+     slice and with more slices than chunks of rows. Every kernel, plain
+     version and library call (the cuDNN GRU through `torch.nn.GRU`, `torch.mm`
+     for K2b, `torch.sum` for its second kernel; the port never calls them) is
+     timed twice: device-only (`device_ms`: calls captured into a CUDA graph,
+     replays timed with events) and host-inclusive (`time_ms`: eager calls), K1
+     and K2a on the streaming route too. It computes each kernel's roofline
+     bound from the shape and prints the cycles per step and phase of the
+     resident K1 and K2a;
   4. slice phase: trains rec-IPPO on RWARE tiny-2ag at the shipped network
      width (`default_rec_ippo`: 16 envs, rollout 128, 4 epochs x 2 minibatches)
      for 4 updates through `run_experiment`, and checks that every parameter is
@@ -59,13 +63,24 @@ SOURCE = "mava_tpu_torch/csrc/gru_sequence.cu"
 SLICE_SHAPES = [(128, 16, 128), (128, 32, 128)]
 SHAPES = SLICE_SHAPES + [(7, 5, 128), (9, 3, 256), (33, 17, 128), (5, 40, 256), (6, 4, 72),
                          (3, 2, 512)]
+# K2p and K2b alone, to show how the tiles and the row split scale: 16x and 4x the rows.
+TILE_SHAPES = [(128, 256, 128), (128, 64, 256)]
 # name in the record, counter in `gru.kernel_launches`, reference kernel, launches per update
 KERNELS = [
     ("gru_sequence_fwd (K1)", "fwd", "mava_tpu/ops/pallas_gru.py:69", 17),
     ("gru_sequence_bwd_gates (K2p)", "bwd_gates", "mava_tpu/ops/pallas_gru.py:88", 16),
     ("gru_sequence_bwd_recurrence (K2a)", "bwd_recurrence", "mava_tpu/ops/pallas_gru.py:88", 16),
     ("gru_sequence_bwd_reduce (K2b)", "bwd_reduce", "mava_tpu/ops/pallas_gru.py:88", 16),
+    ("gru_sequence_bwd_reduce_sum (K2b, sum of the slices)", "bwd_reduce_sum",
+     "mava_tpu/ops/pallas_gru.py:88", 16),
 ]
+# K2p and K2b as they stood before their redesign (one block per 32x32 tile), read
+# with `device_ms` / `time_ms` of this script on that tree: NVIDIA H100 80GB HBM3,
+# 700.00 W, T=128, H=128, ms at B=16 / B=32. Those kernels are gone from the source.
+BEFORE_REDESIGN_MS = {
+    "bwd_gates": {"device": (0.0228, 0.0375), "host": (0.0734, 0.0641)},
+    "bwd_reduce": {"device": (0.1904, 0.3794), "host": (0.1962, 0.3863)},
+}
 
 
 def check(cond: bool, what: str) -> None:
@@ -82,6 +97,9 @@ def card(query: str = "name,power.limit") -> str:
 
 
 def time_ms(fn, iters: int = 20) -> float:
+    """Host-inclusive ms of one eager call: what a caller pays who launches from
+    Python, one call after the other. For a kernel shorter than the wrapper's
+    host work this reads the host's rate."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -93,9 +111,36 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def abba_ms(a, b):
+def device_ms(fn, iters: int = 20, replays: int = 10, stream=None) -> float:
+    """Device-only ms of one call of `fn`: `iters` calls are captured into one CUDA
+    graph on a side stream (`stream`, where `fn` needs a particular one) and the
+    graph's replays are timed with events, so no host work sits between the
+    launches. Inputs and outputs stay in L2 from call to call, as they do for the
+    op's real caller. The same method times kernels, plain versions and library
+    calls."""
+    stream = stream or torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def abba_ms(a, b, timer=time_ms):
     """Times of `a` and `b`, each the mean of two turns taken as a, b, b, a."""
-    a1, b1, b2, a2 = time_ms(a), time_ms(b), time_ms(b), time_ms(a)
+    a1, b1, b2, a2 = timer(a), timer(b), timer(b), timer(a)
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
@@ -120,10 +165,15 @@ def gru_inputs(t_len: int, b: int, h: int, seed: int, resets: float = 0.1, devic
 
 
 # ------------------------------------------------------------------ bounds
-def kernel_work(kernel: str, t_len: int, b: int, h: int):
+def kernel_work(kernel: str, t_len: int, b: int, h: int, slices: int = 1):
     """(FLOP, bytes) one call of `kernel` needs: the matrix product's multiply-adds
-    counted as 2, every input read once and every output written once, fp32."""
+    counted as 2, every input read once and every output written once, fp32.
+    `bwd_reduce` is the whole function (both of K2b's kernels, no scratch) and
+    does not depend on `slices`; `bwd_reduce_sum` is the second kernel alone,
+    whose input is the `slices` partial sums."""
     n, w = t_len * b, h * 3 * h
+    if kernel == "bwd_reduce_sum":
+        return (slices - 1) * (w + h), 4 * (slices + 1) * (w + h)
     product = 2 * n * h * 3 * h
     floats = {
         # gates_i, keep, h0, Wh, b_hn -> hs
@@ -132,16 +182,16 @@ def kernel_work(kernel: str, t_len: int, b: int, h: int):
         "bwd_gates": n * 3 * h + n * h + b * h + w + h + n * h + n * 4 * h,
         # gates, keep, h0, Wh, hs, g_hs -> dgates_i, dgh, dh0
         "bwd_recurrence": n * 4 * h + n * h + b * h + w + n * h + n * h + 2 * n * 3 * h + b * h,
-        # keep, h0, hs, dgh -> dWh, db_hn; the row of ones adds 3H columns' sums
+        # keep, h0, hs, dgh -> dWh, db_hn
         "bwd_reduce": n * h + b * h + n * h + n * 3 * h + w + h,
     }[kernel]
     flop = product + (2 * n * 3 * h if kernel == "bwd_reduce" else 0)
     return flop, 4 * floats
 
 
-def bound_ms(kernel: str, t_len: int, b: int, h: int):
+def bound_ms(kernel: str, t_len: int, b: int, h: int, slices: int = 1):
     """(least ms the card could take, which resource sets it)."""
-    flop, nbytes = kernel_work(kernel, t_len, b, h)
+    flop, nbytes = kernel_work(kernel, t_len, b, h, slices)
     by_flop, by_bytes = flop / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return (by_flop, "operations") if by_flop >= by_bytes else (by_bytes, "bytes")
 
@@ -187,7 +237,7 @@ def cudnn_gru_backward(rnn: torch.nn.GRU, gates_i, h0, g_hs):
 
 
 # ------------------------------------------------------------------ kernel phase
-def compare(name: str, got, want, shape, errs: dict, key: str) -> None:
+def compare(name: str, got, want, shape, errs: dict, key: str, atol: float = ATOL) -> None:
     diff = (got - want).abs()
     abs_err = diff.max().item()
     rel_err = (diff / want.abs().clamp(min=1e-6)).max().item()
@@ -195,7 +245,49 @@ def compare(name: str, got, want, shape, errs: dict, key: str) -> None:
     print(f"  T={shape[0]} B={shape[1]} H={shape[2]} {name}: max_abs_err={abs_err:.3e} "
           f"max_rel_err={rel_err:.3e}")
     check(torch.isfinite(got).all().item(), f"{name} not finite at {shape}")
-    check(torch.allclose(got, want, rtol=RTOL, atol=ATOL), f"{name} disagrees at {shape}")
+    check(torch.allclose(got, want, rtol=RTOL, atol=atol), f"{name} disagrees at {shape}")
+
+
+def check_reduce(gru, keep, h0, hs, dgh, shape, errs: dict, tag: str, slices=None) -> None:
+    """K2b's two kernels, each against its plain version, and the two together
+    against the plain product; dWh and db_hn bitwise equal over three runs."""
+    h = shape[2]
+    split = gru.reduce_split(*shape, slices)
+    tag = f"{tag} S={split.slices}"
+    # A slice is one running fp32 sum, whose rounding error grows with its length.
+    # The rule's slices stay under 2048 rows at every shape here and are held to
+    # ATOL; a forced single slice over 16x the rows gets 16x the room.
+    atol = ATOL * max(1.0, min(shape[0] * shape[1], split.rows_per_slice) / 2048)
+    check(slices is not None or atol == ATOL, f"the rule's slices are too long at {shape}")
+    partials = gru.gru_backward_reduce_partials(keep, h0, hs, dgh, slices)
+    partials_ref = gru.gru_backward_reduce_partials_reference(keep, h0, hs, dgh, split)
+    key = "bwd_reduce" if slices is None else "bwd_reduce_forced_slices"
+    compare("K2b partials" + tag, partials, partials_ref, shape, errs, key, atol)
+    for name, g, w in zip(("dWh", "db_hn"), gru.gru_backward_reduce_sum(partials_ref, h),
+                          gru.gru_backward_reduce_sum_reference(partials_ref, h)):
+        compare(f"K2b sum {name}{tag}", g, w, shape, errs, "bwd_reduce_sum")
+    runs = [gru.gru_backward_reduce(keep, h0, hs, dgh, slices) for _ in range(3)]
+    for name, g, w in zip(("dWh", "db_hn"), runs[0],
+                          gru.gru_backward_reduce_reference(keep, h0, hs, dgh)):
+        compare(f"K2b {name}{tag}", g, w, shape, errs, key, atol)
+    check(all(torch.equal(a, g) for run in runs[1:] for a, g in zip(run, runs[0])),
+          f"K2b not bitwise equal across three runs at {shape}{tag}")
+
+
+def check_tile_shape(gru, shape, errs: dict) -> None:
+    """K2p and K2b alone at a shape with many rows, on what the kernels before
+    them produce: hs from K1, dgh from K2a (both checked at `SHAPES`). K2b with
+    its own row split, with one slice and with more slices than chunks of rows."""
+    t_len, b, h = shape
+    args, g_hs = gru_inputs(*shape, seed=t_len * 1000 + b)
+    hs = gru.gru_sequence_forward(*args)
+    gates_ref = gru.gru_backward_gates_reference(*args, hs)
+    compare("gates", gru.gru_backward_gates(*args, hs), gates_ref, shape, errs, "bwd_gates")
+    dgh = gru.gru_backward_recurrence(*args, hs, g_hs, gates_ref)[1]
+    chunks = -(-t_len * b // gru.REDUCE_CHUNK)
+    for slices in (None, 1, chunks + 3):
+        check_reduce(gru, args[1], args[2], hs, dgh, shape, errs, "", slices)
+    torch.cuda.synchronize()
 
 
 def check_shape(gru, shape, errs: dict) -> None:
@@ -203,9 +295,11 @@ def check_shape(gru, shape, errs: dict) -> None:
     t_len, b, h = shape
     route = gru.kernel_route(*shape)
     built = gru.built_route(h)
+    split = gru.reduce_split(*shape)
     print(f"  T={t_len} B={b} H={h} route: {route.route}, cluster {route.cluster}, "
           f"{route.blocks} blocks; K1 {route.fwd_threads} threads {route.fwd_smem} B shared, "
-          f"K2a {route.bwd_threads} threads {route.bwd_smem} B shared")
+          f"K2a {route.bwd_threads} threads {route.bwd_smem} B shared; K2b {split.tiles} tiles x "
+          f"{split.slices} slices of {split.rows_per_slice} rows")
     check(route.fwd_smem <= gru.SMEM_LIMIT and route.bwd_smem <= gru.SMEM_LIMIT, "shared memory")
     if route.route == "resident":
         check(built == (route.cluster, route.fwd_threads, route.fwd_smem, route.bwd_threads,
@@ -225,10 +319,7 @@ def check_shape(gru, shape, errs: dict) -> None:
                                                      g_hs)
         for name, g, w in zip(("dgates_i", "dgh", "dh0"), got, want):
             compare(f"K2a {name}{tag}", g, w, shape, errs, "bwd_recurrence")
-        reduced = gru.gru_backward_reduce(args[1], args[2], hs_ref, want[1])
-        for name, g, w in zip(("dWh", "db_hn"), reduced,
-                              gru.gru_backward_reduce_reference(args[1], args[2], hs_ref, want[1])):
-            compare(f"K2b {name}{tag}", g, w, shape, errs, "bwd_reduce")
+        check_reduce(gru, args[1], args[2], hs_ref, want[1], shape, errs, tag)
         # The whole backward as the op runs it, against the plain reverse loop.
         grads = gru.gru_sequence_backward(*args, hs_ref, g_hs)
         grads_ref = gru.gru_sequence_backward_reference(*args, hs_ref, g_hs)
@@ -241,9 +332,16 @@ def check_shape(gru, shape, errs: dict) -> None:
 
 
 def time_shape(gru, shape) -> dict:
-    """ms of every kernel, plain version and library call at one of the slice's shapes."""
+    """ms of every kernel, plain version and library call at one of the slice's
+    shapes: `name` is the device-only time (`device_ms`), `name_host` the
+    host-inclusive time of eager calls (`time_ms`)."""
     t_len, b, h = shape
     out = {}
+
+    def both(name, fn, iters=20):
+        out[name] = device_ms(fn, iters=iters)
+        out[name + "_host"] = time_ms(fn, iters=iters)
+
     for resets, tag in ((0.1, ""), (0.0, "_keep1")):
         args, g_hs = gru_inputs(*shape, seed=t_len * 1000 + b, resets=resets)
         hs = gru.gru_sequence_forward(*args)
@@ -253,45 +351,115 @@ def time_shape(gru, shape) -> dict:
         recurrence = lambda: gru.gru_backward_recurrence(*args, hs, g_hs, gates)  # noqa: E731
         bwd = lambda: gru.gru_sequence_backward(*args, hs, g_hs)  # noqa: E731
         for name, fn in (("fwd", fwd), ("bwd_recurrence", recurrence), ("bwd", bwd)):
-            out[name + tag], out[f"{name}_streaming{tag}"] = abba_ms(fn, on_streaming(gru, fn))
-        out["bwd_gates" + tag] = time_ms(lambda: gru.gru_backward_gates(*args, hs))
-        out["bwd_reduce" + tag] = time_ms(lambda: gru.gru_backward_reduce(args[1], args[2], hs, dgh))
+            streamed = on_streaming(gru, fn)
+            out[name + tag], out[f"{name}_streaming{tag}"] = abba_ms(fn, streamed, device_ms)
+            out[f"{name}{tag}_host"], out[f"{name}_streaming{tag}_host"] = abba_ms(fn, streamed)
+        both("bwd_gates" + tag, lambda: gru.gru_backward_gates(*args, hs))
+        both("bwd_reduce" + tag, lambda: gru.gru_backward_reduce(args[1], args[2], hs, dgh))
+        partials = gru.gru_backward_reduce_partials(args[1], args[2], hs, dgh)
+        both("bwd_reduce_partials" + tag,
+             lambda: gru.gru_backward_reduce_partials(args[1], args[2], hs, dgh))
+        both("bwd_reduce_sum" + tag, lambda: gru.gru_backward_reduce_sum(partials, h))
         if resets:
-            out["fwd_plain"] = time_ms(lambda: gru.gru_sequence_reference(*args), iters=5)
-            out["bwd_plain"] = time_ms(
-                lambda: gru.gru_sequence_backward_reference(*args, hs, g_hs), iters=5)
-            out["bwd_gates_plain"] = time_ms(lambda: gru.gru_backward_gates_reference(*args, hs))
-            out["bwd_recurrence_plain"] = time_ms(
-                lambda: gru.gru_backward_recurrence_reference(gates, args[1], args[2], args[3], hs,
-                                                              g_hs), iters=5)
-            out["bwd_reduce_plain"] = time_ms(
-                lambda: gru.gru_backward_reduce_reference(args[1], args[2], hs, dgh))
-            hk = (torch.cat([args[2][None], hs[:-1]]) * args[1]).reshape(-1, h)
-            flat = dgh.reshape(-1, 3 * h)
-            out["mm"] = time_ms(lambda: torch.mm(hk.T, flat))
+            # What K2b is made of: other counts of slices than the rule's, and its
+            # first kernel with the FMAs or the loads taken out (device-only).
+            chosen = gru.reduce_split(*shape).slices
+            for slices in (11, 22, 44, 64):
+                out[f"bwd_reduce_S{slices}"] = device_ms(
+                    lambda: gru.gru_backward_reduce(args[1], args[2], hs, dgh, slices))
+            out[f"bwd_reduce_S{chosen}"] = out["bwd_reduce"]
+            for probe, what in ((1, "reads_no_fma"), (2, "first_loads_only")):
+                out["bwd_reduce_partials_" + what] = device_ms(
+                    lambda: gru.gru_backward_reduce_probe(probe, args[1], args[2], hs, dgh))
+            both("fwd_plain", lambda: gru.gru_sequence_reference(*args), iters=3)
+            both("bwd_plain", lambda: gru.gru_sequence_backward_reference(*args, hs, g_hs), iters=3)
+            both("bwd_gates_plain", lambda: gru.gru_backward_gates_reference(*args, hs))
+            both("bwd_recurrence_plain",
+                 lambda: gru.gru_backward_recurrence_reference(gates, args[1], args[2], args[3], hs,
+                                                               g_hs), iters=3)
+            both("bwd_reduce_plain",
+                 lambda: gru.gru_backward_reduce_reference(args[1], args[2], hs, dgh))
+            # The library call for K2b, with its left operand given and with the
+            # elementwise pass that forms it (the kernel forms it on the way in).
+            form_hk = lambda: (torch.cat([args[2][None], hs[:-1]]) * args[1]).reshape(-1, h)  # noqa: E731
+            hk, flat = form_hk(), dgh.reshape(-1, 3 * h)
+            both("mm", lambda: torch.mm(hk.T, flat))
+            both("form_hk", form_hk)
+            both("mm_with_hk", lambda: torch.mm(form_hk().T, flat))
+            both("bwd_reduce_sum_plain", lambda: gru.gru_backward_reduce_sum_reference(partials, h))
+            both("sum", lambda: torch.sum(partials, dim=0))
         else:
             # The library's GRU cannot reset its carry: it is timed, and held
-            # against the kernels, at keep == 1.
+            # against the kernels, at keep == 1. Its forward runs on the stream
+            # that the backward is captured on: autograd sends a backward to its
+            # forward's stream.
             rnn = cudnn_gru(args[3], args[4])
-            hs_lib, grads_lib, backward = cudnn_gru_backward(rnn, args[0], args[2], g_hs)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                hs_lib, grads_lib, backward = cudnn_gru_backward(rnn, args[0], args[2], g_hs)
+            torch.cuda.synchronize()
             grads = gru.gru_sequence_backward(*args, hs, g_hs)
             check(torch.allclose(hs_lib, hs, rtol=RTOL, atol=ATOL), "cuDNN GRU and K1 disagree")
             for name, g, w in zip(("dgates_i", "dh0", "dWh", "db_hn"), grads, grads_lib):
                 check(torch.allclose(g, w, rtol=1e-3, atol=1e-3), f"cuDNN GRU and K2 disagree: {name}")
             with torch.no_grad():
-                out["cudnn_fwd"] = time_ms(lambda: rnn(args[0], args[2][None]))
-            out["cudnn_bwd"] = time_ms(backward)
+                both("cudnn_fwd", lambda: rnn(args[0], args[2][None]))
+            out["cudnn_bwd"] = device_ms(backward, stream=side)
+            with torch.cuda.stream(side):
+                out["cudnn_bwd_host"] = time_ms(backward)
     print(f"  T={t_len} B={b} H={h} ms: " + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
     return out
 
 
+def time_tile_shape(gru, shape) -> None:
+    """Device-only ms of K2p and K2b beside their bounds and `torch.mm` at a shape
+    with many rows (inputs no longer fit the 50 MB L2 at 16x)."""
+    t_len, b, h = shape
+    args, g_hs = gru_inputs(*shape, seed=t_len * 1000 + b)
+    hs = gru.gru_sequence_forward(*args)
+    dgh = gru.gru_backward_recurrence(*args, hs, g_hs, gru.gru_backward_gates(*args, hs))[1]
+    split = gru.reduce_split(*shape)
+    partials = gru.gru_backward_reduce_partials(args[1], args[2], hs, dgh)
+    form_hk = lambda: (torch.cat([args[2][None], hs[:-1]]) * args[1]).reshape(-1, h)  # noqa: E731
+    hk, flat = form_hk(), dgh.reshape(-1, 3 * h)
+    out = {
+        "bwd_gates": device_ms(lambda: gru.gru_backward_gates(*args, hs)),
+        "bwd_gates bound": bound_ms("bwd_gates", *shape)[0],
+        "bwd_reduce": device_ms(lambda: gru.gru_backward_reduce(args[1], args[2], hs, dgh)),
+        "its partials": device_ms(
+            lambda: gru.gru_backward_reduce_partials(args[1], args[2], hs, dgh)),
+        "its sum": device_ms(lambda: gru.gru_backward_reduce_sum(partials, h)),
+        "its partials, reads but no FMAs": device_ms(
+            lambda: gru.gru_backward_reduce_probe(1, args[1], args[2], hs, dgh)),
+        "bwd_reduce bound": bound_ms("bwd_reduce", *shape)[0],
+        "mm": device_ms(lambda: torch.mm(hk.T, flat)),
+        "mm_with_hk": device_ms(lambda: torch.mm(form_hk().T, flat)),
+    }
+    print(f"  T={t_len} B={b} H={h}, K2b {split.tiles} tiles x {split.slices} slices, device-only ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+
+
 def kernel_phase(gru) -> dict:
     errs: dict = {}
+    check(gru.built_reduce_config() == (gru.REDUCE_TILE, gru.REDUCE_CHUNK),
+          f"reduce_split and the library disagree on K2b's tile: {gru.built_reduce_config()}")
     for shape in SHAPES:
         check_shape(gru, shape, errs)
+    for shape in TILE_SHAPES:
+        check_tile_shape(gru, shape, errs)
     for shape, want in zip(SHAPES, ["resident"] * 6 + ["streaming"] * 2):
         check(gru.kernel_route(*shape).route == want, f"{shape} is not on the {want} route")
     times = {shape[1]: time_shape(gru, shape) for shape in SLICE_SHAPES}
+    for shape in TILE_SHAPES:
+        time_tile_shape(gru, shape)
+    for counter, before in BEFORE_REDESIGN_MS.items():
+        print(f"  {counter} at T=128 H=128, B=16 / B=32, before its redesign -> now: device-only "
+              + " / ".join(f"{x:.4f} -> {times[bb][counter]:.4f}"
+                           for x, bb in zip(before["device"], (16, 32)))
+              + "; host-inclusive "
+              + " / ".join(f"{x:.4f} -> {times[bb][counter + '_host']:.4f}"
+                           for x, bb in zip(before["host"], (16, 32))))
 
     sm_mhz = float(card("clocks.max.sm").split()[0])
     args, g_hs = gru_inputs(*SLICE_SHAPES[0], seed=1, resets=0.0)
@@ -441,7 +609,8 @@ def profile_phase(gru) -> None:
         print(f"  {span.name}: {(hi - lo) / 1e3:.1f} ms host, {len(inside)} launches, "
               f"{ms:.2f} ms of kernels")
     for _, counter, _, _ in KERNELS:
-        mine = [k for k in kernels if f"gru_{counter}" in k.name]
+        mine = [k for k in kernels
+                if f"gru_{counter}_kernel" in k.name or f"gru_{counter}_resident_kernel" in k.name]
         ms = sum(k.time_range.end - k.time_range.start for k in mine) / 1e3
         print(f"  gru_{counter}*: {len(mine)} launches, {ms:.3f} ms")
     busy, end = 0.0, float("-inf")
@@ -490,22 +659,36 @@ def main() -> int:
                "bwd_gates": (None, None),
                "bwd_recurrence": ("cudnn_bwd", "torch.nn.GRU backward (cuDNN), keep == 1: "
                                                "the whole of K2p + K2a + K2b"),
-               "bwd_reduce": ("mm", "torch.mm on hprev*keep formed beforehand")}
+               "bwd_reduce": ("mm", "torch.mm on hprev*keep formed beforehand"),
+               "bwd_reduce_sum": ("sum", "torch.sum over the slices")}
+    slices = gru.reduce_split(*SLICE_SHAPES[0]).slices
     record = {"kernels": []}
     for name, counter, replaces, _ in KERNELS:
-        bound, bound_by = bound_ms(counter, *SLICE_SHAPES[0])
+        bound, bound_by = bound_ms(counter, *SLICE_SHAPES[0], slices)
         lib_key, lib_what = library[counter]
-        record["kernels"].append({
+        entry = {
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": sliced["launches"][counter], "max_abs_err": kernels["errs"][counter],
             "ms": t16[counter], "plain_ms": t16[counter + "_plain"],
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": t16[lib_key] if lib_key else None, "library": lib_what,
+            "timed": "device-only: CUDA graph replays; *host_ms: eager calls",
+            "host_ms": t16[counter + "_host"], "plain_host_ms": t16[counter + "_plain_host"],
+            "library_host_ms": t16[lib_key + "_host"] if lib_key else None,
             "shape": list(SLICE_SHAPES[0]), "ms_keep1": t16[counter + "_keep1"],
-            "ms_b32": t32[counter], "bound_ms_b32": bound_ms(counter, *SLICE_SHAPES[1])[0],
+            "ms_b32": t32[counter], "host_ms_b32": t32[counter + "_host"],
+            "bound_ms_b32": bound_ms(counter, *SLICE_SHAPES[1], slices)[0],
+            "library_ms_b32": t32[lib_key] if lib_key else None,
             "streaming_ms": t16.get(counter + "_streaming"),
             "kernel_route": gru.kernel_route(*SLICE_SHAPES[0]).route,
-        })
+        }
+        if counter == "bwd_reduce":
+            entry.update({
+                "slices": slices, "partials_ms": t16["bwd_reduce_partials"],
+                "form_operand_ms": t16["form_hk"], "library_with_operand_ms": t16["mm_with_hk"],
+                "form_operand_ms_b32": t32["form_hk"], "library_with_operand_ms_b32": t32["mm_with_hk"],
+            })
+        record["kernels"].append(entry)
     print(gpu)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -43,8 +43,15 @@
 //    and in no order, and the recompute does not depend on the reverse carry, so
 //    the work is split in three:
 // K2p gru_bwd_gates_kernel recomputes r, z, n and hnb = (hk @ Wh)n + b_hn from
-//    hprev = [h0, hs[:-1]] for all T*B rows at once (a tiled fp32 product over
-//    all SMs with the gate math as its epilogue) into a (T,B,H,4) scratch.
+//    hprev = [h0, hs[:-1]] for all T*B rows at once into a (T,B,H,4) scratch: a
+//    tiled fp32 product over all SMs with the gate math as its epilogue. By the
+//    roofline it is bound by operations (2 * T*B * H * 3H FLOP). Its first
+//    version (32x32 tiles, 7 shared-memory reads for 12 FMAs, nothing in flight
+//    while it multiplied) took 7.6x that bound at T=128, B=16, H=128 on an H100.
+//    Now a thread owns 4 rows x 2 units x 3 gates and reads 4 values for 24
+//    FMAs, and the next slab of the depth is in registers while this one
+//    multiplies: 4.3x the bound. What is left is the launch and a product that
+//    shared-memory reads, not FMAs, still bound (see K2b).
 // K2a gru_bwd_recurrence_resident_kernel walks time in reverse with the cluster
 //    layout of K1. A thread owns one k of dh = dgh @ Wh^T and keeps Wh[k, own
 //    columns] in registers: the same slice of Wh as in K1, so no transposed copy
@@ -53,16 +60,29 @@
 //    block adds the 8 partials in block order. Two block barriers and one
 //    mbarrier wait per step. It writes dgates_i, dh0 and the recurrent-side
 //    cotangent dgh = [dar, daz, dan*r] (T,B,3H) to a scratch buffer.
-// K2b gru_bwd_reduce_kernel reduces dWh = sum_{t,b} (hprev*keep)^T dgh and
-//    db_hn = sum dgh_n. Each block owns one 32x32 tile of dWh (with one extra
-//    row of ones for db_hn) and walks all T*B rows in a fixed order.
+// K2b gru_bwd_reduce_kernel + gru_bwd_reduce_sum_kernel reduce
+//    dWh = sum_{t,b} (hprev*keep)^T dgh and db_hn = sum dgh_n. By bytes and by
+//    operations the work is 3 us at T=128, B=16, H=128 on an H100. What bounded
+//    the first version (63x that) was latency: 60 blocks, each walking all T*B
+//    rows alone with nothing in flight. Now the rows are split into S slices
+//    (chosen by the wrapper, `reduce_split`, so that tiles x S is a few waves of
+//    the card's SMs), a block owns one 64x64 tile of dWh for one slice, a thread
+//    4x4 of it, the next 32 rows are in registers while these multiply, and
+//    db_hn falls out of the dgh tiles that pass through shared memory anyway.
+//    Each block writes its partial tile to a scratch (S, H*3H + H); the second
+//    kernel adds the S partials in slice order. Together 4.3x the bound and
+//    level with one cuBLAS product on a left operand formed beforehand. The
+//    second kernel is a quarter of that; the first is bound by its reads of
+//    shared memory (2 LDS.128 for 16 FMAs a row: with the FMAs taken out it
+//    takes the same time, see PROBE), not by FMAs or global loads.
+//    K2p and K2b share the loader of hprev*keep and the register-tile product.
 // No atomics anywhere: every output is bitwise the same from run to run.
 //
 // Streaming route (every other H up to 1024, where a slice of Wh does not fit
 // a block's registers): gru_fwd_kernel and gru_bwd_recurrence_kernel. One block
 // owns 8 rows, loops over T with its carry in shared memory and reads Wh from
 // L2 each step (the backward also a transposed copy made by the wrapper, and it
-// recomputes the gates in the loop); K2b follows as above.
+// recomputes the gates in the loop); K2b follows as above, for any H.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -75,11 +95,12 @@ constexpr int kRows = 8;         // streaming route: batch rows per block
 constexpr int kMaxThreads = 512; // streaming route: threads per block
 constexpr int kCluster = 8;      // resident route: blocks per cluster
 constexpr int kClusterRows = 16; // resident route: batch rows per cluster
-constexpr int kGateTile = 32;    // K2p: rows, units and depth of one tile
-constexpr int kGateThreads = 256;
-constexpr int kTile = 32;        // K2b: dWh tile edge
-constexpr int kChunk = 32;       // K2b: rows staged in shared memory per pass
-constexpr int kReduceThreads = 256;
+constexpr int kTileThreads = 256; // K2p, K2b: threads per block, as 16 x 16
+constexpr int kReduceTile = 64;  // K2b: edge of a block's tile of dWh
+constexpr int kReduceChunk = 32; // K2b: rows staged in shared memory per pass
+constexpr int kGateRows = 64;    // K2p: rows of a block's tile
+constexpr int kGateUnits = 32;   // K2p: hidden units of a block's tile (x 3 gates)
+constexpr int kGateDepth = 32;   // K2p: depth of the product staged per pass
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -236,67 +257,6 @@ gru_bwd_recurrence_kernel(const float* __restrict__ gates_i,
   }
   for (int i = threadIdx.x; i < nrows * H; i += blockDim.x) {
     dh0[(size_t)row0 * H + i] = dh_s[i];
-  }
-}
-
-// K2b. Grid: (ceil(3H / kTile), ceil((H + 1) / kTile)). Row k == H of the
-// extended product multiplies by ones and yields db_hn from dgh's n block.
-__global__ void __launch_bounds__(kReduceThreads)
-gru_bwd_reduce_kernel(const float* __restrict__ keep, const float* __restrict__ h0,
-                      const float* __restrict__ hs, const float* __restrict__ dgh,
-                      float* __restrict__ dwh, float* __restrict__ dbhn, int T, int B,
-                      int H) {
-  __shared__ float a_s[kChunk][kTile + 1];  // (hprev * keep)[n][k0 + cc]
-  __shared__ float b_s[kChunk][kTile + 1];  // dgh[n][j0 + cc]
-  constexpr int kPerThread = kTile * kTile / kReduceThreads;  // 4
-  constexpr int kRowStep = kReduceThreads / kTile;            // 8
-  const int H3 = 3 * H;
-  const int N = T * B;
-  const int j0 = blockIdx.x * kTile, k0 = blockIdx.y * kTile;
-  const int tx = threadIdx.x % kTile, ty = threadIdx.x / kTile;
-
-  float acc[kPerThread];
-#pragma unroll
-  for (int q = 0; q < kPerThread; ++q) acc[q] = 0.0f;
-
-  for (int n0 = 0; n0 < N; n0 += kChunk) {
-    for (int i = threadIdx.x; i < kChunk * kTile; i += kReduceThreads) {
-      const int rr = i / kTile, cc = i % kTile;
-      const int n = n0 + rr;
-      float a = 0.0f, b = 0.0f;
-      if (n < N) {
-        const int k = k0 + cc, j = j0 + cc;
-        if (k < H) {
-          const int t = n / B, row = n % B;
-          const float hp = t == 0 ? h0[(size_t)row * H + k]
-                                  : hs[((size_t)(t - 1) * B + row) * H + k];
-          a = hp * keep[(size_t)n * H + k];
-        } else if (k == H) {
-          a = 1.0f;
-        }
-        if (j < H3) b = dgh[(size_t)n * H3 + j];
-      }
-      a_s[rr][cc] = a;
-      b_s[rr][cc] = b;
-    }
-    __syncthreads();
-    for (int rr = 0; rr < kChunk; ++rr) {
-      const float b = b_s[rr][tx];
-#pragma unroll
-      for (int q = 0; q < kPerThread; ++q) acc[q] = fmaf(a_s[rr][ty + q * kRowStep], b, acc[q]);
-    }
-    __syncthreads();
-  }
-  const int j = j0 + tx;
-#pragma unroll
-  for (int q = 0; q < kPerThread; ++q) {
-    const int k = k0 + ty + q * kRowStep;
-    if (j >= H3) continue;
-    if (k < H) {
-      dwh[(size_t)k * H3 + j] = acc[q];
-    } else if (k == H && j >= 2 * H) {
-      dbhn[j - 2 * H] = acc[q];
-    }
   }
 }
 
@@ -603,72 +563,309 @@ gru_fwd_resident_kernel(const float* __restrict__ gates_i, const float* __restri
   cluster.sync();
 }
 
-// K2p. Grid: (ceil(T*B / 32), ceil(H / 32)), 256 threads. Thread (tx, ty) owns
-// unit u0 + tx of rows n0 + ty + 8q, q < 4, with the three gates' sums.
-__global__ void __launch_bounds__(kGateThreads)
+// ------------------------------------------------- the tile product of K2p and K2b
+// Both are fp32 products with hprev * keep on the left: K2p over the depth H
+// (rows x units), K2b over the rows (units x columns of dgh). They share the
+// loader of that operand and the product of a register tile.
+
+// Four floats row[col .. col + 3], zeros from column `limit` on. `vec` says that
+// rows start on 16 bytes and that limit and col are multiples of 4 (H % 4 == 0):
+// one 16-byte load. Otherwise four guarded loads.
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int col, int limit,
+                                        bool vec) {
+  if (vec) {
+    return col < limit ? __ldg(reinterpret_cast<const float4*>(row + col))
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  float4 v;
+  v.x = col < limit ? __ldg(row + col) : 0.0f;
+  v.y = col + 1 < limit ? __ldg(row + col + 1) : 0.0f;
+  v.z = col + 2 < limit ? __ldg(row + col + 2) : 0.0f;
+  v.w = col + 3 < limit ? __ldg(row + col + 3) : 0.0f;
+  return v;
+}
+
+__device__ __forceinline__ void store4(float* __restrict__ row, int col, int limit, bool vec,
+                                       float4 v) {
+  if (vec) {
+    if (col < limit) *reinterpret_cast<float4*>(row + col) = v;
+    return;
+  }
+  if (col < limit) row[col] = v.x;
+  if (col + 1 < limit) row[col + 1] = v.y;
+  if (col + 2 < limit) row[col + 2] = v.z;
+  if (col + 3 < limit) row[col + 3] = v.w;
+}
+
+// Four neighbouring elements of hprev and of keep, as loaded: they are
+// multiplied only where they go to shared memory, so that the loads stay in
+// flight while the tile before them multiplies.
+struct HkPiece {
+  float4 h, keep;
+};
+
+// Row n = t * B + b of hprev = [h0, hs[:-1]] is h0[n] for the first B rows and
+// hs[n - B] after them: one branch a row and no division. Rows from `n_end` on
+// read as zeros.
+__device__ __forceinline__ HkPiece fetch_hk(const float* __restrict__ hs,
+                                            const float* __restrict__ h0,
+                                            const float* __restrict__ keep, int n, int k,
+                                            int n_end, int B, int H, bool vec) {
+  HkPiece p;
+  if (n < n_end) {
+    const float* hprev = n < B ? h0 + (size_t)n * H : hs + (size_t)(n - B) * H;
+    p.h = load4(hprev, k, H, vec);
+    p.keep = load4(keep + (size_t)n * H, k, H, vec);
+  } else {
+    p.h = p.keep = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  return p;
+}
+
+__device__ __forceinline__ float4 hk_value(const HkPiece& p) {
+  return make_float4(p.h.x * p.keep.x, p.h.y * p.keep.y, p.h.z * p.keep.z, p.h.w * p.keep.w);
+}
+
+// acc[i][j] += a[i] * b[j]: M + N values from shared memory feed M * N FMAs.
+template <int M, int N>
+__device__ __forceinline__ void tile_fma(const float (&a)[M], const float (&b)[N],
+                                         float (&acc)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// K2p. Grid: (ceil(T*B / 64), ceil(H / 32)), 256 threads. Thread (tx, ty) =
+// (tid % 16, tid / 16) owns rows n0 + 4 ty + {0..3} and units u0 + 2 tx + {0, 1}
+// with the three gates' sums: 24 accumulators, and per step of the depth one
+// float4 of the left operand and three float2 of Wh from shared memory. The
+// depth goes by in slabs of 32, double-buffered: slab i + 1 is loaded into
+// registers before slab i multiplies and goes to the other buffer after it, one
+// block barrier a slab. The left operand arrives row-major (a float4 runs along
+// the depth) and is needed depth-major (a float4 runs along the rows), so it is
+// stored transposed; column n of depth row kk goes to n ^ (4 * (kk / 4 % 8)),
+// which spreads a warp's 32 scalar stores over the 32 banks and leaves every
+// float4 of four rows in one piece.
+__global__ void __launch_bounds__(kTileThreads)
 gru_bwd_gates_kernel(const float* __restrict__ gates_i, const float* __restrict__ keep,
                      const float* __restrict__ h0, const float* __restrict__ w_h,
                      const float* __restrict__ b_hn, const float* __restrict__ hs,
                      float* __restrict__ gates, int T, int B, int H) {
-  __shared__ float a_s[kGateTile][kGateTile + 1];     // (hprev * keep)[n0 + rr][k0 + cc]
-  __shared__ float b_s[3][kGateTile][kGateTile + 1];  // Wh[k0 + kk][g*H + u0 + uu]
-  constexpr int kRowStep = kGateThreads / kGateTile;  // 8
-  constexpr int kPerThread = kGateTile / kRowStep;    // 4
+  __shared__ __align__(16) float a_s[2][kGateDepth][kGateRows];       // (hprev * keep)^T
+  __shared__ __align__(16) float b_s[2][kGateDepth][3 * kGateUnits];  // Wh[k][gate][unit]
+  static_assert(kGateRows * kGateDepth / 4 == 2 * kTileThreads, "two pieces of A a thread");
+  static_assert(kGateDepth * kGateUnits / 4 == kTileThreads, "one piece of Wh a gate and thread");
   const int H3 = 3 * H;
   const int N = T * B;
-  const int n0 = blockIdx.x * kGateTile, u0 = blockIdx.y * kGateTile;
-  const int tx = threadIdx.x % kGateTile, ty = threadIdx.x / kGateTile;
+  const bool vec = H % 4 == 0;
+  const int n0 = blockIdx.x * kGateRows, u0 = blockIdx.y * kGateUnits;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  // Loader: piece (row a_row + 32 i, depth 4 a_q ..) of A, piece (depth b_kk,
+  // gate g, units 4 a_q ..) of Wh. A warp loads 4 whole rows of 128 bytes.
+  const int a_q = threadIdx.x % 8, a_row = threadIdx.x / 8;
+  const int b_kk = a_row;
 
-  float acc[kPerThread][3];
+  HkPiece a_next[2];
+  float4 b_next[3];
+  auto fetch = [&](int kc) {
 #pragma unroll
-  for (int q = 0; q < kPerThread; ++q) acc[q][0] = acc[q][1] = acc[q][2] = 0.0f;
+    for (int i = 0; i < 2; ++i) {
+      a_next[i] = fetch_hk(hs, h0, keep, n0 + a_row + 32 * i, kc + 4 * a_q, N, B, H, vec);
+    }
+    const int k = kc + b_kk;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      b_next[g] = k < H ? load4(w_h + (size_t)k * H3 + g * H, u0 + 4 * a_q, H, vec)
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  };
+  auto stash = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float4 v = hk_value(a_next[i]);
+      const int col = (a_row + 32 * i) ^ (a_q << 2);
+      a_s[buf][4 * a_q + 0][col] = v.x;
+      a_s[buf][4 * a_q + 1][col] = v.y;
+      a_s[buf][4 * a_q + 2][col] = v.z;
+      a_s[buf][4 * a_q + 3][col] = v.w;
+    }
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      *reinterpret_cast<float4*>(&b_s[buf][b_kk][g * kGateUnits + 4 * a_q]) = b_next[g];
+    }
+  };
 
-  for (int k0 = 0; k0 < H; k0 += kGateTile) {
-    for (int i = threadIdx.x; i < kGateTile * kGateTile; i += kGateThreads) {
-      const int rr = i / kGateTile, cc = i % kGateTile;
-      const int n = n0 + rr, k = k0 + cc;
-      float a = 0.0f;
-      if (n < N && k < H) {
-        const int t = n / B, row = n % B;
-        const float hp = t == 0 ? h0[(size_t)row * H + k]
-                                : hs[((size_t)(t - 1) * B + row) * H + k];
-        a = hp * keep[(size_t)n * H + k];
-      }
-      a_s[rr][cc] = a;
-    }
-    for (int i = threadIdx.x; i < 3 * kGateTile * kGateTile; i += kGateThreads) {
-      const int g = i / (kGateTile * kGateTile), kk = (i / kGateTile) % kGateTile;
-      const int uu = i % kGateTile;
-      const int k = k0 + kk, u = u0 + uu;
-      b_s[g][kk][uu] = (k < H && u < H) ? w_h[(size_t)k * H3 + g * H + u] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kGateTile; ++kk) {
-      const float b0 = b_s[0][kk][tx], b1 = b_s[1][kk][tx], b2 = b_s[2][kk][tx];
+  float acc[4][6];
 #pragma unroll
-      for (int q = 0; q < kPerThread; ++q) {
-        const float a = a_s[ty + q * kRowStep][kk];
-        acc[q][0] = fmaf(a, b0, acc[q][0]);
-        acc[q][1] = fmaf(a, b1, acc[q][1]);
-        acc[q][2] = fmaf(a, b2, acc[q][2]);
-      }
-    }
-    __syncthreads();
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) acc[i][j] = 0.0f;
   }
-  const int u = u0 + tx;
-  if (u >= H) return;
-  const float bh = b_hn[u];
+  fetch(0);
+  int buf = 0;
+  for (int kc = 0; kc < H; kc += kGateDepth, buf ^= 1) {
+    stash(buf);
+    // Every thread is past its products on the other buffer, which the next
+    // pass's stash rewrites, once it gets here.
+    __syncthreads();
+    if (kc + kGateDepth < H) fetch(kc + kGateDepth);
 #pragma unroll
-  for (int q = 0; q < kPerThread; ++q) {
-    const int n = n0 + ty + q * kRowStep;
+    for (int kk = 0; kk < kGateDepth; ++kk) {
+      const float4 a4 =
+          *reinterpret_cast<const float4*>(&a_s[buf][kk][(4 * ty) ^ (((kk >> 2) & 7) << 2)]);
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+      float b[6];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        const float2 b2 =
+            *reinterpret_cast<const float2*>(&b_s[buf][kk][g * kGateUnits + 2 * tx]);
+        b[2 * g] = b2.x;
+        b[2 * g + 1] = b2.y;
+      }
+      tile_fma(a, b, acc);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = n0 + 4 * ty + i;
     if (n >= N) continue;
-    const float* g = gates_i + (size_t)n * H3 + u;
-    const float rg = sigmoid_f(g[0] + acc[q][0]);
-    const float z = sigmoid_f(g[H] + acc[q][1]);
-    const float hnb = acc[q][2] + bh;
-    *reinterpret_cast<float4*>(gates + ((size_t)n * H + u) * 4) =
-        make_float4(rg, z, tanhf(g[2 * H] + rg * hnb), hnb);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int u = u0 + 2 * tx + j;
+      if (u >= H) continue;
+      const float* g = gates_i + (size_t)n * H3 + u;
+      const float rg = sigmoid_f(g[0] + acc[i][j]);
+      const float z = sigmoid_f(g[H] + acc[i][2 + j]);
+      const float hnb = acc[i][4 + j] + b_hn[u];
+      *reinterpret_cast<float4*>(gates + ((size_t)n * H + u) * 4) =
+          make_float4(rg, z, tanhf(g[2 * H] + rg * hnb), hnb);
+    }
+  }
+}
+
+// K2b, first kernel. Grid: (ceil(3H / 64), ceil(H / 64), S), 256 threads. The
+// block owns the tile (units k0 .., columns j0 ..) of dWh for the rows of slice
+// blockIdx.z, [z * rows_per_slice, (z + 1) * rows_per_slice); thread (tx, ty) =
+// (tid % 16, tid / 16) owns units k0 + 4 ty + {0..3} x columns j0 + 4 tx + {0..3}.
+// Rows go by in chunks of 32, double-buffered as in K2p; both operands arrive
+// row-major, which is how the product reads them, so a piece goes to shared
+// memory as the float4 it came as. The blocks of the first tile row also add up
+// the columns of dgh that belong to db_hn, from the values their threads of
+// ty == 0 read for the product anyway. The partial tile goes to slice z of
+// `partial` (S, H*3H + H): dWh row-major, then db_hn.
+// PROBE is 0 in the kernel the port runs. The build with -DGRU_STEP_CLOCKS also
+// has two variants that compute nothing of use and tell what bounds the kernel:
+// 1 keeps every load and every shared-memory read and puts 8 adds in the place
+// of a row's 16 FMAs; 2 keeps the product and loads only a slice's first chunk.
+template <int PROBE>
+__global__ void __launch_bounds__(kTileThreads)
+gru_bwd_reduce_kernel(const float* __restrict__ keep, const float* __restrict__ h0,
+                      const float* __restrict__ hs, const float* __restrict__ dgh,
+                      float* __restrict__ partial, int T, int B, int H, int rows_per_slice) {
+  __shared__ __align__(16) float a_s[2][kReduceChunk][kReduceTile];  // (hprev * keep)[n][k0 ..]
+  __shared__ __align__(16) float b_s[2][kReduceChunk][kReduceTile];  // dgh[n][j0 ..]
+  static_assert(kReduceChunk * kReduceTile / 4 == 2 * kTileThreads, "two pieces a thread");
+  const int H3 = 3 * H;
+  const int N = T * B;
+  const bool vec = H % 4 == 0;
+  const int j0 = blockIdx.x * kReduceTile, k0 = blockIdx.y * kReduceTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const long long first = (long long)blockIdx.z * rows_per_slice;
+  const int n_begin = (int)(first < N ? first : N);
+  const int n_end = (int)(first + rows_per_slice < N ? first + rows_per_slice : N);
+  // Loader: pieces (row ty + 16 i, columns 4 tx ..) of both operands; half a
+  // warp loads 256 contiguous bytes.
+  HkPiece a_next[2];
+  float4 b_next[2];
+  auto fetch = [&](int nc) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int n = nc + ty + 16 * i;
+      a_next[i] = fetch_hk(hs, h0, keep, n, k0 + 4 * tx, n_end, B, H, vec);
+      b_next[i] = n < n_end ? load4(dgh + (size_t)n * H3, j0 + 4 * tx, H3, vec)
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  };
+  auto stash = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      *reinterpret_cast<float4*>(&a_s[buf][ty + 16 * i][4 * tx]) = hk_value(a_next[i]);
+      *reinterpret_cast<float4*>(&b_s[buf][ty + 16 * i][4 * tx]) = b_next[i];
+    }
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+  float b_sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  const bool sums_b = blockIdx.y == 0 && ty == 0 && j0 + kReduceTile > 2 * H;
+  if (n_begin < n_end) fetch(n_begin);
+  int buf = 0;
+  for (int nc = n_begin; nc < n_end; nc += kReduceChunk, buf ^= 1) {
+    stash(buf);
+    __syncthreads();  // as in K2p: one barrier a chunk
+    if (PROBE != 2 && nc + kReduceChunk < n_end) fetch(nc + kReduceChunk);
+    // db_hn is summed chunk by chunk and the chunks' sums are added up: a long
+    // slice then loses fewer digits than one running sum over all its rows.
+    float b_chunk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 8
+    for (int r = 0; r < kReduceChunk; ++r) {
+      const float4 a4 = *reinterpret_cast<const float4*>(&a_s[buf][r][4 * ty]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&b_s[buf][r][4 * tx]);
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+      if (PROBE == 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][i] += a[i] + b[i];
+      } else {
+        tile_fma(a, b, acc);
+      }
+      if (sums_b) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b_chunk[j] += b[j];
+      }
+    }
+    if (sums_b) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b_sum[j] += b_chunk[j];
+    }
+  }
+  float* out = partial + (size_t)blockIdx.z * ((size_t)H * H3 + H);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + 4 * ty + i;
+    if (k < H) {
+      store4(out + (size_t)k * H3, j0 + 4 * tx, H3, vec,
+             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+    }
+  }
+  if (sums_b) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = j0 + 4 * tx + j;
+      if (col >= 2 * H && col < H3) out[(size_t)H * H3 + col - 2 * H] = b_sum[j];
+    }
+  }
+}
+
+// K2b, second kernel. One thread an element of [dWh, db_hn]: the S partials are
+// added in slice order, so the sum does not depend on which block ran when.
+__global__ void __launch_bounds__(kTileThreads)
+gru_bwd_reduce_sum_kernel(const float* __restrict__ partial, float* __restrict__ dwh,
+                          float* __restrict__ dbhn, int H, int S) {
+  const int W = H * 3 * H;
+  const int M = W + H;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M) return;
+  float sum = partial[i];
+#pragma unroll 8
+  for (int s = 1; s < S; ++s) sum += partial[(size_t)s * M + i];
+  if (i < W) {
+    dwh[i] = sum;
+  } else {
+    dbhn[i - W] = sum;
   }
 }
 
@@ -1017,8 +1214,8 @@ int gru_sequence_fwd(const float* gates_i, const float* keep, const float* h0,
 int gru_sequence_bwd_gates(const float* gates_i, const float* keep, const float* h0,
                            const float* w_h, const float* b_hn, const float* hs, float* gates,
                            int T, int B, int H, void* stream) {
-  const dim3 grid((T * B + kGateTile - 1) / kGateTile, (H + kGateTile - 1) / kGateTile);
-  gru_bwd_gates_kernel<<<grid, kGateThreads, 0, (cudaStream_t)stream>>>(
+  const dim3 grid((T * B + kGateRows - 1) / kGateRows, (H + kGateUnits - 1) / kGateUnits);
+  gru_bwd_gates_kernel<<<grid, kTileThreads, 0, (cudaStream_t)stream>>>(
       gates_i, keep, h0, w_h, b_hn, hs, gates, T, B, H);
   return (int)cudaGetLastError();
 }
@@ -1058,17 +1255,60 @@ int gru_sequence_bwd_recurrence(const float* gates_i, const float* keep, const f
   return (int)cudaGetLastError();
 }
 
-// K2b.
+// K2b, first kernel: partial (slices, H*3H + H), slice s being the sums over rows
+// [s * rows_per_slice, (s + 1) * rows_per_slice) of dWh, then of db_hn.
 int gru_sequence_bwd_reduce(const float* keep, const float* h0, const float* hs,
-                            const float* dgh, float* dwh, float* dbhn, int T, int B, int H,
-                            void* stream) {
-  const dim3 grid((3 * H + kTile - 1) / kTile, (H + 1 + kTile - 1) / kTile);
-  gru_bwd_reduce_kernel<<<grid, kReduceThreads, 0, (cudaStream_t)stream>>>(
-      keep, h0, hs, dgh, dwh, dbhn, T, B, H);
+                            const float* dgh, float* partial, int T, int B, int H, int slices,
+                            int rows_per_slice, void* stream) {
+  if (slices < 1 || slices > 65535 || rows_per_slice < 1 ||
+      (long long)slices * rows_per_slice < (long long)T * B) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((3 * H + kReduceTile - 1) / kReduceTile, (H + kReduceTile - 1) / kReduceTile,
+                  slices);
+  gru_bwd_reduce_kernel<0><<<grid, kTileThreads, 0, (cudaStream_t)stream>>>(
+      keep, h0, hs, dgh, partial, T, B, H, rows_per_slice);
   return (int)cudaGetLastError();
 }
 
+// K2b, second kernel: dWh and db_hn as the sum of the partials in slice order.
+int gru_sequence_bwd_reduce_sum(const float* partial, float* dwh, float* dbhn, int H, int slices,
+                                void* stream) {
+  if (slices < 1) return (int)cudaErrorInvalidValue;
+  const int M = H * 3 * H + H;
+  gru_bwd_reduce_sum_kernel<<<(M + kTileThreads - 1) / kTileThreads, kTileThreads, 0,
+                              (cudaStream_t)stream>>>(partial, dwh, dbhn, H, slices);
+  return (int)cudaGetLastError();
+}
+
+// The tile sizes that the wrapper's choice of slices rests on, as
+// {K2b tile edge, K2b rows per pass}.
+int gru_sequence_reduce_config(int* out) {
+  out[0] = kReduceTile;
+  out[1] = kReduceChunk;
+  return 0;
+}
+
 #ifdef GRU_STEP_CLOCKS
+// K2b's first kernel in its variant `probe` (1 or 2, see the kernel): the same
+// grid and loads, a result of no use.
+int gru_sequence_bwd_reduce_probe(const float* keep, const float* h0, const float* hs,
+                                  const float* dgh, float* partial, int T, int B, int H,
+                                  int slices, int rows_per_slice, int probe, void* stream) {
+  if (slices < 1 || slices > 65535 || (probe != 1 && probe != 2)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((3 * H + kReduceTile - 1) / kReduceTile, (H + kReduceTile - 1) / kReduceTile,
+                  slices);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (probe == 1) {
+    gru_bwd_reduce_kernel<1><<<grid, kTileThreads, 0, st>>>(keep, h0, hs, dgh, partial, T, B, H,
+                                                            rows_per_slice);
+  } else {
+    gru_bwd_reduce_kernel<2><<<grid, kTileThreads, 0, st>>>(keep, h0, hs, dgh, partial, T, B, H,
+                                                            rows_per_slice);
+  }
+  return (int)cudaGetLastError();
+}
+
 // Cycles per phase, summed over the steps of the last K1 ([0..8)) and K2a
 // ([8..16)) launches. Synchronises.
 int gru_sequence_step_clocks(long long* out) {

@@ -28,7 +28,10 @@ function of the shape:
     recompute of the backward is a parallel pre-pass, K2p;
   * "streaming" (every other H up to 1024): one block per 8 rows reads Wh from
     L2 each step and the backward recomputes the gates inside its loop.
-Both end with K2b, the deterministic dWh / db_hn reduction.
+Both end with K2b, the deterministic dWh / db_hn reduction: a first kernel sums
+slices of the T*B rows into partial tiles, a second adds the partials in slice
+order. How the rows are split is `reduce_split(T, B, H)`, again a pure function
+of the shape.
 
 `fwd_launches` and `bwd_launches` count calls that launched kernels (one per
 forward call, one per backward call); `kernel_launches` counts each kernel by
@@ -60,6 +63,11 @@ CLUSTER = 8  # blocks per cluster on the resident route (the portable maximum)
 CLUSTER_ROWS = 16  # batch rows per cluster on the resident route
 STREAM_ROWS = 8  # batch rows per block on the streaming route
 STREAMING = "streaming"
+SM_COUNT = 132  # streaming multiprocessors of an H100
+REDUCE_TILE = 64  # K2b: edge of the tile of dWh that one block owns
+REDUCE_CHUNK = 32  # K2b: rows a block stages per pass
+REDUCE_WAVES = 3  # K2b: blocks wanted, in units of SM_COUNT
+REDUCE_MIN_CHUNKS = 2  # K2b: passes a slice should at least hold, to have one in flight
 
 # For measurements and tests only: `STREAMING` sends every CUDA call to the
 # streaming kernels whatever its shape, so that they can be checked and timed
@@ -68,7 +76,7 @@ forced_route: Optional[str] = None
 
 fwd_launches = 0
 bwd_launches = 0
-KERNELS = ("fwd", "bwd_gates", "bwd_recurrence", "bwd_reduce")
+KERNELS = ("fwd", "bwd_gates", "bwd_recurrence", "bwd_reduce", "bwd_reduce_sum")
 kernel_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -133,6 +141,47 @@ def kernel_route(t_len: int, b: int, h: int) -> KernelRoute:
         bwd_smem=4 * STREAM_ROWS * 5 * h,
         blocks=-(-b // STREAM_ROWS),
     )
+
+
+class ReduceSplit(NamedTuple):
+    """How K2b splits the T*B rows over blocks."""
+
+    slices: int  # S: partial sums per element of dWh and db_hn
+    rows_per_slice: int  # slice s holds rows [s * rows_per_slice, (s + 1) * rows_per_slice)
+    tiles: int  # tiles of dWh; the first kernel's grid is tiles x slices
+
+
+def reduce_split(t_len: int, b: int, h: int, slices: Optional[int] = None) -> ReduceSplit:
+    """The row split of K2b for a (T, B, H) problem, from the shape alone.
+
+    One block takes a 64 x 64 tile of dWh for one slice of the rows, in passes
+    of 32 rows. The slices are as many as it takes for tiles x slices to reach
+    three waves of the card's 132 SMs (an SM holds three blocks at once; on an
+    H100 at T = 128, H = 128 the time is flat within 3 % from two waves to four,
+    and 5-15 % longer at one wave or at six), as long as a slice keeps two
+    passes, so that one can be in flight while the other multiplies. Each slice costs one partial copy of dWh
+    in scratch (S * (H*3H + H) floats, written and read once): at S = 32 and
+    H = 128 that is 6.3 MB and stays in the 50 MB L2.
+    `slices` overrides the count (tests and timing); slices past the last row
+    are empty and contribute zeros.
+    """
+    _check_dims(t_len, b, h)
+    tiles = -(-h // REDUCE_TILE) * -(-3 * h // REDUCE_TILE)
+    chunks = -(-t_len * b // REDUCE_CHUNK)
+    if slices is None:
+        want = -(-REDUCE_WAVES * SM_COUNT // tiles)
+        per_slice = max(REDUCE_MIN_CHUNKS, -(-chunks // want))
+        slices = -(-chunks // per_slice)
+    elif slices < 1:
+        raise ValueError(f"reduce_split: need slices >= 1, got {slices}")
+    else:
+        per_slice = -(-chunks // slices)
+    return ReduceSplit(slices=slices, rows_per_slice=per_slice * REDUCE_CHUNK, tiles=tiles)
+
+
+def reduce_slice_rows(split: ReduceSplit, n: int, s: int) -> Tuple[int, int]:
+    """[start, stop) of the rows of slice `s` out of `n`, as the kernel takes them."""
+    return min(n, s * split.rows_per_slice), min(n, (s + 1) * split.rows_per_slice)
 
 
 # The loaded libraries: the kernels as the port runs them (False) and the same
@@ -256,6 +305,27 @@ def gru_backward_reduce_reference(keep, h0, hs, dgh):
     return hk.T @ flat, flat[:, 2 * h :].sum(0)
 
 
+def gru_backward_reduce_partials_reference(keep, h0, hs, dgh, split: ReduceSplit) -> torch.Tensor:
+    """Plain first kernel of K2b: (S, H*3H + H), slice s being [dWh, db_hn] summed
+    over that slice's rows alone."""
+    h = h0.shape[-1]
+    hk = (_hprev(h0, hs) * keep).reshape(-1, h)
+    flat = dgh.reshape(-1, 3 * h)
+    parts = []
+    for s in range(split.slices):
+        lo, hi = reduce_slice_rows(split, hk.shape[0], s)
+        parts.append(torch.cat([(hk[lo:hi].T @ flat[lo:hi]).reshape(-1), flat[lo:hi, 2 * h :].sum(0)]))
+    return torch.stack(parts)
+
+
+def gru_backward_reduce_sum_reference(partials: torch.Tensor, h: int):
+    """Plain second kernel of K2b: the partials added in slice order."""
+    total = partials[0].clone()
+    for s in range(1, partials.shape[0]):
+        total += partials[s]
+    return total[: h * 3 * h].reshape(h, 3 * h), total[h * 3 * h :]
+
+
 # --------------------------------------------------------------------------- build and bind
 def _nvcc() -> str:
     found = shutil.which("nvcc")
@@ -291,21 +361,25 @@ def build_kernels(step_clocks: bool = False) -> ctypes.CDLL:
             build_log = proc.stderr + proc.stdout
     lib = ctypes.CDLL(str(out))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name, pointers in (
-        ("gru_sequence_fwd", 6),
-        ("gru_sequence_bwd_gates", 7),
-        ("gru_sequence_bwd_recurrence", 12),
-        ("gru_sequence_bwd_reduce", 6),
+    for name, pointers, ints in (
+        ("gru_sequence_fwd", 6, 4),
+        ("gru_sequence_bwd_gates", 7, 3),
+        ("gru_sequence_bwd_recurrence", 12, 4),
+        ("gru_sequence_bwd_reduce", 5, 5),
+        ("gru_sequence_bwd_reduce_sum", 3, 2),
     ):
         fn = getattr(lib, name)
-        ints = 4 if name in ("gru_sequence_fwd", "gru_sequence_bwd_recurrence") else 3
         fn.argtypes = [ptr] * pointers + [i32] * ints + [ptr]
         fn.restype = i32
     lib.gru_sequence_resident_config.argtypes = [i32, ctypes.POINTER(i32)]
     lib.gru_sequence_resident_config.restype = i32
+    lib.gru_sequence_reduce_config.argtypes = [ctypes.POINTER(i32)]
+    lib.gru_sequence_reduce_config.restype = i32
     if step_clocks:
         lib.gru_sequence_step_clocks.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
         lib.gru_sequence_step_clocks.restype = i32
+        lib.gru_sequence_bwd_reduce_probe.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+        lib.gru_sequence_bwd_reduce_probe.restype = i32
     _libs[step_clocks] = lib
     return lib
 
@@ -360,6 +434,14 @@ def built_route(h: int) -> Optional[Tuple[int, int, int, int, int]]:
     out = (ctypes.c_int * 5)()
     if build_kernels().gru_sequence_resident_config(h, out) != 0:
         return None
+    return tuple(out)
+
+
+def built_reduce_config() -> Tuple[int, int]:
+    """(tile edge, rows per pass) of K2b in the built library. `REDUCE_TILE` and
+    `REDUCE_CHUNK`, on which `reduce_split` rests, must agree with it."""
+    out = (ctypes.c_int * 2)()
+    build_kernels().gru_sequence_reduce_config(out)
     return tuple(out)
 
 
@@ -438,19 +520,67 @@ def gru_backward_recurrence(gates_i, keep, h0, w_h, b_hn, hs, g_hs, gates=None,
     return dgates, dgh, dh0
 
 
-def gru_backward_reduce(keep, h0, hs, dgh):
-    """K2b: (dWh, db_hn), bitwise the same from run to run."""
+def _check_reduce_inputs(keep, h0, hs, dgh) -> Tuple[int, int, int]:
     t_len, b, h = hs.shape
-    dev = hs.device
     for name, x, shape in (("keep", keep, (t_len, b, h)), ("h0", h0, (b, h)),
                            ("hs", hs, (t_len, b, h)), ("dgh", dgh, (t_len, b, 3 * h))):
-        _check(name, x, shape, dev)
+        _check(name, x, shape, hs.device)
+    return t_len, b, h
+
+
+def gru_backward_reduce_partials(keep, h0, hs, dgh, slices: Optional[int] = None) -> torch.Tensor:
+    """K2b, first kernel: (S, H*3H + H), the sums of [dWh, db_hn] over each slice
+    of the rows. S is `reduce_split`'s unless `slices` says otherwise."""
+    t_len, b, h = _check_reduce_inputs(keep, h0, hs, dgh)
+    dev = hs.device
+    split = reduce_split(t_len, b, h, slices)
     if dev.type == "cpu":
-        return gru_backward_reduce_reference(keep, h0, hs, dgh)
+        return gru_backward_reduce_partials_reference(keep, h0, hs, dgh, split)
     lib = build_kernels()
+    partials = _empty(dev, split.slices, h * 3 * h + h)
+    _launch("bwd_reduce", lib.gru_sequence_bwd_reduce, dev, keep, h0, hs, dgh, partials,
+            t_len, b, h, split.slices, split.rows_per_slice)
+    return partials
+
+
+def gru_backward_reduce_probe(probe: int, keep, h0, hs, dgh) -> None:
+    """For timing only: K2b's first kernel at its own grid and row split with (1)
+    the product's FMAs replaced by adds at the same shared-memory reads, or (2)
+    only a slice's first chunk loaded. The result is of no use and is dropped;
+    the launch is not counted. CUDA tensors only; the build with clock marks."""
+    t_len, b, h = _check_reduce_inputs(keep, h0, hs, dgh)
+    if hs.device.type != "cuda":
+        raise ValueError("gru_backward_reduce_probe: needs CUDA tensors")
+    split = reduce_split(t_len, b, h)
+    partials = _empty(hs.device, split.slices, h * 3 * h + h)
+    with torch.cuda.device(hs.device):
+        err = build_kernels(True).gru_sequence_bwd_reduce_probe(
+            *[_ptr(x) for x in (keep, h0, hs, dgh, partials)], t_len, b, h, split.slices,
+            split.rows_per_slice, probe, _stream(hs.device))
+    _raise_on(err, "gru_sequence_bwd_reduce_probe")
+
+
+def gru_backward_reduce_sum(partials: torch.Tensor, h: int):
+    """K2b, second kernel: (dWh, db_hn) as the sum of the partials in slice order."""
+    _check("partials", partials, (partials.shape[0], h * 3 * h + h), partials.device)
+    if partials.device.type == "cpu":
+        return gru_backward_reduce_sum_reference(partials, h)
+    lib = build_kernels()
+    dev = partials.device
     dwh, dbhn = _empty(dev, h, 3 * h), _empty(dev, h)
-    _launch("bwd_reduce", lib.gru_sequence_bwd_reduce, dev, keep, h0, hs, dgh, dwh, dbhn, t_len, b, h)
+    _launch("bwd_reduce_sum", lib.gru_sequence_bwd_reduce_sum, dev, partials, dwh, dbhn,
+            h, partials.shape[0])
     return dwh, dbhn
+
+
+def gru_backward_reduce(keep, h0, hs, dgh, slices: Optional[int] = None):
+    """K2b: (dWh, db_hn), bitwise the same from run to run. On CUDA tensors the two
+    kernels in turn; on CPU tensors the plain product."""
+    if hs.device.type == "cpu":
+        _check_reduce_inputs(keep, h0, hs, dgh)
+        return gru_backward_reduce_reference(keep, h0, hs, dgh)
+    return gru_backward_reduce_sum(gru_backward_reduce_partials(keep, h0, hs, dgh, slices),
+                                   hs.shape[-1])
 
 
 def gru_sequence_backward(gates_i, keep, h0, w_h, b_hn, hs, g_hs):

@@ -200,3 +200,111 @@ def test_library_yardstick_computes_the_same_function(t_len, b, h):
     for got, ref, name in zip(grads, wants, ("dgates_i", "dh0", "dWh", "db_hn")):
         np.testing.assert_allclose(got.detach().numpy(), ref.numpy(), rtol=1e-4, atol=1e-5,
                                    err_msg=name)
+
+
+# ---------------------------------------------------------------- K2b's row split
+SPLIT_SHAPES = [(128, 16, 128), (128, 32, 128), (128, 256, 128), (128, 64, 256), (7, 5, 128),
+                (33, 17, 128), (6, 4, 72), (9, 3, 256), (3, 2, 512), (2, 2, 1024), (1, 1, 8)]
+
+
+@pytest.mark.parametrize("slices", [None, 1, 5, 10_000], ids=["rule", "S1", "S5", "S>chunks"])
+@pytest.mark.parametrize("t_len,b,h", SPLIT_SHAPES)
+def test_reduce_split_covers_every_row_exactly_once(t_len, b, h, slices):
+    """The slices of K2b are disjoint, in order, and together hold rows 0 .. T*B;
+    the rule is a function of the shape alone and keeps two passes a slice."""
+    n = t_len * b
+    split = gru.reduce_split(t_len, b, h, slices)
+    assert split == gru.reduce_split(t_len, b, h, slices)
+    assert split.slices >= 1 and split.rows_per_slice % gru.REDUCE_CHUNK == 0
+    assert split.tiles == -(-h // gru.REDUCE_TILE) * -(-3 * h // gru.REDUCE_TILE)
+    covered = np.zeros(n, dtype=np.int64)
+    stop_before = 0
+    for s in range(split.slices):
+        lo, hi = gru.reduce_slice_rows(split, n, s)
+        assert lo == stop_before and lo <= hi <= n
+        covered[lo:hi] += 1
+        stop_before = hi
+    assert (covered == 1).all()
+    if slices is None:
+        assert all(gru.reduce_slice_rows(split, n, s)[0] < n for s in range(split.slices))
+        assert split.slices == 1 or (
+            split.rows_per_slice >= gru.REDUCE_MIN_CHUNKS * gru.REDUCE_CHUNK)
+    else:
+        assert split.slices == slices
+
+
+@pytest.mark.parametrize("t_len,b,h", [(128, 16, 128), (128, 32, 128), (128, 256, 128),
+                                       (128, 64, 256)])
+def test_reduce_split_fills_the_card_at_the_slice_shapes(t_len, b, h):
+    """At the shapes the chip script times, tiles x slices is at least two waves
+    of the card's 132 SMs, and the scratch stays well inside the 50 MB L2."""
+    split = gru.reduce_split(t_len, b, h)
+    assert split.tiles * split.slices >= 2 * gru.SM_COUNT == 264
+    assert 4 * split.slices * (h * 3 * h + h) < 25e6
+
+
+def test_reduce_split_rejects_bad_counts():
+    with pytest.raises(ValueError):
+        gru.reduce_split(4, 4, 8, slices=0)
+    with pytest.raises(ValueError):
+        gru.reduce_split(0, 4, 8)
+
+
+@pytest.mark.parametrize("slices", [None, 1, 3, 40], ids=["rule", "S1", "S3", "S>chunks"])
+@pytest.mark.parametrize("t_len,b,h", [(7, 5, 72), (5, 3, 256), (11, 13, 16)],
+                         ids=["H72", "H256", "ragged"])
+def test_split_reduce_matches_the_product_and_the_jax_gradient(t_len, b, h, slices):
+    """Per-slice partial sums added in slice order (the plain versions of K2b's two
+    kernels) equal the plain product and, after the plain K2p and K2a, the JAX
+    kernel's dWh and db_hn (interpret mode): rtol 1e-5, atol 1e-6."""
+    args = _inputs(t_len, b, h, seed=h + t_len)
+    targs = _torch(args)
+    g_hs = torch.tensor(_loss_weights(t_len, b, h))
+    hs = gru.gru_sequence_reference(*targs)
+    gates = gru.gru_backward_gates(*targs, hs)
+    _, dgh, _ = gru.gru_backward_recurrence(*targs, hs, g_hs, gates)
+    split = gru.reduce_split(t_len, b, h, slices)
+    partials = gru.gru_backward_reduce_partials(targs[1], targs[2], hs, dgh, slices)
+    assert partials.shape == (split.slices, h * 3 * h + h)
+    dwh, dbhn = gru.gru_backward_reduce_sum(partials, h)
+    want = gru.gru_backward_reduce_reference(targs[1], targs[2], hs, dgh)
+
+    def loss(wh, bhn):
+        out = jax_gru_sequence(jnp.asarray(args[0]), jnp.asarray(args[1]), jnp.asarray(args[2]),
+                               wh, bhn)
+        return jnp.sum(out * _loss_weights(t_len, b, h))
+
+    jgrads = jax.grad(loss, argnums=(0, 1))(jnp.asarray(args[3]), jnp.asarray(args[4]))
+    for got, ref, jg, name in zip((dwh, dbhn), want, jgrads, ("dWh", "db_hn")):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jg), rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+def test_reduce_wrappers_check_their_inputs():
+    targs = _torch(_inputs(4, 3, 8, seed=5))
+    hs = gru.gru_sequence_reference(*targs)
+    dgh = torch.ones(4, 3, 24)
+    with pytest.raises(ValueError):
+        gru.gru_backward_reduce_partials(targs[1], targs[2], hs, dgh[:, :, :-1])
+    with pytest.raises(ValueError):
+        gru.gru_backward_reduce_sum(torch.ones(2, 8 * 24), 8)  # db_hn's columns are missing
+    with pytest.raises(TypeError):
+        gru.gru_backward_reduce(targs[1], targs[2], hs, dgh.double())
+
+
+@pytest.mark.parametrize("t_len,b,h", [(128, 16, 128), (128, 32, 128), (33, 17, 72)])
+def test_bound_of_the_reduce_does_not_depend_on_the_split(t_len, b, h):
+    """`bwd_reduce` is the work of the function: inputs once, outputs once, no
+    scratch. Only the second kernel's own work grows with the slices."""
+    base = chip_smoke.kernel_work("bwd_reduce", t_len, b, h)
+    n = t_len * b
+    assert base == (2 * n * h * 3 * h + 2 * n * 3 * h,
+                    4 * (2 * n * h + b * h + n * 3 * h + h * 3 * h + h))
+    for slices in (1, gru.reduce_split(t_len, b, h).slices, 64):
+        assert chip_smoke.kernel_work("bwd_reduce", t_len, b, h, slices) == base
+        assert chip_smoke.bound_ms("bwd_reduce", t_len, b, h, slices) == chip_smoke.bound_ms(
+            "bwd_reduce", t_len, b, h)
+    m = h * 3 * h + h
+    assert chip_smoke.kernel_work("bwd_reduce_sum", t_len, b, h, 32) == (31 * m, 4 * 33 * m)
+    assert chip_smoke.bound_ms("bwd_reduce_sum", t_len, b, h, 32)[1] == "bytes"
+    assert set(name for _, name, _, _ in chip_smoke.KERNELS) == set(gru.KERNELS)

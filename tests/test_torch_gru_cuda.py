@@ -89,6 +89,53 @@ def test_route_taken_and_its_passes(cuda, monkeypatch, t_len, b, h):
         torch.testing.assert_close(g, w, **TOL)
 
 
+TILE_SHAPES = [(128, 256, 128), (128, 64, 256)]
+
+
+@pytest.mark.parametrize("slices", ["rule", "one", "more-than-chunks"])
+@pytest.mark.parametrize("t_len,b,h", TILE_SHAPES + [(33, 17, 72)])
+def test_tile_kernels_with_many_rows(cuda, t_len, b, h, slices):
+    """K2p and K2b (each of its kernels, and both) against their plain versions
+    where T*B is 4x and 16x the slice's, for K2b's own row split, for one slice
+    and for more slices than chunks of rows; dWh and db_hn bitwise equal over
+    three runs."""
+    chunks = -(-t_len * b // gru.REDUCE_CHUNK)
+    slices = {"rule": None, "one": 1, "more-than-chunks": chunks + 3}[slices]
+    args, g_hs = _inputs(t_len, b, h, seed=b, device=cuda)
+    hs = gru.gru_sequence_forward(*args)
+    gates = gru.gru_backward_gates_reference(*args, hs)
+    torch.testing.assert_close(gru.gru_backward_gates(*args, hs), gates, **TOL)
+    if gru.kernel_route(t_len, b, h).route == "resident":
+        dgh = gru.gru_backward_recurrence(*args, hs, g_hs, gates)[1]
+    else:
+        dgh = gru.gru_backward_recurrence_reference(gates, args[1], args[2], args[3], hs, g_hs)[1]
+    counts = dict(gru.kernel_launches)
+    split = gru.reduce_split(t_len, b, h, slices)
+    # A slice is one running fp32 sum, whose rounding error grows with its length:
+    # the rule's slices (at most 1024 rows here) are held to TOL, a forced single
+    # slice over 16x the rows of the slice's shapes gets 16x the room.
+    tol = dict(rtol=1e-4, atol=1e-4 * max(1.0, min(t_len * b, split.rows_per_slice) / 2048))
+    assert slices is not None or tol == TOL
+    partials = gru.gru_backward_reduce_partials(args[1], args[2], hs, dgh, slices)
+    want = gru.gru_backward_reduce_partials_reference(args[1], args[2], hs, dgh, split)
+    torch.testing.assert_close(partials, want, **tol)
+    for g, w in zip(gru.gru_backward_reduce_sum(want, h),
+                    gru.gru_backward_reduce_sum_reference(want, h)):
+        torch.testing.assert_close(g, w, **TOL)
+    runs = [gru.gru_backward_reduce(args[1], args[2], hs, dgh, slices) for _ in range(3)]
+    for name, g, w in zip(("dWh", "db_hn"), runs[0],
+                          gru.gru_backward_reduce_reference(args[1], args[2], hs, dgh)):
+        torch.testing.assert_close(g, w, **tol, msg=name)
+    for run in runs[1:]:
+        assert all(torch.equal(a, g) for a, g in zip(run, runs[0]))
+    assert gru.kernel_launches["bwd_reduce"] == counts["bwd_reduce"] + 4
+    assert gru.kernel_launches["bwd_reduce_sum"] == counts["bwd_reduce_sum"] + 4
+
+
+def test_reduce_config_matches_the_library(cuda):
+    assert gru.built_reduce_config() == (gru.REDUCE_TILE, gru.REDUCE_CHUNK)
+
+
 def test_autograd_through_kernels(cuda):
     args, g_hs = _inputs(16, 6, 32, seed=1, device=cuda)
     leaves = [a.clone().requires_grad_(i != 1) for i, a in enumerate(args)]
