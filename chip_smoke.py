@@ -31,9 +31,19 @@ Run from the root of the repository. It
      update); then runs updates through the kernels and through the plain GRU
      from the same state and draws, checks that they agree, and reports
      env-steps/s of the update on the resident and on the streaming kernels;
-  5. with `--profile`: one full-width update under `torch.profiler`: host ms,
-     launches and kernel ms per `rec_ippo/*` span, per-kernel totals and the
-     device's idle share.
+  5. rec-MAPPO phase: the same for `default_rec_mappo` (a centralised recurrent
+     critic on the global state) through `rec_mappo.run_experiment`, with the
+     launch counts set to 0 just before: exactly 17 forward and 16 of each
+     backward kernel per update; one update on the kernels against one on the
+     plain GRU;
+  6. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
+     updates each through their `run_experiment` with the same health checks
+     (they reach no hand-written kernel), six timed ff-IPPO updates, ff-IPPO on
+     Matrax Penalty-25 for 30 updates with its eval return, and a short run of
+     the bench program (`bench_torch.run` at 512 envs);
+  7. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
+     512 envs under `torch.profiler`: host ms, launches and kernel ms per span,
+     launches per rollout step, per-kernel totals and the device's idle share.
 It prints one JSON line with the kernels' records, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -478,17 +488,43 @@ def kernel_phase(gru) -> dict:
     return {"errs": errs, "times": times, "clocks": clocks, "serial_floor_ms": floor}
 
 
-# ------------------------------------------------------------------ slice phase
-def one_update(rec_ippo, environments, load_config, device, overrides, repeats: int):
-    """`repeats` timed updates from the seed's state; returns (seconds, params, losses of
-    the first)."""
-    cfg = load_config("default_rec_ippo", SLICE_OVERRIDES + overrides)
+# ------------------------------------------------------------------ slice phases
+def port():
+    """The port's modules that the phases below drive."""
+    from mava_tpu_torch import envs as environments
+    from mava_tpu_torch.systems.ppo import ff_ippo, ff_mappo, rec_ippo, rec_mappo
+    from mava_tpu_torch.utils.config import load_config
+
+    return environments, load_config, {
+        # system: (entry point, module of its learner, default config, centralised critic)
+        "rec_ippo": (rec_ippo, rec_ippo, "default_rec_ippo", False),
+        "rec_mappo": (rec_mappo, rec_ippo, "default_rec_mappo", True),
+        "ff_ippo": (ff_ippo, ff_ippo, "default_ff_ippo", False),
+        "ff_mappo": (ff_mappo, ff_ippo, "default_ff_mappo", True),
+    }
+
+
+def learner(system: str, overrides):
+    """(learn, state, env-steps an update) of `system` at `SLICE_OVERRIDES` plus
+    `overrides`, one update a call, from the seed's state."""
+    environments, load_config, systems = port()
+    _, module, config_name, centralised = systems[system]
+    cfg = load_config(config_name, SLICE_OVERRIDES + overrides)
     cfg.arch.n_devices = 1
-    cfg.system.recurrent_chunk_size = cfg.system.rollout_length
+    if cfg.system.get("recurrent_chunk_size", "no such key") is None:
+        cfg.system.recurrent_chunk_size = cfg.system.rollout_length
     cfg.system.num_updates_per_eval = 1
-    env, _ = environments.make(cfg, device)
+    device = torch.device("cuda")
+    env, _ = environments.make(cfg, device, add_global_state=centralised)
     gen = torch.Generator(device=device).manual_seed(cfg.system.seed)
-    learn, _, state = rec_ippo.learner_setup(env, gen, cfg, device)
+    learn, _, state = module.learner_setup(env, gen, cfg, device, centralised)
+    return learn, state, cfg.system.rollout_length * cfg.arch.num_envs
+
+
+def one_update(system: str, overrides, repeats: int):
+    """`repeats` timed updates from the seed's state; returns (seconds, params and losses
+    of the first, env-steps an update)."""
+    learn, state, steps = learner(system, overrides)
     seconds, first = [], None
     for _ in range(repeats):
         torch.cuda.synchronize()
@@ -500,87 +536,138 @@ def one_update(rec_ippo, environments, load_config, device, overrides, repeats: 
             params = [p.detach().clone() for net in out.learner_state.params for p in net.parameters()]
             first = (params, out.train_metrics)
         state = out.learner_state
-    return seconds, first[0], first[1], cfg.system.rollout_length * cfg.arch.num_envs
+    return seconds, first[0], first[1], steps
 
 
-def slice_phase(gru, gpu: str) -> dict:
-    """rec-IPPO through run_experiment, then kernel vs plain for one update."""
-    from mava_tpu_torch import envs as environments
-    from mava_tpu_torch.systems.ppo import rec_ippo
-    from mava_tpu_torch.utils.config import load_config
+def print_updates(label: str, seconds, steps: int, gpu: str) -> None:
+    mean = sum(seconds) / len(seconds)
+    print(f"  update with {label}: " + " ".join(f"{x * 1e3:.1f}" for x in seconds)
+          + f" ms; mean {mean * 1e3:.1f} ms, {steps / mean:.1f} env-steps/s "
+          f"(range {steps / max(seconds):.1f}-{steps / min(seconds):.1f}) on {gpu}")
 
-    config = load_config("default_rec_ippo", SLICE_OVERRIDES)
+
+def train(system: str, gru, overrides=()):
+    """`system` through its `run_experiment` at the shipped width, with the launch
+    counts set to 0 just before and read just after: every parameter on the card
+    and changed, every loss finite. Returns (config, launches)."""
+    environments, load_config, systems = port()
+    entry, module, config_name, centralised = systems[system]
+    config = load_config(config_name, SLICE_OVERRIDES + list(overrides))
     device = torch.device("cuda")
-    env, _ = environments.make(config, device)
-    initial = [p.detach().clone() for net in rec_ippo.make_networks(env, config, device, config.system.seed)
-               for p in net.parameters()]
+    env, _ = environments.make(config, device, add_global_state=centralised)
+    networks = module.make_networks(env, config, device, config.system.seed, centralised)
+    initial = [p.detach().clone() for net in networks for p in net.parameters()]
 
     gru.reset_launch_counts()
     start = time.perf_counter()
-    performance, output = rec_ippo.run_experiment(config)
+    performance, output = entry.run_experiment(config)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launches = dict(gru.kernel_launches, fwd_calls=gru.fwd_launches, bwd_calls=gru.bwd_launches)
 
-    updates = config.system.num_updates
-    actor, critic = output.learner_state.params
-    final = [p.detach() for net in (actor, critic) for p in net.parameters()]
-    check(all(p.device.type == "cuda" for p in final), "a parameter is not on the card")
+    final = [p.detach() for net in output.learner_state.params for p in net.parameters()]
+    check(len(final) == len(initial), f"{system}: the networks changed shape")
+    check(all(p.device.type == "cuda" for p in final), f"{system}: a parameter is not on the card")
     for name, values in output.train_metrics.items():
-        check(torch.isfinite(values).all().item(), f"loss {name} not finite")
+        check(torch.isfinite(values).all().item(), f"{system}: loss {name} not finite")
     changed = [not torch.equal(a, b) for a, b in zip(initial, final)]
-    check(all(changed), f"parameters unchanged after training: {changed}")
+    check(all(changed), f"{system}: parameters unchanged after training: {changed}")
+    check(performance == performance, f"{system}: the eval return is not a number")
+    print(f"  {system} run_experiment: {config.system.num_updates} updates, eval return "
+          f"{performance:.3f}, {wall:.1f} s wall, launches {launches}")
+    return config, launches
+
+
+def kernels_against_plain(system: str, repeats: int):
+    """Updates of `system` through the kernels and through the plain GRU, from the
+    same seed, generator stream and therefore the same first rollout. Returns the
+    kernel run's (seconds, params, env-steps an update) and the plain run's seconds."""
+    k_s, k_params, k_losses, steps = one_update(system, ["network.gru_impl=pallas"], repeats)
+    p_s, p_params, p_losses, _ = one_update(system, ["network.gru_impl=hoisted"], 2)
+    param_err = max((a - b).abs().max().item() for a, b in zip(k_params, p_params))
+    loss_err = max((k_losses[k] - p_losses[k]).abs().max().item() for k in p_losses)
+    print(f"  one {system} update, kernels vs plain GRU: max |param diff| {param_err:.3e}, "
+          f"max |loss diff| {loss_err:.3e}")
+    check(param_err <= 1e-3, f"{system}: kernel and plain updates disagree on the parameters")
+    check(all(torch.allclose(k_losses[k], p_losses[k], rtol=1e-3, atol=1e-5)
+              for k in p_losses), f"{system}: kernel and plain updates disagree on the losses")
+    return k_s, k_params, steps, p_s
+
+
+def slice_phase(gru, gpu: str) -> dict:
+    """rec-IPPO through run_experiment, then kernel vs plain for one update."""
+    config, launches = train("rec_ippo", gru)
+    updates = config.system.num_updates
     check(launches["fwd_calls"] >= 17 * updates, f"forward launched {launches['fwd_calls']} times")
     check(launches["bwd_calls"] >= 16 * updates, f"backward launched {launches['bwd_calls']} times")
     for _, counter, _, per_update in KERNELS:
         check(launches[counter] >= per_update * updates,
               f"{counter} launched {launches[counter]} times on the main path")
-    print(f"  run_experiment: {updates} updates, eval return {performance:.3f}, "
-          f"{wall:.1f} s wall, launches {launches}")
 
-    # Updates through the kernels and through the plain GRU, from the same
-    # seed, generator stream and therefore the same first rollout.
-    setup = (rec_ippo, environments, load_config, device)
-    k_s, k_params, k_losses, steps = one_update(*setup, ["network.gru_impl=pallas"], repeats=6)
-    p_s, p_params, p_losses, _ = one_update(*setup, ["network.gru_impl=hoisted"], repeats=2)
-    param_err = max((a - b).abs().max().item() for a, b in zip(k_params, p_params))
-    loss_err = max((k_losses[k] - p_losses[k]).abs().max().item() for k in p_losses)
-    print(f"  one update, kernels vs plain GRU: max |param diff| {param_err:.3e}, "
-          f"max |loss diff| {loss_err:.3e}")
-    check(param_err <= 1e-3, "kernel and plain updates disagree on the parameters")
-    check(all(torch.allclose(k_losses[k], p_losses[k], rtol=1e-3, atol=1e-5)
-              for k in p_losses), "kernel and plain updates disagree on the losses")
+    k_s, k_params, steps, p_s = kernels_against_plain("rec_ippo", repeats=3)
     # The same updates on the streaming kernels: every call of the op is sent
     # there for the length of these runs.
     s_s, s_params, _, _ = on_streaming(
-        gru, lambda: one_update(*setup, ["network.gru_impl=pallas"], repeats=6))()
+        gru, lambda: one_update("rec_ippo", ["network.gru_impl=pallas"], repeats=3))()
     stream_err = max((a - b).abs().max().item() for a, b in zip(k_params, s_params))
     check(stream_err <= 1e-3, "resident and streaming updates disagree on the parameters")
     for label, seconds in (("resident kernels", k_s), ("streaming kernels", s_s), ("plain GRU", p_s)):
-        mean = sum(seconds) / len(seconds)
-        print(f"  update with {label}: " + " ".join(f"{x * 1e3:.1f}" for x in seconds)
-              + f" ms; mean {mean * 1e3:.1f} ms, {steps / mean:.1f} env-steps/s "
-              f"(range {steps / max(seconds):.1f}-{steps / min(seconds):.1f}) on {gpu}")
+        print_updates(label, seconds, steps, gpu)
     return {"launches": launches}
 
 
+def mappo_phase(gru, gpu: str) -> dict:
+    """rec-MAPPO, the centralised recurrent critic: the path of the CTDE systems
+    that runs the kernels. Per update exactly the launches of rec-IPPO: the
+    evaluator's and the rollout's T = 1 actor steps reach no kernel."""
+    config, launches = train("rec_mappo", gru)
+    updates = config.system.num_updates
+    for _, counter, _, per_update in KERNELS:
+        check(launches[counter] == per_update * updates,
+              f"rec_mappo: {counter} launched {launches[counter]} times in {updates} updates, "
+              f"not {per_update} an update")
+    check(launches["fwd_calls"] == 17 * updates and launches["bwd_calls"] == 16 * updates,
+          f"rec_mappo: {launches['fwd_calls']} forward and {launches['bwd_calls']} backward calls")
+    k_s, _, steps, p_s = kernels_against_plain("rec_mappo", repeats=3)
+    for label, seconds in (("rec-MAPPO, resident kernels", k_s), ("rec-MAPPO, plain GRU", p_s)):
+        print_updates(label, seconds, steps, gpu)
+    return {"launches": launches}
+
+
+def feedforward_phase(gru, gpu: str) -> None:
+    """ff-IPPO and ff-MAPPO on RWARE, ff-IPPO on Matrax, and the bench program,
+    short. None of them reaches a hand-written kernel, and the counts say so."""
+    import bench_torch
+
+    for system in ("ff_ippo", "ff_mappo"):
+        _, launches = train(system, gru)
+        check(not any(launches.values()), f"{system} launched a GRU kernel: {launches}")
+    seconds, _, _, steps = one_update("ff_ippo", [], repeats=6)
+    print_updates("ff-IPPO, 16 envs", seconds, steps, gpu)
+
+    train("ff_ippo", gru, [
+        "env=matrax", "env.scenario.task_name=Penalty-25-stateless-v0", "env.kwargs.time_limit=10",
+        "arch.num_envs=16", "system.rollout_length=128", "system.num_updates=30",
+        "arch.num_eval_episodes=32",
+    ])
+
+    start = time.perf_counter()
+    rate = bench_torch.run(bench_torch.NUM_ENVS, bench_torch.ROLLOUT_LENGTH,
+                           bench_torch.UPDATES_PER_CALL, warmup_calls=1, timed_calls=2,
+                           device="cuda")
+    check(rate > 0, "the bench program reports no rate")
+    print(f"  bench program, short (ff-IPPO, {bench_torch.NUM_ENVS} envs, 1 warm-up and 2 timed "
+          f"calls of {bench_torch.UPDATES_PER_CALL} updates): {rate:.1f} env-steps/s on {gpu} "
+          f"({time.perf_counter() - start:.1f} s wall)")
+
+
 # ------------------------------------------------------------------ profile
-def profile_phase(gru) -> None:
-    """One full-width update under torch.profiler: where its time goes."""
+def profile_phase(system: str, overrides, rollout_length: int) -> None:
+    """One full-width update of `system` under torch.profiler: where its time goes."""
     from torch.profiler import ProfilerActivity, profile
 
-    from mava_tpu_torch import envs as environments
-    from mava_tpu_torch.systems.ppo import rec_ippo
-    from mava_tpu_torch.utils.config import load_config
-
-    cfg = load_config("default_rec_ippo", SLICE_OVERRIDES)
-    cfg.arch.n_devices = 1
-    cfg.system.recurrent_chunk_size = cfg.system.rollout_length
-    cfg.system.num_updates_per_eval = 1
-    device = torch.device("cuda")
-    env, _ = environments.make(cfg, device)
-    gen = torch.Generator(device=device).manual_seed(cfg.system.seed)
-    learn, _, state = rec_ippo.learner_setup(env, gen, cfg, device)
+    learn, state, steps = learner(system, overrides)
+    span_prefix = ("ff_ippo/", "rec_ippo/")
     state = learn(state).learner_state  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -591,14 +678,15 @@ def profile_phase(gru) -> None:
     events = list(prof.events())
     # The spans are mirrored on the device's timeline as annotations: not work.
     on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                 and not e.name.startswith("rec_ippo/")]
+                 and not e.name.startswith(span_prefix)]
     kernels = [e for e in on_device if not e.name.lower().startswith(("memcpy", "memset"))]
     check(len(kernels) > 0, "the profile shows no kernel: time with CUDA events instead")
     launches = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
                 and "launch" in e.name.lower() and e.name.startswith(("cuda", "cu"))]
-    spans = [e for e in events if e.name.startswith("rec_ippo/")
+    spans = [e for e in events if e.name.startswith(span_prefix)
              and e.device_type == torch.autograd.DeviceType.CPU]
-    print(f"  update: {wall_ms:.1f} ms host, {len(launches)} launches, {len(kernels)} kernels")
+    print(f"  {system} update of {steps} env-steps: {wall_ms:.1f} ms host, {len(launches)} "
+          f"launches, {len(kernels)} kernels")
     for span in sorted(spans, key=lambda e: e.time_range.start):
         lo, hi = span.time_range.start, span.time_range.end
         # A kernel belongs to the span whose host interval holds the launch
@@ -606,7 +694,9 @@ def profile_phase(gru) -> None:
         inside = [e for e in launches if lo <= e.time_range.start <= hi]
         ids = {e.id for e in inside}
         ms = sum(k.time_range.end - k.time_range.start for k in kernels if k.id in ids) / 1e3
-        print(f"  {span.name}: {(hi - lo) / 1e3:.1f} ms host, {len(inside)} launches, "
+        per_step = (f" ({len(inside) / rollout_length:.1f} a rollout step)"
+                    if span.name.endswith("/rollout") else "")
+        print(f"  {span.name}: {(hi - lo) / 1e3:.1f} ms host, {len(inside)} launches{per_step}, "
               f"{ms:.2f} ms of kernels")
     for _, counter, _, _ in KERNELS:
         mine = [k for k in kernels
@@ -648,11 +738,18 @@ def main() -> int:
 
     print("kernel phase:")
     kernels = kernel_phase(gru)
-    print("slice phase:")
+    print(f"  ({time.perf_counter() - start:.0f} s since the start)")
+    print("slice phase (rec-IPPO):")
     sliced = slice_phase(gru, gpu)
+    print("rec-MAPPO phase:")
+    mappo = mappo_phase(gru, gpu)
+    print("feed-forward phase (ff-IPPO, ff-MAPPO, Matrax, the bench program):")
+    feedforward_phase(gru, gpu)
+    print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     if "--profile" in sys.argv[1:]:
         print("profile phase:")
-        profile_phase(gru)
+        profile_phase("rec_ippo", [], 128)
+        profile_phase("ff_ippo", ["arch.num_envs=512"], 128)
 
     t16, t32 = kernels["times"][16], kernels["times"][32]
     library = {"fwd": ("cudnn_fwd", "torch.nn.GRU forward (cuDNN), keep == 1"),
@@ -668,7 +765,9 @@ def main() -> int:
         lib_key, lib_what = library[counter]
         entry = {
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": sliced["launches"][counter], "max_abs_err": kernels["errs"][counter],
+            "launches": sliced["launches"][counter],
+            "launches_rec_mappo": mappo["launches"][counter],
+            "max_abs_err": kernels["errs"][counter],
             "ms": t16[counter], "plain_ms": t16[counter + "_plain"],
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": t16[lib_key] if lib_key else None, "library": lib_what,
@@ -689,6 +788,7 @@ def main() -> int:
                 "form_operand_ms_b32": t32["form_hk"], "library_with_operand_ms_b32": t32["mm_with_hk"],
             })
         record["kernels"].append(entry)
+    print(f"total: {time.perf_counter() - start:.0f} s")
     print(gpu)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Environment factory and registry (port of `mava_tpu/envs/__init__.py`).
 
-Same wrapper order as the reference: AgentID? -> AutoReset ->
-RecordEpisodeMetrics on the train env; RecordEpisodeMetrics on the eval env.
-Only RobotWarehouse is ported so far; the other environments are listed in
-ROADMAP.md.
+Same wrapper order as the reference: GlobalState? -> AgentID? -> AutoReset ->
+RecordEpisodeMetrics on the train env; the same without AutoReset on the eval
+env. The global state is therefore built from views without the one-hot ids.
+RobotWarehouse and Matrax are ported so far; the other environments are listed
+in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from mava_tpu_torch.envs.wrappers import (
     AgentIDWrapper,
     AutoResetWrapper,
+    GlobalStateWrapper,
     RecordEpisodeMetrics,
 )
 
@@ -37,7 +39,10 @@ def register(name: str) -> Callable:
     return deco
 
 
-def _add_extra_wrappers(train_env, eval_env, config):
+def _add_extra_wrappers(train_env, eval_env, config, add_global_state: bool):
+    if add_global_state:
+        train_env = GlobalStateWrapper(train_env)
+        eval_env = GlobalStateWrapper(eval_env)
     if config.system.get("add_agent_id", False) and not config.env.get(
         "implicit_agent_id", False
     ):
@@ -60,7 +65,30 @@ def _make_rware(config, device: torch.device) -> Tuple[Any, Any]:
     )
 
 
-def make(config, device: torch.device | str) -> Tuple[Any, Any]:
+@register("Matrax")
+def _make_matrax(config, device: torch.device) -> Tuple[Any, Any]:
+    from mava_tpu_torch.envs.matrax import Matrax
+
+    kwargs = _env_kwargs(config)
+    # `env.scenario.task_name` selects the game. A scenario may pin its own
+    # task_config.task_name (the Custom-payoff pattern); a task_name that
+    # contradicts the pin fails: the engine would train the pinned game while
+    # the logger labels the run with the other name.
+    scenario_task = config.env.scenario.task_name
+    if "task_name" in kwargs and kwargs["task_name"] != scenario_task:
+        raise ValueError(
+            f"Scenario pins task_config.task_name={kwargs['task_name']!r} but "
+            f"env.scenario.task_name={scenario_task!r}. Pick a scenario without "
+            "a task_config pin (e.g. env/scenario=matrax-climbing) to select "
+            "tasks via env.scenario.task_name."
+        )
+    kwargs.setdefault("task_name", scenario_task)
+    return Matrax(**kwargs, device=device), Matrax(**kwargs, device=device)
+
+
+def make(
+    config, device: torch.device | str, add_global_state: bool = False
+) -> Tuple[Any, Any]:
     """Create (train_env, eval_env) on `device` from config."""
     env_name = config.env.env_name
     if env_name not in _REGISTRY:
@@ -69,4 +97,4 @@ def make(config, device: torch.device | str) -> Tuple[Any, Any]:
             f"(ported: {sorted(_REGISTRY)}); see ROADMAP.md, Queue 1."
         )
     train_env, eval_env = _REGISTRY[env_name](config, torch.device(device))
-    return _add_extra_wrappers(train_env, eval_env, config)
+    return _add_extra_wrappers(train_env, eval_env, config, add_global_state)

@@ -1,7 +1,8 @@
 """Environment wrappers over batched environments.
 
-Port of `mava_tpu/envs/wrappers.py`: AgentID one-hot concat, auto-reset with
-`real_next_obs` in extras, and episode-metric recording. The reference's
+Port of `mava_tpu/envs/wrappers.py`: the global state of centralised critics,
+AgentID one-hot concat, auto-reset with `real_next_obs` in extras, and
+episode-metric recording. The reference's
 per-env `lax.cond` auto-reset becomes a `torch.where` over the env axis: every
 step also computes a reset for every env and keeps it where the episode ended
 (the cost profile of the reference's vmapped select).
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from mava_tpu_torch.types import TimeStep
+from mava_tpu_torch.types import ObservationGlobalState, TimeStep
 
 OBS_IN_EXTRAS_KEY = "real_next_obs"
 
@@ -46,6 +47,44 @@ class Wrapper:
 
     def step(self, state: Any, action: torch.Tensor, noise: Any) -> Tuple[Any, TimeStep]:
         return self._env.step(state, action, noise)
+
+
+class GlobalStateWrapper(Wrapper):
+    """Adds a global state for centralised critics: every agent's view,
+    flattened and concatenated per env, tiled to one copy per agent
+    (reference `wrappers.py:65-117`). An env's own
+    `get_global_state(obs, state)` takes its place where there is one, and then
+    the env also says how wide it is (`num_global_state_features`).
+    """
+
+    @property
+    def num_global_state_features(self) -> int:
+        if hasattr(self._env, "get_global_state"):
+            return self._env.num_global_state_features
+        return self.num_agents * self._env.num_obs_features
+
+    def _add_global_state(self, timestep: TimeStep, state: Any) -> TimeStep:
+        obs = timestep.observation
+        if hasattr(self._env, "get_global_state"):
+            global_state = self._env.get_global_state(obs, state)
+        else:
+            flat = obs.agents_view.flatten(1)  # (E, A * F)
+            global_state = flat[:, None, :].expand(-1, self.num_agents, -1)
+        observation = ObservationGlobalState(
+            agents_view=obs.agents_view,
+            action_mask=obs.action_mask,
+            global_state=global_state,
+            step_count=obs.step_count,
+        )
+        return timestep._replace(observation=observation)
+
+    def reset(self, noise: Any) -> Tuple[Any, TimeStep]:
+        state, timestep = self._env.reset(noise)
+        return state, self._add_global_state(timestep, state)
+
+    def step(self, state: Any, action: torch.Tensor, noise: Any) -> Tuple[Any, TimeStep]:
+        state, timestep = self._env.step(state, action, noise)
+        return state, self._add_global_state(timestep, state)
 
 
 class AgentIDWrapper(Wrapper):

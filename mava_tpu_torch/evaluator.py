@@ -81,6 +81,19 @@ def get_eval_fn(env: Any, act_fn: EvalActFn, config, absolute_metric: bool) -> C
     return eval_fn
 
 
+def make_ff_eval_act_fn(config) -> EvalActFn:
+    """Feed-forward act fn: the greedy mode, or a sample from the evaluator's
+    generator (reference :129-137). `params` is the actor module; `actor_state`
+    passes through."""
+
+    def eval_act_fn(params, timestep, generator, actor_state):
+        pi = params(timestep.observation)
+        action = pi.mode() if config.arch.evaluation_greedy else pi.sample(generator)
+        return action, actor_state
+
+    return eval_act_fn
+
+
 def make_rec_eval_act_fn(config) -> EvalActFn:
     """Recurrent act fn: threads `hidden_state` through actor_state and feeds
     the actor one time step (reference :140-157). `params` is the actor module."""

@@ -1,4 +1,6 @@
 from mava_tpu_torch.networks.actor_critic import (
+    FeedForwardActor,
+    FeedForwardValueNet,
     RecurrentActor,
     RecurrentValueNet,
     ScannedRNN,
@@ -9,6 +11,8 @@ from mava_tpu_torch.networks.torsos import MLPTorso
 
 __all__ = [
     "DiscreteActionHead",
+    "FeedForwardActor",
+    "FeedForwardValueNet",
     "MLPTorso",
     "RecurrentActor",
     "RecurrentValueNet",

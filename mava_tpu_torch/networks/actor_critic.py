@@ -1,4 +1,8 @@
-"""Recurrent actor and critic (port of `mava_tpu/networks/actor_critic.py`).
+"""Feed-forward and recurrent actor and critic (port of
+`mava_tpu/networks/actor_critic.py`).
+
+The critics come in two kinds: on the agent's own view, or centralised on
+`observation.global_state` (CTDE), which only an `ObservationGlobalState` has.
 
 `ScannedRNN` keeps the reference's parameter layout: `wi` (F,3H), `bi` (3H),
 `wh` (H,3H) and `bhn` (H) are raw parameters in JAX's (in, out) layout, which
@@ -16,6 +20,7 @@ from torch import nn
 
 from mava_tpu_torch.networks.torsos import MLPTorso, orthogonal_linear
 from mava_tpu_torch.ops.gru import gru_sequence
+from mava_tpu_torch.types import ObservationGlobalState
 
 # `network.gru_impl` values: "auto" resolves per device; "pallas" is the GRU
 # kernel (hand-written CUDA in this port); "hoisted" and "cell" are the plain
@@ -31,6 +36,40 @@ def resolve_gru_impl(impl: Optional[str], device: torch.device) -> str:
     if impl != "pallas" and impl not in _PLAIN_IMPLS:
         raise ValueError(f"Unknown gru_impl {impl!r} (auto | pallas | hoisted | cell)")
     return impl
+
+
+def _critic_input(observation, centralised_critic: bool) -> torch.Tensor:
+    if not centralised_critic:
+        return observation.agents_view
+    if not isinstance(observation, ObservationGlobalState):
+        raise ValueError("Centralised critic requires a global state.")
+    return observation.global_state
+
+
+class FeedForwardActor(nn.Module):
+    """torso(agents_view) -> action_head(embedding, obs)."""
+
+    def __init__(self, torso: MLPTorso, action_head: nn.Module):
+        super().__init__()
+        self.torso = torso
+        self.action_head = action_head
+
+    def forward(self, observation):
+        return self.action_head(self.torso(observation.agents_view), observation)
+
+
+class FeedForwardValueNet(nn.Module):
+    """V(obs); the centralised variant reads the global state."""
+
+    def __init__(self, torso: MLPTorso, centralised_critic: bool = False):
+        super().__init__()
+        self.torso = torso
+        self.centralised_critic = centralised_critic
+        self.value_head = orthogonal_linear(torso.out_features, 1, 1.0)
+
+    def forward(self, observation) -> torch.Tensor:
+        x = _critic_input(observation, self.centralised_critic)
+        return self.value_head(self.torso(x)).squeeze(-1)
 
 
 def lecun_normal_(w: torch.Tensor) -> torch.Tensor:
@@ -141,7 +180,7 @@ class RecurrentActor(nn.Module):
 
 
 class RecurrentValueNet(nn.Module):
-    """Recurrent V(obs) on the agent's own view.
+    """Recurrent V(obs); the centralised variant reads the global state.
 
     With `collect_carries` the call returns
     `(final_hidden, (per_step_input_hidden, values))`; the parameters are the
@@ -149,9 +188,11 @@ class RecurrentValueNet(nn.Module):
     """
 
     def __init__(self, pre_torso: MLPTorso, post_torso: MLPTorso,
-                 hidden_state_dim: int = 128, gru_impl: Optional[str] = None):
+                 hidden_state_dim: int = 128, gru_impl: Optional[str] = None,
+                 centralised_critic: bool = False):
         super().__init__()
         self.pre_torso = pre_torso
+        self.centralised_critic = centralised_critic
         self.rnn = ScannedRNN(pre_torso.out_features, hidden_state_dim, gru_impl)
         self.post_torso = post_torso
         self.value_head = orthogonal_linear(post_torso.out_features, 1, 1.0)
@@ -159,7 +200,7 @@ class RecurrentValueNet(nn.Module):
     def forward(self, value_hidden_state: torch.Tensor, observation_done: Tuple,
                 collect_carries: bool = False):
         observation, done = observation_done
-        embedding = self.pre_torso(observation.agents_view)
+        embedding = self.pre_torso(_critic_input(observation, self.centralised_critic))
         value_hidden_state, rnn_out = self.rnn(
             value_hidden_state, embedding, done, collect_carries=collect_carries
         )

@@ -1,5 +1,6 @@
 """Recurrent (GRU) Independent PPO on one device (port of
-`mava_tpu/systems/ppo/rec_ippo.py`).
+`mava_tpu/systems/ppo/rec_ippo.py`); with `centralised_critic` the critic reads
+the global state and the system is rec-MAPPO (`rec_mappo.py`).
 
 One update: a `rollout_length`-step rollout where the actor runs one step at a
 time (T = 1, the plain GRU path) with all action noise drawn up front; one
@@ -20,16 +21,14 @@ from __future__ import annotations
 
 import copy
 import sys
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 from torch.profiler import record_function
 from torch.utils import _pytree as pytree
 
 from mava_tpu_torch import envs as environments
-from mava_tpu_torch.envs.wrappers import get_final_step_metrics
-from mava_tpu_torch.evaluator import get_eval_fn, get_num_eval_envs, make_rec_eval_act_fn
+from mava_tpu_torch.evaluator import get_num_eval_envs, make_rec_eval_act_fn
 from mava_tpu_torch.networks import RecurrentActor, RecurrentValueNet, ScannedRNN
 from mava_tpu_torch.networks.factory import (
     make_action_head,
@@ -39,6 +38,12 @@ from mava_tpu_torch.networks.factory import (
 )
 from mava_tpu_torch.ops import clipped_ppo_policy_loss, clipped_value_loss
 from mava_tpu_torch.ops.gae import calculate_gae_with_next_done
+from mava_tpu_torch.systems.anakin import (
+    schedule_updates,
+    stack_trees,
+    start_experiment,
+    train_and_evaluate,
+)
 from mava_tpu_torch.systems.ppo.types import (
     HiddenStates,
     OptStates,
@@ -48,20 +53,11 @@ from mava_tpu_torch.systems.ppo.types import (
 )
 from mava_tpu_torch.types import ExperimentOutput
 from mava_tpu_torch.utils.config import Config, load_config
-from mava_tpu_torch.utils.logger import LogEvent, MavaLogger
-from mava_tpu_torch.utils.profiling import PhaseTimer
-from mava_tpu_torch.utils.timestep_checker import check_total_timesteps
 from mava_tpu_torch.utils.training import (
     entropy_coefficient,
     make_learning_rate,
     make_optimizer,
 )
-
-
-def _stack(trees: Sequence[Any]) -> Any:
-    """Stack a list of identically-structured pytrees along a new axis 0."""
-    leaves, spec = zip(*(pytree.tree_flatten(t) for t in trees))
-    return pytree.tree_unflatten([torch.stack(xs) for xs in zip(*leaves)], spec[0])
 
 
 def _chunk(x: torch.Tensor, layout: str, chunk: int, num_chunks: int) -> torch.Tensor:
@@ -131,7 +127,7 @@ def get_learner_fn(
                     (last_done, action, timestep.reward, logits, obs, policy_h, info)
                 )
                 policy_h, last_done = new_policy_h, done
-            (dones, actions, rewards, logits, obs_seq, policy_hstates, infos) = _stack(steps)
+            (dones, actions, rewards, logits, obs_seq, policy_hstates, infos) = stack_trees(steps)
         with torch.no_grad(), record_function("rec_ippo/critic_gae"):
             log_probs = log_prob_from_params(logits, actions)
 
@@ -233,19 +229,24 @@ def get_learner_fn(
             train_info.append(losses)
         return ExperimentOutput(
             learner_state=state,
-            episode_metrics=_stack(episode_info),
-            train_metrics=_stack(train_info),
+            episode_metrics=stack_trees(episode_info),
+            train_metrics=stack_trees(train_info),
         )
 
     return learner_fn
 
 
-def make_networks(env: Any, config: Config, device: torch.device, seed: int):
+def make_networks(
+    env: Any, config: Config, device: torch.device, seed: int,
+    centralised_critic: bool = False,
+):
     """The actor and critic, initialised from `seed` as the reference's flax
-    initialisers draw (in distribution), then moved to `device`."""
+    initialisers draw (in distribution), then moved to `device`. A centralised
+    critic's first layer is as wide as the global state."""
     net = config.network
     gru_impl = net.get("gru_impl", None)
     in_features = env.num_obs_features
+    critic_features = env.num_global_state_features if centralised_critic else in_features
     # nn.init draws from the CPU default generator: seed it inside a fork so
     # the caller's generator state is left as it was.
     with torch.random.fork_rng(devices=[]):
@@ -259,9 +260,11 @@ def make_networks(env: Any, config: Config, device: torch.device, seed: int):
             net.hidden_state_dim,
             gru_impl,
         )
-        critic_pre = make_torso(net.critic_network.pre_torso, in_features)
+        critic_pre = make_torso(net.critic_network.pre_torso, critic_features)
         critic_post = make_torso(net.critic_network.post_torso, net.hidden_state_dim)
-        critic = RecurrentValueNet(critic_pre, critic_post, net.hidden_state_dim, gru_impl)
+        critic = RecurrentValueNet(
+            critic_pre, critic_post, net.hidden_state_dim, gru_impl, centralised_critic
+        )
     return actor.to(device), critic.to(device)
 
 
@@ -270,15 +273,19 @@ def learner_setup(
     generator: torch.Generator,
     config: Config,
     device: torch.device,
+    centralised_critic: bool = False,
     noise: Optional[torch.Tensor] = None,
     permutations: Optional[torch.Tensor] = None,
 ) -> Tuple[Callable, torch.nn.Module, RNNLearnerState]:
     """Networks, optimizers, env reset and the learner function."""
     if config.arch.get("stagger_resets", False):
-        raise ValueError("rec-IPPO does not support arch.stagger_resets.")
+        raise ValueError(
+            "arch.stagger_resets=True is not supported by rec-IPPO/rec-MAPPO "
+            "(feedforward PPO systems only)."
+        )
     num_agents = env.num_agents
     config.system.num_agents = num_agents
-    actor, critic = make_networks(env, config, device, config.system.seed)
+    actor, critic = make_networks(env, config, device, config.system.seed, centralised_critic)
 
     actor_opt = make_optimizer(
         actor.parameters(), make_learning_rate(config.system.actor_lr, config),
@@ -309,103 +316,39 @@ def learner_setup(
     return learner, actor, state
 
 
-def _reject_unported(config: Config) -> None:
-    ckpt = config.logger.checkpointing
-    for key in ("save_model", "load_model", "save_full_state", "load_full_state"):
-        if ckpt.get(key, False):
-            raise NotImplementedError(
-                f"logger.checkpointing.{key}=True is not yet ported to mava_tpu_torch."
-            )
-
-
-def _device(config: Config) -> torch.device:
-    device = torch.device(config.arch.get("device", "cuda"))
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "arch.device is cuda but CUDA is not available; "
-            "pass +arch.device=cpu to run the port on the CPU."
-        )
-    return device
-
-
-def run_experiment(_config: Config) -> Tuple[float, ExperimentOutput]:
-    """Train rec-IPPO; returns (evaluation performance, last learner output)."""
+def run_experiment(
+    _config: Config, centralised_critic: bool = False
+) -> Tuple[float, ExperimentOutput]:
+    """Train rec-IPPO (rec-MAPPO when `centralised_critic`); returns
+    (evaluation performance, last learner output)."""
     config = copy.deepcopy(_config)
-    _reject_unported(config)
-    device = _device(config)
-    # Full fp32 everywhere on the card, as on the reference's path.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    config.arch.n_devices = 1
+    device = start_experiment(config)
 
     if config.system.get("recurrent_chunk_size") is None:
         config.system.recurrent_chunk_size = config.system.rollout_length
     elif config.system.rollout_length % config.system.recurrent_chunk_size != 0:
         raise ValueError("Rollout length must be divisible by recurrent chunk size.")
 
-    env, eval_env = environments.make(config, device)
-    config = check_total_timesteps(config)
-    if config.system.num_updates < config.arch.num_evaluation:
-        raise ValueError("num_updates must be at least arch.num_evaluation.")
+    env, eval_env = environments.make(config, device, add_global_state=centralised_critic)
+    config = schedule_updates(config)
     generator = torch.Generator(device=device).manual_seed(config.system.seed)
-    eval_generator = torch.Generator(device=device).manual_seed(config.system.seed + 1)
-
-    config.system.num_updates_per_eval = (
-        config.system.num_updates // config.arch.num_evaluation
+    learn, actor, learner_state = learner_setup(
+        env, generator, config, device, centralised_critic
     )
-    learn, actor, learner_state = learner_setup(env, generator, config, device)
 
-    eval_act_fn = make_rec_eval_act_fn(config)
-    evaluator = get_eval_fn(eval_env, eval_act_fn, config, absolute_metric=False)
-    steps_per_rollout = (
-        config.system.num_updates_per_eval * config.system.rollout_length * config.arch.num_envs
+    def eval_hidden(absolute_metric: bool) -> Dict[str, torch.Tensor]:
+        return {
+            "hidden_state": ScannedRNN.initialize_carry(
+                (get_num_eval_envs(config, absolute_metric), config.system.num_agents),
+                config.network.hidden_state_dim,
+                device,
+            )
+        }
+
+    return train_and_evaluate(
+        config, device, learn, actor, learner_state, eval_env,
+        make_rec_eval_act_fn(config), eval_hidden,
     )
-    logger = MavaLogger(config)
-
-    def eval_hidden(absolute_metric: bool) -> torch.Tensor:
-        return ScannedRNN.initialize_carry(
-            (get_num_eval_envs(config, absolute_metric), config.system.num_agents),
-            config.network.hidden_state_dim,
-            device,
-        )
-
-    max_episode_return = -np.inf
-    best_actor = None
-    for eval_step in range(config.arch.num_evaluation):
-        timer = PhaseTimer(device)
-        with timer.phase("learn"):
-            learner_output = learn(learner_state)
-        elapsed = timer.phases["learn"]
-        t = int(steps_per_rollout * (eval_step + 1))
-        episode_metrics, ep_completed = get_final_step_metrics(
-            learner_output.episode_metrics
-        )
-        episode_metrics["steps_per_second"] = steps_per_rollout / elapsed
-        if ep_completed:
-            logger.log(episode_metrics, t, eval_step, LogEvent.ACT)
-        logger.log(learner_output.train_metrics, t, eval_step, LogEvent.TRAIN)
-
-        with timer.phase("eval"):
-            eval_metrics = evaluator(actor, eval_generator, {"hidden_state": eval_hidden(False)})
-        logger.log(eval_metrics, t, eval_step, LogEvent.EVAL)
-        logger.log({"timestep": t, **timer.metrics()}, t, eval_step, LogEvent.MISC)
-        episode_return = float(np.mean(eval_metrics["episode_return"]))
-        if config.arch.absolute_metric and max_episode_return <= episode_return:
-            best_actor = copy.deepcopy(actor)
-            max_episode_return = episode_return
-        learner_state = learner_output.learner_state
-
-    eval_performance = float(np.mean(eval_metrics[config.env.eval_metric]))
-
-    if config.arch.absolute_metric:
-        abs_evaluator = get_eval_fn(eval_env, eval_act_fn, config, absolute_metric=True)
-        eval_metrics = abs_evaluator(
-            best_actor, eval_generator, {"hidden_state": eval_hidden(True)}
-        )
-        logger.log(eval_metrics, t, eval_step, LogEvent.ABSOLUTE)
-
-    logger.stop()
-    return eval_performance, learner_output
 
 
 def main() -> float:

@@ -13,8 +13,8 @@ import torch
 
 
 class Params(NamedTuple):
-    actor_params: Any  # RecurrentActor
-    critic_params: Any  # RecurrentValueNet
+    actor_params: Any  # FeedForwardActor or RecurrentActor
+    critic_params: Any  # FeedForwardValueNet or RecurrentValueNet
 
 
 class OptStates(NamedTuple):
@@ -27,6 +27,16 @@ class HiddenStates(NamedTuple):
     critic_hidden_state: torch.Tensor
 
 
+class LearnerState(NamedTuple):
+    """State carried from one feed-forward PPO update to the next."""
+
+    params: Params
+    opt_states: OptStates
+    key: torch.Generator
+    env_state: Any
+    timestep: Any
+
+
 class RNNLearnerState(NamedTuple):
     """State carried from one recurrent PPO update to the next."""
 
@@ -37,6 +47,16 @@ class RNNLearnerState(NamedTuple):
     timestep: Any
     dones: torch.Tensor  # (num_envs, num_agents) bool: done of the last timestep
     hstates: HiddenStates
+
+
+class PPOTransition(NamedTuple):
+    done: torch.Tensor
+    action: torch.Tensor
+    value: torch.Tensor
+    reward: torch.Tensor
+    log_prob: torch.Tensor
+    obs: Any
+    info: Dict
 
 
 class RNNPPOTransition(NamedTuple):

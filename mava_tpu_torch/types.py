@@ -9,7 +9,7 @@ dicts), so `torch.utils._pytree` maps over them.
 from __future__ import annotations
 
 import enum
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -96,6 +96,21 @@ class Observation(NamedTuple):
     agents_view: Array  # (E, num_agents, num_obs_features)
     action_mask: Array  # (E, num_agents, num_actions) bool
     step_count: Array  # (E, num_agents) int32
+
+
+class ObservationGlobalState(NamedTuple):
+    """Observation with a global state for centralised critics
+    (reference `mava_tpu/types.py:119-126`)."""
+
+    agents_view: Array  # (E, num_agents, num_obs_features)
+    action_mask: Array  # (E, num_agents, num_actions) bool
+    global_state: Array  # (E, num_agents, num_global_state_features)
+    step_count: Array  # (E, num_agents) int32
+
+
+# What the recurrent networks take: (observation, done), both time-major.
+RNNObservation = Tuple[Observation, Array]
+RNNGlobalObservation = Tuple[ObservationGlobalState, Array]
 
 
 class ExperimentOutput(NamedTuple):

@@ -1,11 +1,15 @@
 """Carry flax parameters over to the port's modules.
 
-`from_flax_params(tree)` maps the parameter tree of a flax `RecurrentActor` or
-`RecurrentValueNet` (as numpy arrays, with or without the top-level "params"
-key) to a `state_dict` of the port's module of the same name:
+`from_flax_params(tree)` maps the parameter tree of a flax `FeedForwardActor`,
+`FeedForwardValueNet`, `RecurrentActor` or `RecurrentValueNet` (as numpy arrays,
+with or without the top-level "params" key) to a `state_dict` of the port's
+module of the same name:
 
   * flax `Dense` kernels are (in, out); `nn.Linear.weight` is (out, in), so
     they are transposed;
+  * a torso's flax children interleave (`Dense_0, LayerNorm_0, Dense_1, ...`);
+    `Dense_k` goes to `layers.k` and the bias of `LayerNorm_k` (it has no
+    scale) to `norm_biases.k`;
   * the GRU's `wi` (F,3H), `bi` (3H), `wh` (H,3H) and `bhn` (H) keep their JAX
     layout, the layout the GRU kernel takes.
 """
@@ -32,10 +36,17 @@ def from_flax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         if name == "ScannedRNN_0":
             for leaf in ("wi", "bi", "wh", "bhn"):
                 out[f"rnn.{leaf}"] = torch.as_tensor(np.asarray(sub[leaf]).copy())
-        elif name in ("pre_torso", "post_torso"):
-            for dense_name, dense in sub.items():
-                index = int(dense_name.removeprefix("Dense_"))
-                out.update(_dense(f"{name}.layers.{index}", dense))
+        elif name in ("torso", "pre_torso", "post_torso"):
+            for child, leaves in sub.items():
+                kind, _, index = child.rpartition("_")
+                if kind == "Dense":
+                    out.update(_dense(f"{name}.layers.{index}", leaves))
+                elif kind == "LayerNorm" and set(leaves) == {"bias"}:
+                    out[f"{name}.norm_biases.{index}"] = torch.as_tensor(
+                        np.asarray(leaves["bias"]).copy()
+                    )
+                else:
+                    raise KeyError(f"from_flax_params: unexpected torso child {child!r}")
         elif name == "action_head":
             out.update(_dense("action_head.linear", sub["Dense_0"]))
         elif name == "Dense_0":  # the critic's value layer

@@ -16,16 +16,18 @@ from mava_tpu.networks import actor_critic as jac
 from mava_tpu.networks.heads import DiscreteActionHead as JHead
 from mava_tpu.networks.torsos import MLPTorso as JTorso
 from mava_tpu.types import Observation as JObservation
+from mava_tpu.types import ObservationGlobalState as JObservationGlobalState
 from mava_tpu_torch import distributions as tdist
 from mava_tpu_torch.networks import actor_critic as tac
 from mava_tpu_torch.networks.heads import DiscreteActionHead
 from mava_tpu_torch.networks.torsos import MLPTorso
-from mava_tpu_torch.types import Observation
+from mava_tpu_torch.types import Observation, ObservationGlobalState
 from mava_tpu_torch.utils.convert import from_flax_params
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-5)
 T, E, A, F, H, N_ACT = 5, 3, 2, 6, 16, 5
+G = A * F  # width of the global state
 
 
 def _obs(seed, t=T):
@@ -45,6 +47,20 @@ def _jobs(view, mask, step):
 
 def _tobs(view, mask, step):
     return Observation(torch.tensor(view), torch.tensor(mask), torch.tensor(step))
+
+
+def _global_state(seed, t=T):
+    return np.random.default_rng(seed).standard_normal((t, E, A, G)).astype(np.float32)
+
+
+def _jobs_global(view, mask, step, global_state):
+    return JObservationGlobalState(
+        jnp.asarray(view), jnp.asarray(mask), jnp.asarray(global_state), jnp.asarray(step))
+
+
+def _tobs_global(view, mask, step, global_state):
+    return ObservationGlobalState(
+        torch.tensor(view), torch.tensor(mask), torch.tensor(global_state), torch.tensor(step))
 
 
 def _load(module, flax_params):
@@ -78,6 +94,133 @@ def test_mlp_torso_matches_flax(activation):
     np.testing.assert_allclose(
         tt(torch.tensor(x)).detach().numpy(), np.asarray(jt.apply(params, jnp.asarray(x))), **TOL
     )
+
+
+@pytest.mark.parametrize("activation", ["relu", "tanh"])
+def test_layer_norm_torso_matches_flax(activation):
+    """flax `LayerNorm(use_scale=False)`: a bias and no scale, epsilon 1e-6,
+    between Dense and activation. Outputs and parameter gradients."""
+    rng = np.random.default_rng(20)
+    x = (3.0 * rng.standard_normal((4, 3, F))).astype(np.float32)
+    w = rng.standard_normal((4, 3, 8)).astype(np.float32)
+    jt = JTorso([16, 8], activation, use_layer_norm=True)
+    params = jt.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    # Biases away from their zero init, so that they are seen to be applied.
+    params = jax.tree.map(lambda p: p + 0.1 * rng.standard_normal(p.shape).astype(np.float32), params)
+    assert set(params["params"]) == {"Dense_0", "LayerNorm_0", "Dense_1", "LayerNorm_1"}
+    assert set(params["params"]["LayerNorm_0"]) == {"bias"}
+    tt = MLPTorso(F, [16, 8], activation, use_layer_norm=True)
+    strip = lambda tree: {k.removeprefix("torso."): v for k, v in from_flax_params(  # noqa: E731
+        {"torso": jax.device_get(tree)["params"]}).items()}
+    tt.load_state_dict(strip(params), strict=True)
+    jout, jgrads = jax.value_and_grad(
+        lambda p: jnp.sum(jt.apply(p, jnp.asarray(x)) * w))(params)
+    out = tt(torch.tensor(x))
+    loss = torch.sum(out * torch.tensor(w))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jout), **TOL)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jt.apply(params, jnp.asarray(x))), **TOL)
+    want = strip(jgrads)
+    assert set(want) == {n for n, _ in tt.named_parameters()}
+    for name, p in tt.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(), err_msg=name, **TOL)
+
+
+def test_from_flax_params_rejects_a_layer_norm_with_a_scale():
+    jt = jac.nn.LayerNorm()
+    params = jax.device_get(jt.init(jax.random.PRNGKey(0), jnp.ones((2, 4))))["params"]
+    with pytest.raises(KeyError, match="LayerNorm_0"):
+        from_flax_params({"torso": {"LayerNorm_0": params}})
+
+
+@pytest.mark.parametrize("layer_norm", [False, True])
+def test_feedforward_actor_matches_flax(layer_norm):
+    view, mask, step, _, _ = _obs(21)
+    ja = jac.FeedForwardActor(JTorso([16, 16], use_layer_norm=layer_norm), JHead(N_ACT))
+    ta = tac.FeedForwardActor(MLPTorso(F, [16, 16], use_layer_norm=layer_norm),
+                              DiscreteActionHead(16, N_ACT))
+    params = ja.init(jax.random.PRNGKey(5), _jobs(view, mask, step))
+    _load(ta, params)
+    actions = np.random.default_rng(22).integers(0, N_ACT, (T, E, A))
+
+    def jloss(p):
+        pi = ja.apply(p, _jobs(view, mask, step))
+        return jnp.sum(pi.log_prob(jnp.asarray(actions))) + pi.entropy().mean(), pi.logits
+
+    (jl, jlogits), jgrads = jax.value_and_grad(jloss, has_aux=True)(params)
+    pi = ta(_tobs(view, mask, step))
+    loss = pi.log_prob(torch.tensor(actions)).sum() + pi.entropy().mean()
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jl), **TOL)
+    np.testing.assert_allclose(pi.logits.detach().numpy(), np.asarray(jlogits), **TOL)
+    _assert_grads(ta, jgrads)
+
+
+@pytest.mark.parametrize("centralised", [False, True])
+def test_feedforward_value_net_matches_flax(centralised):
+    view, mask, step, _, _ = _obs(23)
+    global_state = _global_state(24)
+    jc = jac.FeedForwardValueNet(JTorso([16, 16]), centralised_critic=centralised)
+    tc = tac.FeedForwardValueNet(MLPTorso(G if centralised else F, [16, 16]), centralised)
+    jobs = _jobs_global(view, mask, step, global_state)
+    params = jc.init(jax.random.PRNGKey(6), jobs)
+    _load(tc, params)
+    w = np.random.default_rng(25).standard_normal((T, E, A)).astype(np.float32)
+    jvalue, jgrads = jax.value_and_grad(
+        lambda p: jnp.sum(jc.apply(p, jobs) ** 2 * w), has_aux=False)(params)
+    value = tc(_tobs_global(view, mask, step, global_state))
+    assert value.shape == (T, E, A)
+    torch.sum(value**2 * torch.tensor(w)).backward()
+    np.testing.assert_allclose(value.detach().numpy(), np.asarray(jc.apply(params, jobs)), **TOL)
+    _assert_grads(tc, jgrads)
+
+
+@pytest.mark.parametrize("collect", [False, True])
+def test_centralised_recurrent_value_net_matches_flax(collect):
+    view, mask, step, done, carry = _obs(26)
+    global_state = _global_state(27)
+    jpre, jpost = _torsos(True)
+    jc = jac.RecurrentValueNet(jpre, jpost, centralised_critic=True, hidden_state_dim=H,
+                               collect_carries=collect, gru_impl="hoisted")
+    tc = tac.RecurrentValueNet(MLPTorso(G, [16]), MLPTorso(H, [16]), H, centralised_critic=True)
+    jx = (_jobs_global(view, mask, step, global_state), jnp.asarray(done))
+    params = jc.init(jax.random.PRNGKey(7), jnp.asarray(carry), jx)
+    _load(tc, params)
+
+    def jloss(p):
+        h, out = jc.apply(p, jnp.asarray(carry), jx)
+        value = out[1] if collect else out
+        return jnp.sum(value**2), (h, out)
+
+    (_, (jh, jout)), jgrads = jax.value_and_grad(jloss, has_aux=True)(params)
+    h, out = tc(torch.tensor(carry),
+                (_tobs_global(view, mask, step, global_state), torch.tensor(done)),
+                collect_carries=collect)
+    value = out[1] if collect else out
+    torch.sum(value**2).backward()
+    np.testing.assert_allclose(h.detach().numpy(), np.asarray(jh), **TOL)
+    for t_out, j_out in zip(out if collect else [out], jout if collect else [jout]):
+        np.testing.assert_allclose(t_out.detach().numpy(), np.asarray(j_out), **TOL)
+    _assert_grads(tc, jgrads)
+
+
+@pytest.mark.parametrize("kind", ["feedforward", "recurrent"])
+def test_centralised_critics_need_a_global_state(kind):
+    """On a plain `Observation` both sides raise the same error."""
+    view, mask, step, done, carry = _obs(28)
+    if kind == "feedforward":
+        tcall = lambda: tac.FeedForwardValueNet(MLPTorso(G, [16]), True)(_tobs(view, mask, step))  # noqa: E731
+        jnet = jac.FeedForwardValueNet(JTorso([16]), centralised_critic=True)
+        jcall = lambda: jnet.init(jax.random.PRNGKey(0), _jobs(view, mask, step))  # noqa: E731
+    else:
+        tnet = tac.RecurrentValueNet(MLPTorso(G, [16]), MLPTorso(H, [16]), H, centralised_critic=True)
+        tcall = lambda: tnet(torch.tensor(carry), (_tobs(view, mask, step), torch.tensor(done)))  # noqa: E731
+        jnet = jac.RecurrentValueNet(*_torsos(True), centralised_critic=True, hidden_state_dim=H)
+        jcall = lambda: jnet.init(jax.random.PRNGKey(0), jnp.asarray(carry),  # noqa: E731
+                                  (_jobs(view, mask, step), jnp.asarray(done)))
+    for call in (tcall, jcall):
+        with pytest.raises(ValueError, match="Centralised critic requires a global state."):
+            call()
 
 
 def test_discrete_action_head_and_masked_categorical_match_flax():

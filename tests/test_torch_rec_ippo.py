@@ -19,7 +19,7 @@ from mava_tpu.systems.ppo import rec_ippo as jrec_ippo
 from mava_tpu.utils.config import load_config as jax_load_config
 from mava_tpu_torch import envs as tenvs
 from mava_tpu_torch.systems.ppo import rec_ippo
-from mava_tpu_torch.types import Observation, TimeStep
+from mava_tpu_torch.types import Observation, ObservationGlobalState, TimeStep
 from mava_tpu_torch.utils.config import load_config
 from mava_tpu_torch.utils.convert import from_flax_params
 from test_torch_rware import _to_torch_state
@@ -49,11 +49,12 @@ def _prepare(cfg):
     return cfg
 
 
-def _jax_update(layout):
-    cfg = _prepare(jax_load_config("default_rec_ippo", TINY + [f"system.chunk_layout={layout}"]))
-    env, _ = jenvs.make(cfg)
+def _jax_update(layout, system="rec_ippo", centralised=False):
+    cfg = _prepare(jax_load_config(f"default_{system}", TINY + [f"system.chunk_layout={layout}"]))
+    env, _ = jenvs.make(cfg, add_global_state=centralised)
     keys = jax.random.split(jax.random.PRNGKey(3), 3)
-    learn, _, state = jrec_ippo.learner_setup(env, tuple(keys), cfg, make_mesh(jax.devices()[:1]))
+    learn, _, state = jrec_ippo.learner_setup(
+        env, tuple(keys), cfg, make_mesh(jax.devices()[:1]), centralised)
     # The learner's own draws (rec_ippo.py:138-148 and :341-349).
     key, sample_key = jax.random.split(state.key[0])
     noise = jax.random.gumbel(
@@ -70,45 +71,64 @@ def _jax_update(layout):
 
 
 def _torch_timestep(jts) -> TimeStep:
+    """The observation of a JAX timestep (with its global state, where it has
+    one) as the port's; the learners read nothing else of the first timestep."""
     o = jts.observation
-    obs = Observation(*(torch.tensor(np.asarray(x)) for x in (o.agents_view, o.action_mask, o.step_count)))
+    kind = ObservationGlobalState if hasattr(o, "global_state") else Observation
+    obs = kind(*(torch.tensor(np.asarray(x)) for x in o))
     t = lambda x: torch.tensor(np.asarray(x))  # noqa: E731
     return TimeStep(t(jts.step_type), t(jts.reward), t(jts.discount), obs, {})
 
 
-@pytest.mark.parametrize("layout,impl", [("contiguous", "auto"), ("strided", "pallas")])
-def test_one_update_matches_jax_learner(layout, impl):
-    jstate, noise, perms, jout = _jax_update(layout)
+def _assert_no_episode_ended(jout):
     assert not np.any(jout.episode_metrics["is_terminal_step"]), (
         "an episode ended in the rollout: its reset draws would differ"
     )
     assert not np.any(jout.episode_metrics["episode_return"])
 
-    cfg = _prepare(load_config("default_rec_ippo", TINY + [
-        f"system.chunk_layout={layout}", f"network.gru_impl={impl}"]))
-    env, _ = tenvs.make(cfg, "cpu")
-    learn, _, state = rec_ippo.learner_setup(
-        env, torch.Generator().manual_seed(0), cfg, torch.device("cpu"),
-        noise=torch.tensor(noise)[None], permutations=torch.tensor(perms)[None],
-    )
+
+def _start_from_jax(state, jstate):
+    """The port's learner state with the JAX learner's parameters, env state
+    and first timestep."""
     actor, critic = state.params
     actor.load_state_dict(from_flax_params(jstate.params.actor_params), strict=True)
     critic.load_state_dict(from_flax_params(jstate.params.critic_params), strict=True)
-    state = state._replace(
+    return state._replace(
         env_state=_to_torch_state(jstate.env_state), timestep=_torch_timestep(jstate.timestep)
     )
-    out = learn(state)
 
+
+def _assert_update_matches(out, jout):
+    """Losses and new parameters of one update, to rtol = atol = 1e-5."""
     for name, values in jout.train_metrics.items():
         np.testing.assert_allclose(out.train_metrics[name].detach().numpy(), np.asarray(values),
                                    err_msg=name, **TOL)
-    for net, jparams in ((actor, jout.learner_state.params.actor_params),
-                         (critic, jout.learner_state.params.critic_params)):
+    for net, jparams in zip(out.learner_state.params, jout.learner_state.params):
         want = from_flax_params(jparams)
         for name, p in net.state_dict().items():
             np.testing.assert_allclose(p.numpy(), want[name].numpy(), err_msg=name, **TOL)
+
+
+def check_one_recurrent_update(layout, impl, system="rec_ippo", centralised=False):
+    jstate, noise, perms, jout = _jax_update(layout, system, centralised)
+    _assert_no_episode_ended(jout)
+
+    cfg = _prepare(load_config(f"default_{system}", TINY + [
+        f"system.chunk_layout={layout}", f"network.gru_impl={impl}"]))
+    env, _ = tenvs.make(cfg, "cpu", add_global_state=centralised)
+    learn, _, state = rec_ippo.learner_setup(
+        env, torch.Generator().manual_seed(0), cfg, torch.device("cpu"), centralised,
+        noise=torch.tensor(noise)[None], permutations=torch.tensor(perms)[None],
+    )
+    out = learn(_start_from_jax(state, jstate))
+    _assert_update_matches(out, jout)
     for got, want in zip(out.learner_state.hstates, jout.learner_state.hstates):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("layout,impl", [("contiguous", "auto"), ("strided", "pallas")])
+def test_one_update_matches_jax_learner(layout, impl):
+    check_one_recurrent_update(layout, impl)
 
 
 def test_cli_end_to_end(fast_config_overrides, monkeypatch, capsys):
