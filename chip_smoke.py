@@ -15,14 +15,21 @@ Run from the root of the repository. It
      atol = 1e-4, checks that every gradient is bitwise equal across runs, and
      prints which route and row split each shape took. K2p and K2b are checked
      and timed at two further shapes with 4x and 16x the rows, and K2b with one
-     slice and with more slices than chunks of rows. Every kernel, plain
+     slice and with more slices than chunks of rows. The stacked K1 (a leading
+     stack axis of inputs and weights, `keep` shared) is checked on both routes
+     at rec-IQL's target pass (S=2, T=20, B=256) and a ragged B, and a stack of
+     one against the unstacked K1 bitwise. Every kernel, plain
      version and library call (the cuDNN GRU through `torch.nn.GRU`, `torch.mm`
      for K2b, `torch.sum` for its second kernel; the port never calls them) is
      timed twice: device-only (`device_ms`: calls captured into a CUDA graph,
      replays timed with events) and host-inclusive (`time_ms`: eager calls), K1
      and K2a on the streaming route too. It computes each kernel's roofline
      bound from the shape and prints the cycles per step and phase of the
-     resident K1 and K2a;
+     resident K1 and K2a. The stacked K1 is timed beside its bound, two
+     unstacked K1 calls and two cuDNN forwards; K1, K2p, K2a and K2b also at
+     the shapes of the SMAX and rec-IQL paths (T=128 B=128, T=128 B=64, T=20
+     B=256), with the clusters each resident launch asks for and the card holds
+     at once (`cudaOccupancyMaxActiveClusters`);
   4. slice phase: trains rec-IPPO on RWARE tiny-2ag at the shipped network
      width (`default_rec_ippo`: 16 envs, rollout 128, 4 epochs x 2 minibatches)
      for 4 updates through `run_experiment`, and checks that every parameter is
@@ -36,12 +43,24 @@ Run from the root of the repository. It
      launch counts set to 0 just before: exactly 17 forward and 16 of each
      backward kernel per update; one update on the kernels against one on the
      plain GRU;
-  6. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
+  6. SMAX phase: rec-MAPPO on SMAX 3s5z (`env=smax env/scenario=3s5z`: 8 agents,
+     13 actions, 175 + 8 observation features, a 160-wide world state) through
+     `rec_mappo.run_experiment`, 4 updates with exactly 17 forward and 16 of each
+     backward kernel an update and its eval win rate; one update on the kernels
+     against one on the plain GRU; env-steps/s; one update under
+     `torch.profiler` (launches per rollout step, idle share);
+  7. rec-IQL phase: `default_rec_iql` on SMAX 3s5z through
+     `rec_iql.run_experiment`, 200 updates with exactly 2 stacked forwards (the
+     fused double-DQN target pass, S = 2, T = 20, B = 256), 2 forwards and 2 of
+     each backward kernel an update; the fused target pass against the unfused
+     one on the same sampled sequences; env-steps/s and mean Q; one update under
+     `torch.profiler`;
+  8. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
      updates each through their `run_experiment` with the same health checks
-     (they reach no hand-written kernel), six timed ff-IPPO updates, ff-IPPO on
+     (they reach no hand-written kernel), three timed ff-IPPO updates, ff-IPPO on
      Matrax Penalty-25 for 30 updates with its eval return, and a short run of
      the bench program (`bench_torch.run` at 512 envs);
-  7. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
+  9. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
      512 envs under `torch.profiler`: host ms, launches and kernel ms per span,
      launches per rollout step, per-kernel totals and the device's idle share.
 It prints one JSON line with the kernels' records, then, as its last line,
@@ -61,7 +80,7 @@ import torch
 RTOL = ATOL = 1e-4  # fp32 kernel vs fp32 plain version: summation order differs
 SLICE_OVERRIDES = [
     "system.num_updates=4",
-    "arch.num_evaluation=2",
+    "arch.num_evaluation=1",
     "arch.num_eval_episodes=16",
     "arch.absolute_metric=False",
     "+arch.device=cuda",
@@ -71,11 +90,19 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 SOURCE = "mava_tpu_torch/csrc/gru_sequence.cu"
 SLICE_SHAPES = [(128, 16, 128), (128, 32, 128)]
+# rec-MAPPO on SMAX 3s5z (16 envs x 8 agents): the critic pass and the losses;
+# rec-IQL's loss pass (32 sequences of 20 steps x 8 agents).
+PATH_SHAPES = [(128, 128, 128), (128, 64, 128), (20, 256, 128)]
+# The stacked K1 of rec-IQL's fused target pass (S, T, B, H), and a ragged B.
+STACKED_SHAPES = [(2, 20, 256, 128), (2, 20, 250, 128)]
+SMAX = ["env=smax", "env/scenario=3s5z"]
+IQL_UPDATES = 200
 SHAPES = SLICE_SHAPES + [(7, 5, 128), (9, 3, 256), (33, 17, 128), (5, 40, 256), (6, 4, 72),
                          (3, 2, 512)]
 # K2p and K2b alone, to show how the tiles and the row split scale: 16x and 4x the rows.
 TILE_SHAPES = [(128, 256, 128), (128, 64, 256)]
-# name in the record, counter in `gru.kernel_launches`, reference kernel, launches per update
+# name in the record, counter in `gru.kernel_launches`, reference kernel, launches per
+# rec-IPPO / rec-MAPPO update
 KERNELS = [
     ("gru_sequence_fwd (K1)", "fwd", "mava_tpu/ops/pallas_gru.py:69", 17),
     ("gru_sequence_bwd_gates (K2p)", "bwd_gates", "mava_tpu/ops/pallas_gru.py:88", 16),
@@ -83,7 +110,12 @@ KERNELS = [
     ("gru_sequence_bwd_reduce (K2b)", "bwd_reduce", "mava_tpu/ops/pallas_gru.py:88", 16),
     ("gru_sequence_bwd_reduce_sum (K2b, sum of the slices)", "bwd_reduce_sum",
      "mava_tpu/ops/pallas_gru.py:88", 16),
+    ("gru_sequence_fwd_stacked (K1 over a stack axis)", "fwd_stacked",
+     "mava_tpu/ops/pallas_gru.py:69 (vmapped at mava_tpu/systems/q_learning/rec_iql.py:183)", 0),
 ]
+# launches per rec-IQL update (epochs = 2): the fused target pass and the loss pass
+IQL_PER_UPDATE = {"fwd": 2, "bwd_gates": 2, "bwd_recurrence": 2, "bwd_reduce": 2,
+                  "bwd_reduce_sum": 2, "fwd_stacked": 2}
 # K2p and K2b as they stood before their redesign (one block per 32x32 tile), read
 # with `device_ms` / `time_ms` of this script on that tree: NVIDIA H100 80GB HBM3,
 # 700.00 W, T=128, H=128, ms at B=16 / B=32. Those kernels are gone from the source.
@@ -175,15 +207,19 @@ def gru_inputs(t_len: int, b: int, h: int, seed: int, resets: float = 0.1, devic
 
 
 # ------------------------------------------------------------------ bounds
-def kernel_work(kernel: str, t_len: int, b: int, h: int, slices: int = 1):
+def kernel_work(kernel: str, t_len: int, b: int, h: int, slices: int = 1, stack: int = 1):
     """(FLOP, bytes) one call of `kernel` needs: the matrix product's multiply-adds
     counted as 2, every input read once and every output written once, fp32.
     `bwd_reduce` is the whole function (both of K2b's kernels, no scratch) and
     does not depend on `slices`; `bwd_reduce_sum` is the second kernel alone,
-    whose input is the `slices` partial sums."""
+    whose input is the `slices` partial sums. `fwd_stacked` is K1 for each of
+    `stack` entries, which share one `keep`."""
     n, w = t_len * b, h * 3 * h
     if kernel == "bwd_reduce_sum":
         return (slices - 1) * (w + h), 4 * (slices + 1) * (w + h)
+    if kernel == "fwd_stacked":
+        flop, nbytes = kernel_work("fwd", t_len, b, h)
+        return stack * flop, stack * nbytes - (stack - 1) * 4 * n * h
     product = 2 * n * h * 3 * h
     floats = {
         # gates_i, keep, h0, Wh, b_hn -> hs
@@ -199,9 +235,9 @@ def kernel_work(kernel: str, t_len: int, b: int, h: int, slices: int = 1):
     return flop, 4 * floats
 
 
-def bound_ms(kernel: str, t_len: int, b: int, h: int, slices: int = 1):
+def bound_ms(kernel: str, t_len: int, b: int, h: int, slices: int = 1, stack: int = 1):
     """(least ms the card could take, which resource sets it)."""
-    flop, nbytes = kernel_work(kernel, t_len, b, h, slices)
+    flop, nbytes = kernel_work(kernel, t_len, b, h, slices, stack)
     by_flop, by_bytes = flop / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return (by_flop, "operations") if by_flop >= by_bytes else (by_bytes, "bytes")
 
@@ -450,6 +486,116 @@ def time_tile_shape(gru, shape) -> None:
           + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
 
 
+def stacked_inputs(stack: int, t_len: int, b: int, h: int, seed: int, resets: float = 0.1):
+    """Per-entry gates_i, h0, Wh, b_hn stacked on a leading axis; one shared keep."""
+    entries = [gru_inputs(t_len, b, h, seed=seed + s, resets=resets)[0] for s in range(stack)]
+    gates, h0, w_h, b_hn = (torch.stack([e[i] for e in entries]).contiguous() for i in (0, 2, 3, 4))
+    return gates, entries[0][1], h0, w_h, b_hn
+
+
+def check_stacked(gru, errs: dict) -> None:
+    """The stacked K1 against its plain version on both routes, and a stack of one
+    against the unstacked K1 bitwise."""
+    for shape in STACKED_SHAPES:
+        args = stacked_inputs(*shape, seed=shape[2])
+        want = gru.gru_sequence_stacked_reference(*args)
+        for route in ("resident", gru.STREAMING):
+            run = lambda: gru.gru_sequence_stacked(*args)  # noqa: E731
+            got = run() if route == "resident" else on_streaming(gru, run)()
+            compare(f"stacked hs, {route}", got, want, shape[1:], errs, "fwd_stacked")
+        one = [a[:1] if i != 1 else a for i, a in enumerate(args)]
+        check(torch.equal(gru.gru_sequence_stacked(*one)[0],
+                          gru.gru_sequence_forward(*(a[0] if i != 1 else a for i, a in enumerate(one)))),
+              f"a stack of one is not the unstacked K1 bitwise at {shape}")
+    torch.cuda.synchronize()
+
+
+def clusters(gru, kernel: str, b: int, h: int, stack: int = 1) -> dict:
+    """Clusters a resident launch asks for, how many the card holds at once, waves."""
+    asked = stack * -(-b // gru.CLUSTER_ROWS)
+    held = gru.max_active_clusters(h, kernel, b, stack)
+    return {"clusters": asked, "max_active": held, "waves": -(-asked // held)}
+
+
+def time_stacked(gru) -> dict:
+    """The stacked K1 at rec-IQL's target pass, device-only and host-inclusive,
+    beside its bound, its plain version, two unstacked K1 calls and two cuDNN
+    forwards (keep == 1: the library GRU cannot reset)."""
+    stack, t_len, b, h = STACKED_SHAPES[0]
+    args = stacked_inputs(*STACKED_SHAPES[0], seed=b)
+    out = {}
+
+    def both(name, fn, iters=20):
+        out[name] = device_ms(fn, iters=iters)
+        out[name + "_host"] = time_ms(fn, iters=iters)
+
+    both("fwd_stacked", lambda: gru.gru_sequence_stacked(*args))
+    entries = [[a[s] if i != 1 else a for i, a in enumerate(args)] for s in range(stack)]
+    both("two_fwd", lambda: [gru.gru_sequence_forward(*e) for e in entries])
+    both("fwd_stacked_plain", lambda: gru.gru_sequence_stacked_reference(*args), iters=3)
+    rnns = [cudnn_gru(e[3], e[4]) for e in entries]
+    with torch.no_grad():
+        both("two_cudnn_fwd", lambda: [rnn(e[0], e[2][None]) for rnn, e in zip(rnns, entries)])
+    out["bound"], out["bound_by"] = bound_ms("fwd_stacked", t_len, b, h, stack=stack)
+    out.update(clusters(gru, "fwd", b, h, stack))
+    print(f"  stacked K1 S={stack} T={t_len} B={b} H={h}: "
+          + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in out.items()))
+    return out
+
+
+def time_path_shape(gru, shape) -> dict:
+    """K1, K2p, K2a and K2b at one shape of the SMAX or rec-IQL path, device-only
+    and host-inclusive, beside their bounds, their plain versions (checked
+    against them at `PATH_SHAPES` in `check_shape`) and the library calls (cuDNN's GRU
+    at keep == 1; `torch.mm` on hprev*keep formed beforehand), with the clusters
+    of the resident launches."""
+    t_len, b, h = shape
+    args, g_hs = gru_inputs(*shape, seed=t_len * 1000 + b)
+    hs = gru.gru_sequence_forward(*args)
+    gates = gru.gru_backward_gates(*args, hs)
+    dgh = gru.gru_backward_recurrence(*args, hs, g_hs, gates)[1]
+    out = {}
+
+    def both(name, fn, iters=20):
+        out[name] = device_ms(fn, iters=iters)
+        out[name + "_host"] = time_ms(fn, iters=iters)
+
+    both("fwd", lambda: gru.gru_sequence_forward(*args))
+    both("bwd_gates", lambda: gru.gru_backward_gates(*args, hs))
+    both("bwd_recurrence", lambda: gru.gru_backward_recurrence(*args, hs, g_hs, gates))
+    both("bwd_reduce", lambda: gru.gru_backward_reduce(args[1], args[2], hs, dgh))
+    both("fwd_plain", lambda: gru.gru_sequence_reference(*args), iters=3)
+    both("bwd_gates_plain", lambda: gru.gru_backward_gates_reference(*args, hs))
+    both("bwd_recurrence_plain",
+         lambda: gru.gru_backward_recurrence_reference(gates, args[1], args[2], args[3], hs, g_hs),
+         iters=3)
+    both("bwd_reduce_plain", lambda: gru.gru_backward_reduce_reference(args[1], args[2], hs, dgh))
+    hk = (torch.cat([args[2][None], hs[:-1]]) * args[1]).reshape(-1, h)
+    flat = dgh.reshape(-1, 3 * h)
+    both("mm", lambda: torch.mm(hk.T, flat))
+    keep1, _ = gru_inputs(*shape, seed=t_len * 1000 + b, resets=0.0)
+    rnn = cudnn_gru(keep1[3], keep1[4])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _, _, backward = cudnn_gru_backward(rnn, keep1[0], keep1[2], g_hs)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        both("cudnn_fwd", lambda: rnn(keep1[0], keep1[2][None]))
+    out["cudnn_bwd"] = device_ms(backward, stream=side)
+    with torch.cuda.stream(side):
+        out["cudnn_bwd_host"] = time_ms(backward)
+    for kernel in ("fwd", "bwd_gates", "bwd_recurrence", "bwd_reduce"):
+        out[kernel + "_bound"] = bound_ms(kernel, *shape)[0]
+    k1, k2a = clusters(gru, "fwd", b, h), clusters(gru, "bwd_recurrence", b, h)
+    out.update({"fwd_clusters": k1["clusters"], "fwd_max_active": k1["max_active"],
+                "fwd_waves": k1["waves"], "bwd_recurrence_max_active": k2a["max_active"],
+                "bwd_recurrence_waves": k2a["waves"]})
+    print(f"  T={t_len} B={b} H={h} (path shape): "
+          + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in out.items()))
+    return out
+
+
 def kernel_phase(gru) -> dict:
     errs: dict = {}
     check(gru.built_reduce_config() == (gru.REDUCE_TILE, gru.REDUCE_CHUNK),
@@ -458,11 +604,20 @@ def kernel_phase(gru) -> dict:
         check_shape(gru, shape, errs)
     for shape in TILE_SHAPES:
         check_tile_shape(gru, shape, errs)
+    check_stacked(gru, errs)
+    path_errs = {}
+    for shape in PATH_SHAPES:
+        path_errs[shape] = {}
+        check_shape(gru, shape, path_errs[shape])
+        for key, err in path_errs[shape].items():
+            errs[key] = max(errs.get(key, 0.0), err)
     for shape, want in zip(SHAPES, ["resident"] * 6 + ["streaming"] * 2):
         check(gru.kernel_route(*shape).route == want, f"{shape} is not on the {want} route")
     times = {shape[1]: time_shape(gru, shape) for shape in SLICE_SHAPES}
     for shape in TILE_SHAPES:
         time_tile_shape(gru, shape)
+    stacked = time_stacked(gru)
+    path = {shape: time_path_shape(gru, shape) for shape in PATH_SHAPES}
     for counter, before in BEFORE_REDESIGN_MS.items():
         print(f"  {counter} at T=128 H=128, B=16 / B=32, before its redesign -> now: device-only "
               + " / ".join(f"{x:.4f} -> {times[bb][counter]:.4f}"
@@ -485,7 +640,8 @@ def kernel_phase(gru) -> dict:
     floor, fma = serial_floor_ms(128, 128, 8, sm_mhz, chain)
     print(f"  serial-chain floor at T=128 H=128, 8 SMs a cluster: {fma:.0f} FMA issue cycles + "
           f"{chain:.0f} chain cycles a step -> {floor:.4f} ms a launch")
-    return {"errs": errs, "times": times, "clocks": clocks, "serial_floor_ms": floor}
+    return {"errs": errs, "times": times, "clocks": clocks, "serial_floor_ms": floor,
+            "stacked": stacked, "path": path, "path_errs": path_errs}
 
 
 # ------------------------------------------------------------------ slice phases
@@ -493,6 +649,7 @@ def port():
     """The port's modules that the phases below drive."""
     from mava_tpu_torch import envs as environments
     from mava_tpu_torch.systems.ppo import ff_ippo, ff_mappo, rec_ippo, rec_mappo
+    from mava_tpu_torch.systems.q_learning import rec_iql
     from mava_tpu_torch.utils.config import load_config
 
     return environments, load_config, {
@@ -501,7 +658,16 @@ def port():
         "rec_mappo": (rec_mappo, rec_ippo, "default_rec_mappo", True),
         "ff_ippo": (ff_ippo, ff_ippo, "default_ff_ippo", False),
         "ff_mappo": (ff_mappo, ff_ippo, "default_ff_mappo", True),
+        "rec_iql": (rec_iql, rec_iql, "default_rec_iql", False),
     }
+
+
+def networks(system: str, module, env, config, device, centralised: bool):
+    """The networks `system` starts from, as its learner_setup makes them."""
+    if system == "rec_iql":  # the target network starts as a copy of the online one
+        online = module.make_q_network(env, config, device, config.system.seed)
+        return online, online
+    return module.make_networks(env, config, device, config.system.seed, centralised)
 
 
 def learner(system: str, overrides):
@@ -509,7 +675,7 @@ def learner(system: str, overrides):
     `overrides`, one update a call, from the seed's state."""
     environments, load_config, systems = port()
     _, module, config_name, centralised = systems[system]
-    cfg = load_config(config_name, SLICE_OVERRIDES + overrides)
+    cfg = load_config(config_name, SLICE_OVERRIDES + list(overrides))
     cfg.arch.n_devices = 1
     if cfg.system.get("recurrent_chunk_size", "no such key") is None:
         cfg.system.recurrent_chunk_size = cfg.system.rollout_length
@@ -517,7 +683,10 @@ def learner(system: str, overrides):
     device = torch.device("cuda")
     env, _ = environments.make(cfg, device, add_global_state=centralised)
     gen = torch.Generator(device=device).manual_seed(cfg.system.seed)
-    learn, _, state = module.learner_setup(env, gen, cfg, device, centralised)
+    if system == "rec_iql":
+        learn, _, state = module.learner_setup(env, gen, cfg, device)
+    else:
+        learn, _, state = module.learner_setup(env, gen, cfg, device, centralised)
     return learn, state, cfg.system.rollout_length * cfg.arch.num_envs
 
 
@@ -555,8 +724,8 @@ def train(system: str, gru, overrides=()):
     config = load_config(config_name, SLICE_OVERRIDES + list(overrides))
     device = torch.device("cuda")
     env, _ = environments.make(config, device, add_global_state=centralised)
-    networks = module.make_networks(env, config, device, config.system.seed, centralised)
-    initial = [p.detach().clone() for net in networks for p in net.parameters()]
+    nets = networks(system, module, env, config, device, centralised)
+    initial = [p.detach().clone() for net in nets for p in net.parameters()]
 
     gru.reset_launch_counts()
     start = time.perf_counter()
@@ -572,18 +741,20 @@ def train(system: str, gru, overrides=()):
         check(torch.isfinite(values).all().item(), f"{system}: loss {name} not finite")
     changed = [not torch.equal(a, b) for a, b in zip(initial, final)]
     check(all(changed), f"{system}: parameters unchanged after training: {changed}")
-    check(performance == performance, f"{system}: the eval return is not a number")
-    print(f"  {system} run_experiment: {config.system.num_updates} updates, eval return "
-          f"{performance:.3f}, {wall:.1f} s wall, launches {launches}")
+    check(performance == performance, f"{system}: the eval {config.env.eval_metric} is not a number")
+    print(f"  {system} run_experiment: {config.system.num_updates} updates, eval "
+          f"{config.env.eval_metric} {performance:.3f}, {wall:.1f} s wall, launches {launches}")
     return config, launches
 
 
-def kernels_against_plain(system: str, repeats: int):
+def kernels_against_plain(system: str, repeats: int, overrides=()):
     """Updates of `system` through the kernels and through the plain GRU, from the
     same seed, generator stream and therefore the same first rollout. Returns the
     kernel run's (seconds, params, env-steps an update) and the plain run's seconds."""
-    k_s, k_params, k_losses, steps = one_update(system, ["network.gru_impl=pallas"], repeats)
-    p_s, p_params, p_losses, _ = one_update(system, ["network.gru_impl=hoisted"], 2)
+    overrides = list(overrides)
+    k_s, k_params, k_losses, steps = one_update(
+        system, overrides + ["network.gru_impl=pallas"], repeats)
+    p_s, p_params, p_losses, _ = one_update(system, overrides + ["network.gru_impl=hoisted"], 1)
     param_err = max((a - b).abs().max().item() for a, b in zip(k_params, p_params))
     loss_err = max((k_losses[k] - p_losses[k]).abs().max().item() for k in p_losses)
     print(f"  one {system} update, kernels vs plain GRU: max |param diff| {param_err:.3e}, "
@@ -604,11 +775,11 @@ def slice_phase(gru, gpu: str) -> dict:
         check(launches[counter] >= per_update * updates,
               f"{counter} launched {launches[counter]} times on the main path")
 
-    k_s, k_params, steps, p_s = kernels_against_plain("rec_ippo", repeats=3)
+    k_s, k_params, steps, p_s = kernels_against_plain("rec_ippo", repeats=2)
     # The same updates on the streaming kernels: every call of the op is sent
     # there for the length of these runs.
     s_s, s_params, _, _ = on_streaming(
-        gru, lambda: one_update("rec_ippo", ["network.gru_impl=pallas"], repeats=3))()
+        gru, lambda: one_update("rec_ippo", ["network.gru_impl=pallas"], repeats=2))()
     stream_err = max((a - b).abs().max().item() for a, b in zip(k_params, s_params))
     check(stream_err <= 1e-3, "resident and streaming updates disagree on the parameters")
     for label, seconds in (("resident kernels", k_s), ("streaming kernels", s_s), ("plain GRU", p_s)):
@@ -628,10 +799,111 @@ def mappo_phase(gru, gpu: str) -> dict:
               f"not {per_update} an update")
     check(launches["fwd_calls"] == 17 * updates and launches["bwd_calls"] == 16 * updates,
           f"rec_mappo: {launches['fwd_calls']} forward and {launches['bwd_calls']} backward calls")
-    k_s, _, steps, p_s = kernels_against_plain("rec_mappo", repeats=3)
+    k_s, _, steps, p_s = kernels_against_plain("rec_mappo", repeats=2)
     for label, seconds in (("rec-MAPPO, resident kernels", k_s), ("rec-MAPPO, plain GRU", p_s)):
         print_updates(label, seconds, steps, gpu)
     return {"launches": launches}
+
+
+def smax_phase(gru, gpu: str) -> dict:
+    """rec-MAPPO on SMAX 3s5z: the centralised critic on the env's world state, 8
+    agents, 13 actions and masks that change every step. Exactly the launches of
+    rec-IPPO an update; its eval win rate; kernels against the plain GRU; where
+    an update's time goes."""
+    config, launches = train("rec_mappo", gru, SMAX)
+    updates = config.system.num_updates
+    for _, counter, _, per_update in KERNELS:
+        check(launches[counter] == per_update * updates,
+              f"rec_mappo on SMAX: {counter} launched {launches[counter]} times in {updates} "
+              f"updates, not {per_update} an update")
+    k_s, _, steps, p_s = kernels_against_plain("rec_mappo", 2, SMAX)
+    for label, seconds in (("rec-MAPPO on SMAX 3s5z, resident kernels", k_s),
+                           ("rec-MAPPO on SMAX 3s5z, plain GRU", p_s)):
+        print_updates(label, seconds, steps, gpu)
+    profile = profile_phase("rec_mappo", SMAX, 128)
+    return {"launches": launches, "profile": profile}
+
+
+def iql_phase(gru, gpu: str) -> dict:
+    """rec-IQL on SMAX 3s5z at the shipped config: the stacked K1 on the fused
+    target pass, K1 and the backward kernels on the loss pass. Then the fused
+    target pass against the unfused pair on the same sequences, and the loss
+    pass and its gradient against the plain GRU."""
+    from mava_tpu_torch.systems.q_learning import rec_iql
+
+    overrides = SMAX + [f"system.num_updates={IQL_UPDATES}"]
+    config, launches = train("rec_iql", gru, overrides)
+    updates = config.system.num_updates
+    for counter, per_update in IQL_PER_UPDATE.items():
+        check(launches[counter] == per_update * updates,
+              f"rec_iql: {counter} launched {launches[counter]} times in {updates} updates, "
+              f"not {per_update} an update")
+
+    learn, state, steps = learner("rec_iql", overrides)
+    seconds, losses = [], []
+    for _ in range(40):  # fills the buffer past one sampled sequence, then times
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = learn(state)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        state = out.learner_state
+        losses.append(out.train_metrics["mean_q"])
+    print_updates("rec-IQL on SMAX 3s5z (the last 30)", seconds[10:], steps, gpu)
+    print(f"  rec-IQL mean_q over the 40 updates: first {losses[0].mean().item():.4f}, "
+          f"last {losses[-1].mean().item():.4f}")
+    buffer = rec_iql.make_buffer(config)
+    data = buffer.sample(state.buffer_state, *buffer.sample_indices(state.buffer_state, state.key))
+    gru.reset_launch_counts()
+    fused = rec_iql.q_targets(state.params, data, config.system.gamma, fused=True)
+    check(gru.kernel_launches["fwd_stacked"] == 1 and gru.kernel_launches["fwd"] == 0,
+          f"the fused target pass launched {gru.kernel_launches}")
+    unfused = rec_iql.q_targets(state.params, data, config.system.gamma, fused=False)
+    err = (fused - unfused).abs().max().item()
+    print(f"  fused against unfused target pass, {tuple(fused.shape)} targets: max |diff| {err:.3e}")
+    check(torch.allclose(fused, unfused, rtol=1e-5, atol=1e-5),
+          "the fused and unfused target passes disagree")
+    iql_against_plain(gru, rec_iql, state.params, data, config.system.gamma)
+    profile = profile_phase("rec_iql", overrides, config.system.rollout_length)
+    return {"launches": launches, "profile": profile}
+
+
+def iql_against_plain(gru, rec_iql, params, data, gamma: float) -> None:
+    """rec-IQL's loss pass and its gradient on sampled sequences (the stacked K1
+    on the target pass; K1, K2p, K2a and K2b on the loss pass at T = 20, B = 256)
+    against the same pass on the plain GRU, from the same parameters and data.
+    The gradients are compared, not the parameters after an Adam step: Adam's
+    step does not change when its gradient is scaled."""
+    rnns = (params.online.rnn, params.target.rnn)
+    impl = rnns[0].gru_impl
+    runs = {}
+    try:
+        for name in ("pallas", "hoisted"):
+            for rnn in rnns:
+                rnn.gru_impl = name
+            gru.reset_launch_counts()
+            loss, _, target = rec_iql.q_loss_pass(params, data, gamma, fused=True)
+            grads = torch.autograd.grad(loss, list(params.online.parameters()))
+            torch.cuda.synchronize()
+            runs[name] = (loss.detach(), target, grads, dict(gru.kernel_launches))
+    finally:
+        for rnn in rnns:
+            rnn.gru_impl = impl
+    (k_loss, k_target, k_grads, k_counts), (p_loss, p_target, p_grads, p_counts) = (
+        runs["pallas"], runs["hoisted"])
+    check(k_counts == {"fwd": 1, "bwd_gates": 1, "bwd_recurrence": 1, "bwd_reduce": 1,
+                       "bwd_reduce_sum": 1, "fwd_stacked": 1},
+          f"rec_iql's loss pass on the kernels launched {k_counts}")
+    check(not any(p_counts.values()), f"rec_iql's loss pass on the plain GRU launched {p_counts}")
+    # Each gradient's error relative to its largest entry.
+    grad_err = max(((g - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+                   for g, w in zip(k_grads, p_grads))
+    print(f"  rec-IQL loss pass, kernels vs plain GRU: q_loss {k_loss.item():.6e} vs "
+          f"{p_loss.item():.6e}, max |target diff| {(k_target - p_target).abs().max().item():.3e}, "
+          f"max gradient error / its largest entry {grad_err:.3e}")
+    check(torch.allclose(k_loss, p_loss, rtol=1e-4, atol=0.0), "rec_iql: q_loss disagrees")
+    check(torch.allclose(k_target, p_target, rtol=RTOL, atol=ATOL), "rec_iql: targets disagree")
+    check(grad_err <= 1e-4, "rec_iql: the kernel and plain gradients disagree")
 
 
 def feedforward_phase(gru, gpu: str) -> None:
@@ -642,7 +914,7 @@ def feedforward_phase(gru, gpu: str) -> None:
     for system in ("ff_ippo", "ff_mappo"):
         _, launches = train(system, gru)
         check(not any(launches.values()), f"{system} launched a GRU kernel: {launches}")
-    seconds, _, _, steps = one_update("ff_ippo", [], repeats=6)
+    seconds, _, _, steps = one_update("ff_ippo", [], repeats=3)
     print_updates("ff-IPPO, 16 envs", seconds, steps, gpu)
 
     train("ff_ippo", gru, [
@@ -667,7 +939,7 @@ def profile_phase(system: str, overrides, rollout_length: int) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     learn, state, steps = learner(system, overrides)
-    span_prefix = ("ff_ippo/", "rec_ippo/")
+    span_prefix = ("ff_ippo/", "rec_ippo/", "rec_iql/", "gru/")
     state = learn(state).learner_state  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -687,11 +959,20 @@ def profile_phase(system: str, overrides, rollout_length: int) -> None:
              and e.device_type == torch.autograd.DeviceType.CPU]
     print(f"  {system} update of {steps} env-steps: {wall_ms:.1f} ms host, {len(launches)} "
           f"launches, {len(kernels)} kernels")
+    def launched_in(span):
+        return [e for e in launches if span.time_range.start <= e.time_range.start
+                <= span.time_range.end]
+
+    # The stacked K1 is K1's kernel function; its launches sit in the wrapper's span.
+    stacked_ids = {e.id for span in spans if span.name == "gru/fwd_stacked"
+                   for e in launched_in(span)}
     for span in sorted(spans, key=lambda e: e.time_range.start):
+        if span.name.startswith("gru/"):
+            continue
         lo, hi = span.time_range.start, span.time_range.end
         # A kernel belongs to the span whose host interval holds the launch
         # call it is correlated with (the two share an id).
-        inside = [e for e in launches if lo <= e.time_range.start <= hi]
+        inside = launched_in(span)
         ids = {e.id for e in inside}
         ms = sum(k.time_range.end - k.time_range.start for k in kernels if k.id in ids) / 1e3
         per_step = (f" ({len(inside) / rollout_length:.1f} a rollout step)"
@@ -699,16 +980,24 @@ def profile_phase(system: str, overrides, rollout_length: int) -> None:
         print(f"  {span.name}: {(hi - lo) / 1e3:.1f} ms host, {len(inside)} launches{per_step}, "
               f"{ms:.2f} ms of kernels")
     for _, counter, _, _ in KERNELS:
+        stacked = counter == "fwd_stacked"
+        base = "fwd" if stacked else counter
         mine = [k for k in kernels
-                if f"gru_{counter}_kernel" in k.name or f"gru_{counter}_resident_kernel" in k.name]
+                if (f"gru_{base}_kernel" in k.name or f"gru_{base}_resident_kernel" in k.name)
+                and (k.id in stacked_ids) == stacked]
         ms = sum(k.time_range.end - k.time_range.start for k in mine) / 1e3
         print(f"  gru_{counter}*: {len(mine)} launches, {ms:.3f} ms")
     busy, end = 0.0, float("-inf")
     for lo, hi in sorted((e.time_range.start, e.time_range.end) for e in on_device):
         busy += max(0.0, hi - max(lo, end))
         end = max(end, hi)
-    print(f"  device busy {busy / 1e3:.1f} ms of {wall_ms:.1f} ms: idle share "
-          f"{1.0 - busy / 1e3 / wall_ms:.3f}")
+    idle = 1.0 - busy / 1e3 / wall_ms
+    print(f"  device busy {busy / 1e3:.1f} ms of {wall_ms:.1f} ms: idle share {idle:.3f}")
+    rollout = [e for e in spans if e.name.endswith("/rollout")]
+    per_step = (len([e for e in launches if rollout[0].time_range.start <= e.time_range.start
+                     <= rollout[0].time_range.end]) / rollout_length) if rollout else None
+    return {"wall_ms": wall_ms, "busy_ms": busy / 1e3, "idle_share": idle,
+            "launches": len(launches), "launches_per_rollout_step": per_step}
 
 
 def main() -> int:
@@ -743,6 +1032,12 @@ def main() -> int:
     sliced = slice_phase(gru, gpu)
     print("rec-MAPPO phase:")
     mappo = mappo_phase(gru, gpu)
+    print("SMAX phase (rec-MAPPO on 3s5z):")
+    smax = smax_phase(gru, gpu)
+    print(f"  ({time.perf_counter() - start:.0f} s since the start)")
+    print("rec-IQL phase (SMAX 3s5z):")
+    iql = iql_phase(gru, gpu)
+    print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     print("feed-forward phase (ff-IPPO, ff-MAPPO, Matrax, the bench program):")
     feedforward_phase(gru, gpu)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
@@ -760,7 +1055,40 @@ def main() -> int:
                "bwd_reduce_sum": ("sum", "torch.sum over the slices")}
     slices = gru.reduce_split(*SLICE_SHAPES[0]).slices
     record = {"kernels": []}
+    stacked = kernels["stacked"]
     for name, counter, replaces, _ in KERNELS:
+        paths = {"launches_smax_rec_mappo": smax["launches"][counter],
+                 "launches_rec_iql": iql["launches"][counter]}
+        if counter == "fwd_stacked":
+            record["kernels"].append({
+                "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+                "launches": iql["launches"][counter], **paths,
+                "max_abs_err": kernels["errs"][counter],
+                "ms": stacked["fwd_stacked"], "plain_ms": stacked["fwd_stacked_plain"],
+                "bound_ms": stacked["bound"], "bound_by": stacked["bound_by"],
+                "library_ms": None,
+                "library": "none: no one call runs two GRUs of different weights; two cuDNN "
+                           "forwards (keep == 1) in two_cudnn_fwd_ms",
+                "timed": "device-only: CUDA graph replays; *host_ms: eager calls",
+                "host_ms": stacked["fwd_stacked_host"], "plain_host_ms": stacked["fwd_stacked_plain_host"],
+                "two_unstacked_ms": stacked["two_fwd"], "two_unstacked_host_ms": stacked["two_fwd_host"],
+                "two_cudnn_fwd_ms": stacked["two_cudnn_fwd"],
+                "two_cudnn_fwd_host_ms": stacked["two_cudnn_fwd_host"],
+                "shape": list(STACKED_SHAPES[0]), "clusters": stacked["clusters"],
+                "max_active_clusters": stacked["max_active"], "waves": stacked["waves"],
+                "kernel_route": gru.kernel_route(*STACKED_SHAPES[0][1:]).route,
+            })
+            continue
+        if counter in ("fwd", "bwd_gates", "bwd_recurrence", "bwd_reduce"):
+            paths["path_shapes"] = {
+                f"T={t} B={b} H={h}": {
+                    "ms": path[counter], "host_ms": path[counter + "_host"],
+                    "plain_ms": path[counter + "_plain"], "plain_host_ms": path[counter + "_plain_host"],
+                    "max_abs_err": kernels["path_errs"][(t, b, h)][counter],
+                    "bound_ms": path[counter + "_bound"],
+                    "library_ms": path.get({"fwd": "cudnn_fwd", "bwd_recurrence": "cudnn_bwd",
+                                            "bwd_reduce": "mm"}.get(counter, ""))}
+                for (t, b, h), path in kernels["path"].items()}
         bound, bound_by = bound_ms(counter, *SLICE_SHAPES[0], slices)
         lib_key, lib_what = library[counter]
         entry = {
@@ -779,7 +1107,7 @@ def main() -> int:
             "bound_ms_b32": bound_ms(counter, *SLICE_SHAPES[1], slices)[0],
             "library_ms_b32": t32[lib_key] if lib_key else None,
             "streaming_ms": t16.get(counter + "_streaming"),
-            "kernel_route": gru.kernel_route(*SLICE_SHAPES[0]).route,
+            "kernel_route": gru.kernel_route(*SLICE_SHAPES[0]).route, **paths,
         }
         if counter == "bwd_reduce":
             entry.update({

@@ -78,6 +78,14 @@
 //    K2p and K2b share the loader of hprev*keep and the register-tile product.
 // No atomics anywhere: every output is bitwise the same from run to run.
 //
+// The stacked forward (rec-IQL's fused double-DQN target pass, which the JAX
+// package gets from `jax.vmap` of `gru_sequence` over two parameter stacks,
+// mava_tpu/systems/q_learning/rec_iql.py:173-192) is K1 with the stack index as
+// the grid's y dimension on both routes: entry s has its own gates_i, h0, Wh,
+// b_hn and hs, offset by s, and shares keep. The weights differ per entry, so
+// the stack cannot be folded into B. On the resident route a cluster stays 8
+// blocks along x and each loads its own entry's slice of Wh into registers.
+//
 // Streaming route (every other H up to 1024, where a slice of Wh does not fit
 // a block's registers): gru_fwd_kernel and gru_bwd_recurrence_kernel. One block
 // owns 8 rows, loops over T with its carry in shared memory and reads Wh from
@@ -123,8 +131,8 @@ __device__ __forceinline__ void tile_times_wh(const float* __restrict__ h_s,
   }
 }
 
-// K1, streaming route. Grid: ceil(B / kRows) blocks. Shared memory: kRows * 4H
-// floats.
+// K1, streaming route. Grid: ceil(B / kRows) x S blocks (y: the stack entry).
+// Shared memory: kRows * 4H floats.
 __global__ void __launch_bounds__(kMaxThreads)
 gru_fwd_kernel(const float* __restrict__ gates_i, const float* __restrict__ keep,
                const float* __restrict__ h0, const float* __restrict__ w_h,
@@ -136,6 +144,12 @@ gru_fwd_kernel(const float* __restrict__ gates_i, const float* __restrict__ keep
   const int H3 = 3 * H;
   const int row0 = blockIdx.x * kRows;
   const int nrows = min(kRows, B - row0);
+  const size_t entry = blockIdx.y;  // stack entry: its own inputs and weights, keep shared
+  gates_i += entry * T * B * H3;
+  h0 += entry * B * H;
+  w_h += entry * H * H3;
+  b_hn += entry * H;
+  hs += entry * T * B * H;
 
   // Rows past B stay zero throughout (ragged last tile).
   for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) {
@@ -278,7 +292,7 @@ __device__ long long g_step_clocks[2][8];
     last_clock_ = now_;                       \
   }
 #define STEP_CLOCKS_END(kernel)                                      \
-  if (threadIdx.x == 0 && blockIdx.x == 0) {                         \
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) {     \
     for (int i_ = 0; i_ < 8; ++i_) g_step_clocks[kernel][i_] = clocks_[i_]; \
   }
 #else
@@ -394,8 +408,8 @@ __host__ __device__ constexpr int bwd_resident_floats(int U) {
          4 * kCluster * U * kClusterRows + 2 * kClusterRows * bwd_in_stride(U);
 }
 
-// K1, resident route. Grid: kCluster * ceil(B / 16) blocks in clusters of
-// kCluster; 16 * H / kCluster threads. Thread (s, ul) = (tid % 16, tid / 16)
+// K1, resident route. Grid: kCluster * ceil(B / 16) x S blocks in clusters of
+// kCluster along x (y: the stack entry); 16 * H / kCluster threads. Thread (s, ul) = (tid % 16, tid / 16)
 // holds Wh[k, {r,z,n} of unit u] for the H/16 values k = 64 j + 4 s + i, and
 // does the gate math of (row s, unit u). (Two units a thread, with half the
 // threads, halve the product's reads of the carry from shared memory; at
@@ -441,6 +455,12 @@ gru_fwd_resident_kernel(const float* __restrict__ gates_i, const float* __restri
   const int ul = threadIdx.x / 16;
   const int u = rank * U + ul;
   const bool valid = s < nrows;
+  const size_t entry = blockIdx.y;  // stack entry: its own inputs and weights, keep shared
+  gates_i += entry * T * B * H3;
+  h0 += entry * B * H;
+  w_h += entry * H * H3;
+  b_hn += entry * H;
+  hs += entry * T * B * H;
 
   float w[KPT][3];
 #pragma unroll
@@ -1110,23 +1130,31 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// Launch `kernel` in clusters of kCluster blocks on `stream`. `checked` caches,
-// per kernel, that the card can co-schedule one such cluster.
-template <typename... Params, typename... Args>
-cudaError_t launch_clusters(void (*kernel)(Params...), bool& checked, int B, int threads,
-                            size_t smem, cudaStream_t stream, Args... args) {
+// The launch of a resident kernel: kCluster * ceil(B / 16) x S blocks in
+// clusters of kCluster along x. `attribute` must outlive `config`.
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attribute, int B, int S, int threads,
+                                  size_t smem, cudaStream_t stream) {
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(kCluster * ((B + kClusterRows - 1) / kClusterRows));
+  config.gridDim = dim3(kCluster * ((B + kClusterRows - 1) / kClusterRows), S);
   config.blockDim = dim3(threads);
   config.dynamicSmemBytes = smem;
   config.stream = stream;
-  cudaLaunchAttribute attribute[1];
   attribute[0].id = cudaLaunchAttributeClusterDimension;
   attribute[0].val.clusterDim.x = kCluster;
   attribute[0].val.clusterDim.y = 1;
   attribute[0].val.clusterDim.z = 1;
   config.attrs = attribute;
   config.numAttrs = 1;
+  return config;
+}
+
+// Launch `kernel` in clusters of kCluster blocks on `stream`. `checked` caches,
+// per kernel, that the card can co-schedule one such cluster.
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), bool& checked, int B, int S, int threads,
+                            size_t smem, cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attribute[1];
+  cudaLaunchConfig_t config = cluster_config(attribute, B, S, threads, smem, stream);
   if (!checked) {
     cudaError_t err = set_smem((const void*)kernel, smem);
     if (err != cudaSuccess) return err;
@@ -1141,12 +1169,28 @@ cudaError_t launch_clusters(void (*kernel)(Params...), bool& checked, int B, int
 
 constexpr int bwd_row_halves(int H) { return H <= 128 ? 2 : 1; }
 
+// How many clusters of the resident K1 (kernel 0) or K2a (kernel 1) for H the
+// card holds at once, for a launch over B rows and S stack entries.
+template <int H>
+cudaError_t resident_max_active_clusters(int kernel, int B, int S, int* clusters) {
+  constexpr int U = H / kCluster, RH = bwd_row_halves(H);
+  cudaLaunchAttribute attribute[1];
+  const void* fn = kernel == 0 ? (const void*)gru_fwd_resident_kernel<H>
+                               : (const void*)gru_bwd_recurrence_resident_kernel<H, RH>;
+  const size_t smem = sizeof(float) * (kernel == 0 ? fwd_resident_floats(U) : bwd_resident_floats(U));
+  cudaLaunchConfig_t config =
+      cluster_config(attribute, B, S, kernel == 0 ? kClusterRows * U : H * RH, smem, 0);
+  cudaError_t err = set_smem(fn, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(clusters, fn, &config);
+}
+
 template <int H>
 cudaError_t launch_fwd_resident(const float* gates_i, const float* keep, const float* h0,
                                 const float* w_h, const float* b_hn, float* hs, int T, int B,
-                                cudaStream_t stream) {
+                                int S, cudaStream_t stream) {
   static bool checked = false;
-  return launch_clusters(gru_fwd_resident_kernel<H>, checked, B,
+  return launch_clusters(gru_fwd_resident_kernel<H>, checked, B, S,
                          kClusterRows * (H / kCluster),
                          sizeof(float) * fwd_resident_floats(H / kCluster), stream, gates_i,
                          keep, h0, w_h, b_hn, hs, T, B);
@@ -1159,7 +1203,7 @@ cudaError_t launch_bwd_resident(const float* gates, const float* keep, const flo
                                 cudaStream_t stream) {
   static bool checked = false;
   constexpr int RH = bwd_row_halves(H);
-  return launch_clusters(gru_bwd_recurrence_resident_kernel<H, RH>, checked, B, H * RH,
+  return launch_clusters(gru_bwd_recurrence_resident_kernel<H, RH>, checked, B, 1, H * RH,
                          sizeof(float) * bwd_resident_floats(H / kCluster), stream, gates, keep,
                          h0, w_h, hs, g_hs, dgates, dgh, dh0, T, B);
 }
@@ -1186,17 +1230,37 @@ int gru_sequence_resident_config(int H, int* out) {
   return 0;
 }
 
-// K1.
+// How many clusters of the resident K1 (kernel 0) or K2a (kernel 1) for H the
+// card holds at once, for a launch over B rows and S stack entries, into
+// `out`; returns the error, or cudaErrorInvalidValue where the resident route
+// does not take H.
+int gru_sequence_max_active_clusters(int H, int kernel, int B, int S, int* out) {
+  if ((kernel != 0 && kernel != 1) || B < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  switch (H) {
+    case 64: return (int)resident_max_active_clusters<64>(kernel, B, S, out);
+    case 128: return (int)resident_max_active_clusters<128>(kernel, B, S, out);
+    case 192: return (int)resident_max_active_clusters<192>(kernel, B, S, out);
+    case 256: return (int)resident_max_active_clusters<256>(kernel, B, S, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K1 over S stack entries (S = 1: the plain sequence): gates_i (S,T,B,3H),
+// h0 (S,B,H), Wh (S,H,3H), b_hn (S,H) -> hs (S,T,B,H), keep (T,B,H) shared.
 int gru_sequence_fwd(const float* gates_i, const float* keep, const float* h0,
                      const float* w_h, const float* b_hn, float* hs, int T, int B, int H,
-                     int cluster, void* stream) {
+                     int S, int cluster, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (S < 1 || S > 65535) return (int)cudaErrorInvalidValue;
   if (cluster == kCluster) {
     switch (H) {
-      case 64: return (int)launch_fwd_resident<64>(gates_i, keep, h0, w_h, b_hn, hs, T, B, st);
-      case 128: return (int)launch_fwd_resident<128>(gates_i, keep, h0, w_h, b_hn, hs, T, B, st);
-      case 192: return (int)launch_fwd_resident<192>(gates_i, keep, h0, w_h, b_hn, hs, T, B, st);
-      case 256: return (int)launch_fwd_resident<256>(gates_i, keep, h0, w_h, b_hn, hs, T, B, st);
+      case 64: return (int)launch_fwd_resident<64>(gates_i, keep, h0, w_h, b_hn, hs, T, B, S, st);
+      case 128:
+        return (int)launch_fwd_resident<128>(gates_i, keep, h0, w_h, b_hn, hs, T, B, S, st);
+      case 192:
+        return (int)launch_fwd_resident<192>(gates_i, keep, h0, w_h, b_hn, hs, T, B, S, st);
+      case 256:
+        return (int)launch_fwd_resident<256>(gates_i, keep, h0, w_h, b_hn, hs, T, B, S, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -1204,7 +1268,7 @@ int gru_sequence_fwd(const float* gates_i, const float* keep, const float* h0,
   const size_t smem = sizeof(float) * kRows * 4 * H;
   cudaError_t err = set_smem((const void*)gru_fwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + kRows - 1) / kRows);
+  const dim3 grid((B + kRows - 1) / kRows, S);
   gru_fwd_kernel<<<grid, block_threads(H), smem, st>>>(gates_i, keep, h0, w_h, b_hn, hs, T, B,
                                                        H);
   return (int)cudaGetLastError();

@@ -1,8 +1,9 @@
-"""Categorical action distributions (port of `mava_tpu/distributions.py:25-93`).
+"""Categorical action distributions (port of `mava_tpu/distributions.py:25-93`
+and `:182-212`).
 
 Same surface as the reference: `sample`, `sample_from_noise`, `raw_params`,
 `log_prob`, `entropy` and `mode`. Randomness comes from an explicit
-`torch.Generator`.
+`torch.Generator`, or is handed in as Gumbel noise.
 """
 
 from __future__ import annotations
@@ -69,3 +70,28 @@ class MaskedCategorical(Categorical):
 
     def __init__(self, logits: torch.Tensor, mask: torch.Tensor):
         super().__init__(masked_logits(logits, mask))
+
+
+def masked_greedy(q_values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Greedy masked argmax over the last axis: `MaskedEpsGreedy.mode()` without
+    building the distribution (the fused double-DQN target pass)."""
+    return torch.argmax(torch.where(mask, q_values, _MASK_NEG), dim=-1)
+
+
+class MaskedEpsGreedy(Categorical):
+    """Epsilon-greedy over masked Q-values (reference `distributions.py:187-212`):
+    probs = eps * uniform(legal actions) + (1 - eps) * onehot(greedy), kept as the
+    logits log(clip(probs, 1e-12)) of the base `Categorical`, so that sampling
+    (also at eps = 0) is the Gumbel-max draw the reference makes."""
+
+    def __init__(self, q_values: torch.Tensor, epsilon, mask: torch.Tensor):
+        self.q_values = q_values
+        mask_f = mask.to(q_values.dtype)
+        uniform = mask_f / mask_f.sum(-1, keepdim=True)
+        self._greedy = masked_greedy(q_values, mask)
+        greedy = torch.nn.functional.one_hot(self._greedy, q_values.shape[-1]).to(q_values.dtype)
+        probs = epsilon * uniform + (1.0 - epsilon) * greedy
+        super().__init__(torch.log(torch.clamp(probs, min=1e-12)))
+
+    def mode(self) -> torch.Tensor:
+        return self._greedy

@@ -3,8 +3,8 @@
 Same wrapper order as the reference: GlobalState? -> AgentID? -> AutoReset ->
 RecordEpisodeMetrics on the train env; the same without AutoReset on the eval
 env. The global state is therefore built from views without the one-hot ids.
-RobotWarehouse and Matrax are ported so far; the other environments are listed
-in ROADMAP.md.
+RobotWarehouse, Matrax and SMAX are ported so far; the other environments are
+listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -62,6 +62,20 @@ def _make_rware(config, device: torch.device) -> Tuple[Any, Any]:
     return (
         RobotWarehouse(**kwargs, device=device),
         RobotWarehouse(**kwargs, device=device),
+    )
+
+
+@register("Smax")
+def _make_smax(config, device: torch.device) -> Tuple[Any, Any]:
+    from mava_tpu_torch.envs.smax import Smax
+
+    # As the reference (`mava_tpu/envs/__init__.py:72-78`): the scenario from
+    # `env.scenario.task_name`, the keyword arguments from `env.kwargs` alone.
+    scenario = config.env.scenario.get("task_name", "3s5z")
+    kwargs = dict(config.env.get("kwargs", {}) or {})
+    return (
+        Smax(scenario=scenario, **kwargs, device=device),
+        Smax(scenario=scenario, **kwargs, device=device),
     )
 
 

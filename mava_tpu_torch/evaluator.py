@@ -3,7 +3,9 @@
 Port of `mava_tpu/evaluator.py` for one device. Each episode loop resets every
 eval env, runs `time_limit` steps, and reads each env's metrics at its first
 done step. As in the reference (:95), an env whose episode never ends within
-`time_limit` reports the metrics of step 0.
+`time_limit` reports the metrics of step 0. With `env.log_win_rate` the metrics
+also hold `won_episode` from the env's extras (reference :62, :91-92), which the
+logger turns into `win_rate`.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ def get_eval_fn(env: Any, act_fn: EvalActFn, config, absolute_metric: bool) -> C
     )
     n_envs = get_num_eval_envs(config, absolute_metric)
     episode_loops = math.ceil(eval_episodes / n_envs)
+    log_win_rate = config.env.get("log_win_rate", False)
     if eval_episodes % n_envs != 0:
         warnings.warn(
             f"num eval episodes ({eval_episodes}) not divisible by parallel envs "
@@ -59,7 +62,10 @@ def get_eval_fn(env: Any, act_fn: EvalActFn, config, absolute_metric: bool) -> C
         for _ in range(env.time_limit):
             action, actor_state = act_fn(params, ts, generator, actor_state)
             env_state, ts = env.step(env_state, action, env.step_noise(n_envs, generator))
-            metrics.append(ts.extras["episode_metrics"])
+            step_metrics = dict(ts.extras["episode_metrics"])
+            if log_win_rate:
+                step_metrics["won_episode"] = ts.extras["won_episode"]
+            metrics.append(step_metrics)
             lasts.append(ts.last())
         # First done step per env; step 0 where none ended (reference :95).
         done_idx = torch.argmax(torch.stack(lasts).to(torch.int32), dim=0)

@@ -1,6 +1,7 @@
 from mava_tpu_torch.networks.actor_critic import (
     FeedForwardActor,
     FeedForwardValueNet,
+    RecQNetwork,
     RecurrentActor,
     RecurrentValueNet,
     ScannedRNN,
@@ -14,6 +15,7 @@ __all__ = [
     "FeedForwardActor",
     "FeedForwardValueNet",
     "MLPTorso",
+    "RecQNetwork",
     "RecurrentActor",
     "RecurrentValueNet",
     "ScannedRNN",

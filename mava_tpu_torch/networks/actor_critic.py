@@ -1,5 +1,5 @@
-"""Feed-forward and recurrent actor and critic (port of
-`mava_tpu/networks/actor_critic.py`).
+"""Feed-forward and recurrent actor and critic, and the recurrent Q-network
+(port of `mava_tpu/networks/actor_critic.py`).
 
 The critics come in two kinds: on the agent's own view, or centralised on
 `observation.global_state` (CTDE), which only an `ObservationGlobalState` has.
@@ -8,6 +8,12 @@ The critics come in two kinds: on the agent's own view, or centralised on
 `wh` (H,3H) and `bhn` (H) are raw parameters in JAX's (in, out) layout, which
 is the layout the GRU kernel takes. The input projection for every step is one
 matmul ahead of the recurrence (the reference's "hoisted" scan).
+
+`RecQNetwork.stacked_q_values` is rec-IQL's fused target pass: the online and
+the target network over the same inputs as one pass over a stack of two, the
+torsos and heads vmapped over their stacked parameters (batched products) and
+the recurrence as one launch of the stacked GRU kernel (the reference vmaps
+`get_q_values` over stacked params).
 """
 
 from __future__ import annotations
@@ -18,8 +24,9 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from mava_tpu_torch.distributions import MaskedEpsGreedy
 from mava_tpu_torch.networks.torsos import MLPTorso, orthogonal_linear
-from mava_tpu_torch.ops.gru import gru_sequence
+from mava_tpu_torch.ops.gru import gru_sequence, gru_sequence_stacked
 from mava_tpu_torch.types import ObservationGlobalState
 
 # `network.gru_impl` values: "auto" resolves per device; "pallas" is the GRU
@@ -119,14 +126,13 @@ class ScannedRNN(nn.Module):
         collect_carries: bool = False,
     ):
         hidden = self.hidden_state_dim
-        impl = resolve_gru_impl(self.gru_impl, ins.device)
         gates_i = ins @ self.wi + self.bi  # every step's input gates in one matmul
         t_len = ins.shape[0]
         lead = ins.shape[1:-1]
+        # Resets may broadcast over trailing axes (rec-IQL's are (T, B, 1)).
+        resets = torch.broadcast_to(resets, ins.shape[:-1])
 
-        # The kernel runs on real sequences; T == 1 (the per-env-step rollout)
-        # stays on the plain path, as in the reference (:261-264).
-        if impl == "pallas" and t_len > 1:
+        if self.uses_kernel(ins.device, t_len):
             gi = gates_i.reshape(t_len, -1, 3 * hidden)
             keep = (1.0 - resets.to(torch.float32)).reshape(t_len, -1, 1)
             keep = keep.expand(*gi.shape[:2], hidden).contiguous()
@@ -139,9 +145,19 @@ class ScannedRNN(nn.Module):
                 return final_h, (carries.reshape(t_len, *lead, hidden), ys)
             return final_h, ys
 
+        return self.plain_recurrence(carry, gates_i, resets, collect_carries)
+
+    def uses_kernel(self, device: torch.device, t_len: int) -> bool:
+        """Whether a sequence of `t_len` steps goes to the GRU kernel: with
+        gru_impl "pallas", for real sequences; T == 1 (the per-env-step rollout)
+        stays on the plain path, as in the reference (:261-264)."""
+        return resolve_gru_impl(self.gru_impl, device) == "pallas" and t_len > 1
+
+    def plain_recurrence(self, carry, gates_i, resets, collect_carries: bool = False):
+        """The plain loop over time on precomputed input gates."""
         h = carry
         carries, ys = [], []
-        for t in range(t_len):
+        for t in range(gates_i.shape[0]):
             carries.append(h)
             h_in = torch.where(resets[t][..., None], 0.0, h)
             xr, xz, xn = gates_i[t].chunk(3, dim=-1)
@@ -209,3 +225,72 @@ class RecurrentValueNet(nn.Module):
         if collect_carries:
             return value_hidden_state, (carries, value)
         return value_hidden_state, value
+
+
+class RecQNetwork(nn.Module):
+    """pre_torso -> GRU -> post_torso -> Dense (orthogonal 0.01) Q-values, with
+    an epsilon-greedy distribution over the masked Q-values (reference
+    `networks/actor_critic.py:376-407`)."""
+
+    def __init__(self, pre_torso: MLPTorso, post_torso: MLPTorso, num_actions: int,
+                 hidden_state_dim: int = 128, gru_impl: Optional[str] = None):
+        super().__init__()
+        self.pre_torso = pre_torso
+        self.rnn = ScannedRNN(pre_torso.out_features, hidden_state_dim, gru_impl)
+        self.post_torso = post_torso
+        self.q_head = orthogonal_linear(post_torso.out_features, num_actions, 0.01)
+
+    def get_q_values(self, hidden_state: torch.Tensor, observations_resets: Tuple):
+        """(final hidden state, Q-values (T, B..., actions))."""
+        obs, resets = observations_resets
+        embedding = self.pre_torso(obs.agents_view)
+        hidden_state, embedding = self.rnn(hidden_state, embedding, resets)
+        return hidden_state, self.q_head(self.post_torso(embedding))
+
+    def forward(self, hidden_state: torch.Tensor, observations_resets: Tuple, eps=0.0):
+        obs, _ = observations_resets
+        hidden_state, q_values = self.get_q_values(hidden_state, observations_resets)
+        return hidden_state, MaskedEpsGreedy(q_values, eps, obs.action_mask)
+
+    @staticmethod
+    @torch.no_grad()
+    def stacked_q_values(online: "RecQNetwork", target: "RecQNetwork",
+                         hidden_state: torch.Tensor, observations_resets: Tuple) -> torch.Tensor:
+        """`get_q_values` of `online` and of `target` on the same inputs and initial
+        hidden state, as one pass: Q-values (2, T, B..., actions). No gradient.
+        With the kernel (gru_impl "pallas", T > 1) the recurrence of both is one
+        launch of the stacked GRU kernel; otherwise each runs the plain loop."""
+        nets = (online, target)
+        obs, resets = observations_resets
+        x = _stacked_call([n.pre_torso for n in nets], obs.agents_view, shared_input=True)
+        rnns = [n.rnn for n in nets]
+        hidden = online.rnn.hidden_state_dim
+        gates_i = torch.func.vmap(lambda x, wi, bi: x @ wi + bi)(
+            x, torch.stack([r.wi for r in rnns]), torch.stack([r.bi for r in rnns]))  # (2, T, B..., 3H)
+        t_len, lead = x.shape[1], x.shape[2:-1]
+        resets = torch.broadcast_to(resets, x.shape[1:-1])
+        if online.rnn.uses_kernel(x.device, t_len):
+            gi = gates_i.reshape(len(nets), t_len, -1, 3 * hidden)
+            keep = (1.0 - resets.to(torch.float32)).reshape(t_len, -1, 1)
+            keep = keep.expand(*gi.shape[1:3], hidden).contiguous()
+            h0 = hidden_state.reshape(1, -1, hidden).expand(len(nets), -1, -1).contiguous()
+            hs = gru_sequence_stacked(
+                gi, keep, h0, torch.stack([r.wh for r in rnns]), torch.stack([r.bhn for r in rnns]))
+            hs = hs.reshape(len(nets), t_len, *lead, hidden)
+        else:
+            hs = torch.stack([r.plain_recurrence(hidden_state, gates_i[s], resets)[1]
+                              for s, r in enumerate(rnns)])
+        embedding = _stacked_call([n.post_torso for n in nets], hs)
+        return _stacked_call([n.q_head for n in nets], embedding)
+
+
+def _stacked_call(modules, x: torch.Tensor, shared_input: bool = False) -> torch.Tensor:
+    """Modules of one structure called as one, vmapped over their stacked
+    parameters: x (S, ..., F), or (..., F) for every entry when `shared_input`.
+    Returns (S, ..., out)."""
+    params, buffers = torch.func.stack_module_state(list(modules))
+
+    def call(p, b, x):
+        return torch.func.functional_call(modules[0], (p, b), (x,))
+
+    return torch.func.vmap(call, in_dims=(0, 0, None if shared_input else 0))(params, buffers, x)

@@ -33,9 +33,14 @@ slices of the T*B rows into partial tiles, a second adds the partials in slice
 order. How the rows are split is `reduce_split(T, B, H)`, again a pure function
 of the shape.
 
+`gru_sequence_stacked(gates_i, keep, h0, w_h, b_hn)` is the forward over a
+leading stack axis S of inputs and weights with `keep` shared: what `jax.vmap`
+of `gru_sequence` over stacked parameters computes (rec-IQL's fused double-DQN
+target pass). It is K1 with the stack entry as a grid dimension, forward only.
+
 `fwd_launches` and `bwd_launches` count calls that launched kernels (one per
 forward call, one per backward call); `kernel_launches` counts each kernel by
-name. The plain versions leave them alone.
+name, the stacked forward as `fwd_stacked`. The plain versions leave them alone.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.profiler import record_function
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "gru_sequence.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -76,7 +82,7 @@ forced_route: Optional[str] = None
 
 fwd_launches = 0
 bwd_launches = 0
-KERNELS = ("fwd", "bwd_gates", "bwd_recurrence", "bwd_reduce", "bwd_reduce_sum")
+KERNELS = ("fwd", "bwd_gates", "bwd_recurrence", "bwd_reduce", "bwd_reduce_sum", "fwd_stacked")
 kernel_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -218,6 +224,15 @@ def gru_sequence_reference(
         h = (1.0 - z) * n + z * h
         hs.append(h)
     return torch.stack(hs)
+
+
+def gru_sequence_stacked_reference(gates_i, keep, h0, w_h, b_hn) -> torch.Tensor:
+    """Plain stacked forward: `gru_sequence_reference` for each stack entry, keep
+    shared. Returns hs (S,T,B,H)."""
+    return torch.stack([
+        gru_sequence_reference(gates_i[s], keep, h0[s], w_h[s], b_hn[s])
+        for s in range(gates_i.shape[0])
+    ])
 
 
 def gru_sequence_backward_reference(
@@ -362,7 +377,7 @@ def build_kernels(step_clocks: bool = False) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, pointers, ints in (
-        ("gru_sequence_fwd", 6, 4),
+        ("gru_sequence_fwd", 6, 5),
         ("gru_sequence_bwd_gates", 7, 3),
         ("gru_sequence_bwd_recurrence", 12, 4),
         ("gru_sequence_bwd_reduce", 5, 5),
@@ -373,6 +388,8 @@ def build_kernels(step_clocks: bool = False) -> ctypes.CDLL:
         fn.restype = i32
     lib.gru_sequence_resident_config.argtypes = [i32, ctypes.POINTER(i32)]
     lib.gru_sequence_resident_config.restype = i32
+    lib.gru_sequence_max_active_clusters.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+    lib.gru_sequence_max_active_clusters.restype = i32
     lib.gru_sequence_reduce_config.argtypes = [ctypes.POINTER(i32)]
     lib.gru_sequence_reduce_config.restype = i32
     if step_clocks:
@@ -397,21 +414,28 @@ def _check(name: str, x: torch.Tensor, shape: Tuple[int, ...], device: torch.dev
         raise ValueError(f"gru_sequence: {name} must be 16-byte aligned")
 
 
-def _check_inputs(gates_i, keep, h0, w_h, b_hn) -> Tuple[int, int, int]:
-    if gates_i.dim() != 3 or gates_i.shape[-1] % 3 != 0:
-        raise ValueError(f"gru_sequence: gates_i must be (T, B, 3H), got {tuple(gates_i.shape)}")
-    t_len, b, h3 = gates_i.shape
+def _check_inputs(gates_i, keep, h0, w_h, b_hn, stacked: bool = False) -> Tuple[int, ...]:
+    """(T, B, H), or (S, T, B, H) where `stacked`: gates_i, h0, w_h and b_hn then
+    lead with the stack axis S and keep is shared."""
+    lead = 1 if stacked else 0
+    if gates_i.dim() != 3 + lead or gates_i.shape[-1] % 3 != 0:
+        want = "(S, T, B, 3H)" if stacked else "(T, B, 3H)"
+        raise ValueError(f"gru_sequence: gates_i must be {want}, got {tuple(gates_i.shape)}")
+    stack = tuple(gates_i.shape[:lead])
+    t_len, b, h3 = gates_i.shape[lead:]
     h = h3 // 3
     _check_dims(t_len, b, h)
+    if stacked and not 1 <= stack[0] <= 65535:
+        raise ValueError(f"gru_sequence: need 1 <= S <= 65535, got S={stack[0]}")
     dev = gates_i.device
-    _check("gates_i", gates_i, (t_len, b, h3), dev)
+    _check("gates_i", gates_i, (*stack, t_len, b, h3), dev)
     _check("keep", keep, (t_len, b, h), dev)
-    _check("h0", h0, (b, h), dev)
-    _check("w_h", w_h, (h, h3), dev)
-    _check("b_hn", b_hn, (h,), dev)
+    _check("h0", h0, (*stack, b, h), dev)
+    _check("w_h", w_h, (*stack, h, h3), dev)
+    _check("b_hn", b_hn, (*stack, h), dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"gru_sequence: unsupported device {dev}")
-    return t_len, b, h
+    return (*stack, t_len, b, h)
 
 
 def _ptr(x: Optional[torch.Tensor]) -> ctypes.c_void_p:
@@ -435,6 +459,18 @@ def built_route(h: int) -> Optional[Tuple[int, int, int, int, int]]:
     if build_kernels().gru_sequence_resident_config(h, out) != 0:
         return None
     return tuple(out)
+
+
+def max_active_clusters(h: int, kernel: str, b: int, stack: int = 1) -> int:
+    """How many clusters of the resident K1 (`kernel` "fwd") or K2a
+    ("bwd_recurrence") for H the card holds at once (`cudaOccupancyMaxActiveClusters`)
+    for a launch over B rows and `stack` stack entries. A launch of more
+    clusters than that runs in waves."""
+    out = ctypes.c_int(0)
+    which = {"fwd": 0, "bwd_recurrence": 1}[kernel]
+    _raise_on(build_kernels().gru_sequence_max_active_clusters(h, which, b, stack, ctypes.byref(out)),
+              "gru_sequence_max_active_clusters")
+    return out.value
 
 
 def built_reduce_config() -> Tuple[int, int]:
@@ -474,8 +510,26 @@ def gru_sequence_forward(gates_i, keep, h0, w_h, b_hn, step_clocks: bool = False
     dev = gates_i.device
     cluster = CLUSTER if _resident(t_len, b, h) else 0
     hs = _empty(dev, t_len, b, h)
-    _launch("fwd", lib.gru_sequence_fwd, dev, gates_i, keep, h0, w_h, b_hn, hs, t_len, b, h, cluster)
+    _launch("fwd", lib.gru_sequence_fwd, dev, gates_i, keep, h0, w_h, b_hn, hs, t_len, b, h, 1,
+            cluster)
     fwd_launches += 1
+    return hs
+
+
+def gru_sequence_stacked_forward(gates_i, keep, h0, w_h, b_hn) -> torch.Tensor:
+    """hs (S,T,B,H): one launch of K1 over every stack entry on CUDA tensors, the
+    plain loop over S on CPU tensors."""
+    stack, t_len, b, h = _check_inputs(gates_i, keep, h0, w_h, b_hn, stacked=True)
+    if gates_i.device.type == "cpu":
+        return gru_sequence_stacked_reference(gates_i, keep, h0, w_h, b_hn)
+    lib = build_kernels()
+    dev = gates_i.device
+    cluster = CLUSTER if _resident(t_len, b, h) else 0
+    hs = _empty(dev, stack, t_len, b, h)
+    # The same kernel function as K1: the span tells its launches apart in a profile.
+    with record_function("gru/fwd_stacked"):
+        _launch("fwd_stacked", lib.gru_sequence_fwd, dev, gates_i, keep, h0, w_h, b_hn, hs, t_len,
+                b, h, stack, cluster)
     return hs
 
 
@@ -640,3 +694,26 @@ class GRUSequenceFn(torch.autograd.Function):
 def gru_sequence(gates_i, keep, h0, w_h, b_hn) -> torch.Tensor:
     """Differentiable GRU recurrence over time; see the module docstring."""
     return GRUSequenceFn.apply(gates_i, keep, h0, w_h, b_hn)
+
+
+class GRUSequenceStackedFn(torch.autograd.Function):
+    """forward = the stacked K1 (the plain loop on CPU tensors); no backward."""
+
+    @staticmethod
+    def forward(ctx, gates_i, keep, h0, w_h, b_hn):
+        return gru_sequence_stacked_forward(gates_i, keep, h0, w_h, b_hn)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_hs):
+        raise RuntimeError(
+            "gru_sequence_stacked is forward-only: it has no backward kernel. Run it "
+            "under torch.no_grad(), or use gru_sequence per stack entry for gradients."
+        )
+
+
+def gru_sequence_stacked(gates_i, keep, h0, w_h, b_hn) -> torch.Tensor:
+    """The GRU recurrence over a leading stack axis: gates_i (S,T,B,3H), keep
+    (T,B,H) shared, h0 (S,B,H), w_h (S,H,3H), b_hn (S,H) -> hs (S,T,B,H). Forward
+    only: asking it for a gradient raises."""
+    return GRUSequenceStackedFn.apply(gates_i, keep, h0, w_h, b_hn)

@@ -1,13 +1,14 @@
 """What every system's `run_experiment` shares: the device, the keys the port
 does not take yet, the schedule of updates and evaluations, and the
 learn-evaluate-log loop (reference `systems/ppo/ff_ippo.py:402-525`, which each
-reference system repeats).
+reference system repeats; rec-IQL's `:458-601` is the same loop with its
+update count `scan_steps` equal to `num_updates_per_eval`).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Callable, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -71,12 +72,14 @@ def train_and_evaluate(
     eval_env: Any,
     eval_act_fn: EvalActFn,
     init_actor_state: Callable[[bool], Dict[str, Any]],
+    misc_metrics: Optional[Callable[[int], Dict[str, float]]] = None,
 ) -> Tuple[float, ExperimentOutput]:
     """`arch.num_evaluation` rounds of learn, log, evaluate, then the absolute
     metric on the best actor; returns (evaluation performance, last learner
     output). `init_actor_state(absolute_metric)` gives the evaluator's initial
     actor state ({} for a feed-forward actor, the hidden state for a recurrent
-    one)."""
+    one); `misc_metrics(t)` adds a system's own entries to the MISC log line
+    (rec-IQL's epsilon)."""
     evaluator = get_eval_fn(eval_env, eval_act_fn, config, absolute_metric=False)
     eval_generator = torch.Generator(device=device).manual_seed(config.system.seed + 1)
     steps_per_rollout = (
@@ -103,7 +106,8 @@ def train_and_evaluate(
         with timer.phase("eval"):
             eval_metrics = evaluator(actor, eval_generator, init_actor_state(False))
         logger.log(eval_metrics, t, eval_step, LogEvent.EVAL)
-        logger.log({"timestep": t, **timer.metrics()}, t, eval_step, LogEvent.MISC)
+        misc = misc_metrics(t) if misc_metrics else {}
+        logger.log({"timestep": t, **misc, **timer.metrics()}, t, eval_step, LogEvent.MISC)
         episode_return = float(np.mean(eval_metrics["episode_return"]))
         if config.arch.absolute_metric and max_episode_return <= episode_return:
             best_actor = copy.deepcopy(actor)

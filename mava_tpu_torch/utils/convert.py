@@ -1,9 +1,9 @@
 """Carry flax parameters over to the port's modules.
 
 `from_flax_params(tree)` maps the parameter tree of a flax `FeedForwardActor`,
-`FeedForwardValueNet`, `RecurrentActor` or `RecurrentValueNet` (as numpy arrays,
-with or without the top-level "params" key) to a `state_dict` of the port's
-module of the same name:
+`FeedForwardValueNet`, `RecurrentActor`, `RecurrentValueNet` or `RecQNetwork`
+(as numpy arrays, with or without the top-level "params" key) to a
+`state_dict` of the port's module of the same name:
 
   * flax `Dense` kernels are (in, out); `nn.Linear.weight` is (out, in), so
     they are transposed;
@@ -11,7 +11,9 @@ module of the same name:
     `Dense_k` goes to `layers.k` and the bias of `LayerNorm_k` (it has no
     scale) to `norm_biases.k`;
   * the GRU's `wi` (F,3H), `bi` (3H), `wh` (H,3H) and `bhn` (H) keep their JAX
-    layout, the layout the GRU kernel takes.
+    layout, the layout the GRU kernel takes;
+  * a network's own last `Dense_0` is the critics' `value_head`, or
+    `RecQNetwork`'s `q_head` when `head="q_head"`.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ def _dense(prefix: str, dense: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     }
 
 
-def from_flax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def from_flax_params(tree: Mapping[str, Any], head: str = "value_head") -> Dict[str, torch.Tensor]:
     tree = tree.get("params", tree)
     out: Dict[str, torch.Tensor] = {}
     for name, sub in tree.items():
@@ -49,8 +51,8 @@ def from_flax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                     raise KeyError(f"from_flax_params: unexpected torso child {child!r}")
         elif name == "action_head":
             out.update(_dense("action_head.linear", sub["Dense_0"]))
-        elif name == "Dense_0":  # the critic's value layer
-            out.update(_dense("value_head", sub))
+        elif name == "Dense_0":  # the critic's value layer or the Q-network's head
+            out.update(_dense(head, sub))
         else:
             raise KeyError(f"from_flax_params: unexpected flax module {name!r}")
     return out

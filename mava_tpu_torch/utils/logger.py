@@ -208,9 +208,9 @@ class MavaLogger:
         self.logger: BaseLogger = MultiLogger(loggers)
 
     def log(self, metrics: Dict, t: int, t_eval: int, event: LogEvent) -> None:
-        metrics = pytree.tree_map(_to_host, metrics)
         if "won_episode" in metrics:
             metrics = self.calc_winrate(metrics, event)
+        metrics = pytree.tree_map(_to_host, metrics)
         if event == LogEvent.TRAIN:
             metrics = pytree.tree_map(np.mean, metrics)
         else:
@@ -218,7 +218,9 @@ class MavaLogger:
         self.logger.log_dict(metrics, t, t_eval, event)
 
     def calc_winrate(self, episode_metrics: Dict, event: LogEvent) -> Dict:
-        won = episode_metrics.pop("won_episode")
+        # Mutates the caller's dict, as the reference does (its :367-377): the
+        # systems read eval_metrics["win_rate"] (`env.eval_metric`) after logging.
+        won = _to_host(episode_metrics.pop("won_episode"))
         n_episodes = max(int(np.size(won)), 1)
         episode_metrics["win_rate"] = (np.sum(won) / n_episodes) * 100
         return episode_metrics

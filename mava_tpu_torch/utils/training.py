@@ -1,4 +1,6 @@
-"""Optimizer and schedules (port of `mava_tpu/utils/training.py:13-75`).
+"""Optimizer, schedules and the off-policy helpers (port of
+`mava_tpu/utils/training.py:13-75, 166-214`, of optax's target updates and of
+`mava_tpu/utils/jax_utils.py`'s `select_along_last` and `switch_leading_axes`).
 
 `ClippedAdam` is optax's `chain(clip_by_global_norm(max_norm), adam(lr,
 eps=1e-5))` step for step: clip by the global norm with optax's rule (no 1e-6
@@ -8,9 +10,11 @@ bias correction, eps outside the sqrt, then the (scheduled) learning rate.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Sequence, Union
+import warnings
+from typing import Any, Callable, Dict, Iterable, Sequence, Union
 
 import torch
+from torch.utils import _pytree as pytree
 
 
 def make_learning_rate_schedule(init_lr: float, config) -> Callable[[int], float]:
@@ -88,3 +92,66 @@ def entropy_coefficient(config, actor_optimizer: ClippedAdam) -> float:
     total = config.system.ppo_epochs * config.system.num_minibatches * config.system.num_updates
     frac = min(actor_optimizer.count / total, 1.0)
     return init + (final - init) * frac
+
+
+def select_along_last(values: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """values[..., index] over the last axis; out-of-range indices clamp, as the
+    reference's one-hot select does."""
+    index = index.long().clamp(0, values.shape[-1] - 1)
+    return torch.gather(values, -1, index[..., None])[..., 0]
+
+
+def switch_leading_axes(tree: Any) -> Any:
+    """Swap the first two axes of every leaf ((B, T, ...) <-> (T, B, ...))."""
+    return pytree.tree_map(lambda x: x.swapaxes(0, 1), tree)
+
+
+@torch.no_grad()
+def soft_update(target: torch.nn.Module, online: torch.nn.Module, tau: float) -> None:
+    """optax's `incremental_update`: target <- tau * online + (1 - tau) * target,
+    in place."""
+    for t, o in zip(target.parameters(), online.parameters()):
+        t.copy_(tau * o + (1.0 - tau) * t)
+
+
+@torch.no_grad()
+def periodic_update(target: torch.nn.Module, online: torch.nn.Module, steps: int,
+                    update_period: int) -> None:
+    """optax's `periodic_update`: target <- online when `steps % update_period
+    == 0` (`steps` counts the updates before this one), in place."""
+    if steps % update_period == 0:
+        for t, o in zip(target.parameters(), online.parameters()):
+            t.copy_(o)
+
+
+# Loss-info keys that carry mean Q-value estimates across the off-policy
+# systems (SAC: q{1,2}_a_vals, rec-IQL: mean_q / mean_target).
+_Q_MAGNITUDE_KEYS = ("q1_a_vals", "q2_a_vals", "mean_q", "mean_target")
+
+
+def warn_q_divergence(
+    loss_info: Dict[str, Any], bound: float, system_name: str = "off-policy system"
+) -> bool:
+    """Warns when the largest |mean Q| of the logged losses exceeds `bound`
+    (`system.q_divergence_warn_bound`): a bootstrapped Q-learner can diverge
+    while training appears to succeed. NaN counts as worse than any finite
+    value. Returns whether it warned (reference `utils/training.py:172-214`)."""
+    worst_key, worst = None, 0.0
+    for key in _Q_MAGNITUDE_KEYS:
+        if key in loss_info:
+            values = torch.as_tensor(loss_info[key]).detach()
+            mag = float(values.abs().max())
+            if mag != mag:  # NaN: the end state of the divergence this guards
+                mag = float("inf")
+            if mag > worst:
+                worst_key, worst = key, mag
+    if worst_key is not None and worst > bound:
+        warnings.warn(
+            f"{system_name}: |{worst_key}| reached {worst:.3g} "
+            f"(> system.q_divergence_warn_bound={bound:g}) — the Q estimates "
+            "are likely diverging. For reward-dense tasks lower the reward "
+            "scale or reduce system.epochs.",
+            stacklevel=2,
+        )
+        return True
+    return False

@@ -308,3 +308,16 @@ def test_bound_of_the_reduce_does_not_depend_on_the_split(t_len, b, h):
     assert chip_smoke.kernel_work("bwd_reduce_sum", t_len, b, h, 32) == (31 * m, 4 * 33 * m)
     assert chip_smoke.bound_ms("bwd_reduce_sum", t_len, b, h, 32)[1] == "bytes"
     assert set(name for _, name, _, _ in chip_smoke.KERNELS) == set(gru.KERNELS)
+
+
+@pytest.mark.parametrize("stack,t_len,b,h", [(2, 20, 256, 128), (3, 9, 5, 64)])
+def test_bound_of_the_stacked_forward(stack, t_len, b, h):
+    """S forwards' work, with the shared `keep` read once."""
+    flop, nbytes = chip_smoke.kernel_work("fwd", t_len, b, h)
+    assert chip_smoke.kernel_work("fwd_stacked", t_len, b, h, stack=stack) == (
+        stack * flop, stack * nbytes - (stack - 1) * 4 * t_len * b * h)
+    assert chip_smoke.kernel_work("fwd_stacked", t_len, b, h, stack=1) == (flop, nbytes)
+    ms, _ = chip_smoke.bound_ms("fwd_stacked", t_len, b, h, stack=stack)
+    assert ms == max(stack * flop / chip_smoke.PEAK_FP32_FLOPS * 1e3,
+                     (stack * nbytes - (stack - 1) * 4 * t_len * b * h)
+                     / chip_smoke.PEAK_BYTES_PER_S * 1e3)

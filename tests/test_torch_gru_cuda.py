@@ -153,3 +153,71 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda):
         gru.gru_sequence_forward(args[0], args[1].cpu(), *args[2:])
     with pytest.raises(TypeError):
         gru.gru_sequence_forward(args[0].double(), *args[1:])
+
+
+def _stacked_inputs(stack, t_len, b, h, seed, device):
+    """Per-entry gates_i, h0, Wh and b_hn stacked on a leading axis, one shared keep."""
+    entries = [_inputs(t_len, b, h, seed=seed + s, device=device)[0] for s in range(stack)]
+    stacked = [torch.stack([e[i] for e in entries]).contiguous() for i in (0, 2, 3, 4)]
+    return stacked[0], entries[0][1], stacked[1], stacked[2], stacked[3]
+
+
+# rec-IQL's target pass (S=2, T=20, B=256: 32 sequences x 8 agents), a ragged B and
+# the streaming route.
+STACKED_SHAPES = [(2, 20, 256, 128), (2, 20, 37, 128), (3, 9, 5, 64), (2, 6, 11, 72)]
+
+
+@pytest.mark.parametrize("stack,t_len,b,h", STACKED_SHAPES)
+def test_stacked_forward_matches_plain_version(cuda, stack, t_len, b, h):
+    args = _stacked_inputs(stack, t_len, b, h, seed=b, device=cuda)
+    counts = dict(gru.kernel_launches)
+    fwd_calls = gru.fwd_launches
+    hs = gru.gru_sequence_stacked(*args)
+    torch.cuda.synchronize()
+    assert hs.shape == (stack, t_len, b, h)
+    torch.testing.assert_close(hs, gru.gru_sequence_stacked_reference(*args), **TOL)
+    assert gru.kernel_launches["fwd_stacked"] == counts["fwd_stacked"] + 1
+    assert gru.kernel_launches["fwd"] == counts["fwd"] and gru.fwd_launches == fwd_calls
+
+
+@pytest.mark.parametrize("route", ["resident", "streaming"])
+def test_stacked_forward_on_both_routes(cuda, monkeypatch, route):
+    """The resident shape of the target pass, forced onto the streaming kernels too."""
+    if route == "streaming":
+        monkeypatch.setattr(gru, "forced_route", gru.STREAMING)
+    args = _stacked_inputs(2, 20, 40, 128, seed=3, device=cuda)
+    torch.testing.assert_close(gru.gru_sequence_stacked(*args),
+                               gru.gru_sequence_stacked_reference(*args), **TOL)
+
+
+@pytest.mark.parametrize("route", ["resident", "streaming"])
+@pytest.mark.parametrize("t_len,b,h", [(20, 256, 128), (7, 5, 128), (6, 4, 72)])
+def test_stack_of_one_is_the_unstacked_kernel_bitwise(cuda, monkeypatch, route, t_len, b, h):
+    if route == "streaming":
+        monkeypatch.setattr(gru, "forced_route", gru.STREAMING)
+    args = _stacked_inputs(1, t_len, b, h, seed=t_len, device=cuda)
+    stacked = gru.gru_sequence_stacked(*args)
+    plain_args = (args[0][0], args[1], args[2][0], args[3][0], args[4][0])
+    assert torch.equal(stacked[0], gru.gru_sequence_forward(*plain_args))
+    # Entry s of a stack is entry s alone: the other entries do not reach it.
+    two = _stacked_inputs(2, t_len, b, h, seed=t_len, device=cuda)
+    assert torch.equal(gru.gru_sequence_stacked(*two)[0], stacked[0])
+
+
+def test_stacked_forward_has_no_gradient_and_checks_inputs(cuda):
+    args = [a.clone().requires_grad_(i != 1)
+            for i, a in enumerate(_stacked_inputs(2, 5, 3, 64, seed=1, device=cuda))]
+    hs = gru.gru_sequence_stacked(*args)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        hs.sum().backward()
+    with torch.no_grad():
+        assert not gru.gru_sequence_stacked(*args).requires_grad
+    with pytest.raises(ValueError):
+        gru.gru_sequence_stacked(args[0], args[1], args[2][:1], args[3], args[4])
+    with pytest.raises(ValueError):
+        gru.gru_sequence_stacked(args[0][0], args[1], args[2][0], args[3][0], args[4][0])
+
+
+def test_max_active_clusters_of_the_resident_kernels(cuda):
+    for kernel in ("fwd", "bwd_recurrence"):
+        assert gru.max_active_clusters(128, kernel, 256, 2) >= 1

@@ -128,5 +128,5 @@ def test_bad_tasks_raise(kwargs, match):
 
 
 def test_unported_env_error_lists_matrax():
-    with pytest.raises(ValueError, match=r"ported: \['Matrax', 'RobotWarehouse'\]"):
+    with pytest.raises(ValueError, match=r"ported: \['Matrax', 'RobotWarehouse', 'Smax'\]"):
         tenvs.make(load_config("default_ff_ippo", ["env=lbf"]), "cpu")

@@ -38,7 +38,7 @@ TINY = [
     "network.actor_network.post_torso.layer_sizes=[16]",
     "network.critic_network.pre_torso.layer_sizes=[16]",
     "network.critic_network.post_torso.layer_sizes=[16]",
-    "env.kwargs.time_limit=50",
+    "+env.kwargs.time_limit=50",  # "+": SMAX's kwargs have no time_limit key
     "logger.use_console=False",
 ]
 
@@ -49,8 +49,9 @@ def _prepare(cfg):
     return cfg
 
 
-def _jax_update(layout, system="rec_ippo", centralised=False):
-    cfg = _prepare(jax_load_config(f"default_{system}", TINY + [f"system.chunk_layout={layout}"]))
+def _jax_update(layout, system="rec_ippo", centralised=False, env_overrides=()):
+    cfg = _prepare(jax_load_config(
+        f"default_{system}", TINY + [f"system.chunk_layout={layout}", *env_overrides]))
     env, _ = jenvs.make(cfg, add_global_state=centralised)
     keys = jax.random.split(jax.random.PRNGKey(3), 3)
     learn, _, state = jrec_ippo.learner_setup(
@@ -87,14 +88,14 @@ def _assert_no_episode_ended(jout):
     assert not np.any(jout.episode_metrics["episode_return"])
 
 
-def _start_from_jax(state, jstate):
+def _start_from_jax(state, jstate, to_torch_state=_to_torch_state):
     """The port's learner state with the JAX learner's parameters, env state
-    and first timestep."""
+    (converted by `to_torch_state`) and first timestep."""
     actor, critic = state.params
     actor.load_state_dict(from_flax_params(jstate.params.actor_params), strict=True)
     critic.load_state_dict(from_flax_params(jstate.params.critic_params), strict=True)
     return state._replace(
-        env_state=_to_torch_state(jstate.env_state), timestep=_torch_timestep(jstate.timestep)
+        env_state=to_torch_state(jstate.env_state), timestep=_torch_timestep(jstate.timestep)
     )
 
 
@@ -109,18 +110,19 @@ def _assert_update_matches(out, jout):
             np.testing.assert_allclose(p.numpy(), want[name].numpy(), err_msg=name, **TOL)
 
 
-def check_one_recurrent_update(layout, impl, system="rec_ippo", centralised=False):
-    jstate, noise, perms, jout = _jax_update(layout, system, centralised)
+def check_one_recurrent_update(layout, impl, system="rec_ippo", centralised=False,
+                               env_overrides=(), to_torch_state=_to_torch_state):
+    jstate, noise, perms, jout = _jax_update(layout, system, centralised, env_overrides)
     _assert_no_episode_ended(jout)
 
     cfg = _prepare(load_config(f"default_{system}", TINY + [
-        f"system.chunk_layout={layout}", f"network.gru_impl={impl}"]))
+        f"system.chunk_layout={layout}", f"network.gru_impl={impl}", *env_overrides]))
     env, _ = tenvs.make(cfg, "cpu", add_global_state=centralised)
     learn, _, state = rec_ippo.learner_setup(
         env, torch.Generator().manual_seed(0), cfg, torch.device("cpu"), centralised,
         noise=torch.tensor(noise)[None], permutations=torch.tensor(perms)[None],
     )
-    out = learn(_start_from_jax(state, jstate))
+    out = learn(_start_from_jax(state, jstate, to_torch_state))
     _assert_update_matches(out, jout)
     for got, want in zip(out.learner_state.hstates, jout.learner_state.hstates):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
