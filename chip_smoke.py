@@ -55,12 +55,21 @@ Run from the root of the repository. It
      each backward kernel an update; the fused target pass against the unfused
      one on the same sampled sequences; env-steps/s and mean Q; one update under
      `torch.profiler`;
-  8. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
+  8. SAC phase: `default_ff_isac` and `default_ff_masac` on MaSwarm spread-3ag as
+     shipped (16 envs, rollout 2, 32 epochs, delay 4, batch 32, the
+     1,000,000-item buffer on the card) through their `run_experiment`: the
+     4,992-step explore phase and two rounds of 4 updates, every parameter
+     changed, no GRU kernel launched (the SAC path runs only MLPs); then from a
+     fresh state the explore phase, 8 timed updates and one under
+     `torch.profiler` (spans `sac/act`, `sac/train`): env-steps/s, launches per
+     update and per train step, the device's idle share; the same for one
+     ff-ISAC update on MaReacher reacher-2x1;
+  9. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
      updates each through their `run_experiment` with the same health checks
      (they reach no hand-written kernel), three timed ff-IPPO updates, ff-IPPO on
      Matrax Penalty-25 for 30 updates with its eval return, and a short run of
      the bench program (`bench_torch.run` at 512 envs);
-  9. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
+  10. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
      512 envs under `torch.profiler`: host ms, launches and kernel ms per span,
      launches per rollout step, per-kernel totals and the device's idle share.
 It prints one JSON line with the kernels' records, then, as its last line,
@@ -76,6 +85,7 @@ import threading
 import time
 
 import torch
+from torch.utils import _pytree as pytree
 
 RTOL = ATOL = 1e-4  # fp32 kernel vs fp32 plain version: summation order differs
 SLICE_OVERRIDES = [
@@ -933,18 +943,154 @@ def feedforward_phase(gru, gpu: str) -> None:
           f"({time.perf_counter() - start:.1f} s wall)")
 
 
+# ------------------------------------------------------------------ SAC phase
+SAC_SYSTEMS = [("ff_isac", "default_ff_isac", False), ("ff_masac", "default_ff_masac", True)]
+# run_experiment at the shipped config (MaSwarm spread-3ag, 16 envs, rollout 2, 32
+# epochs, delay 4, batch 32, a 1,000,000-item buffer): the 4,992-step explore phase,
+# then rounds of 5120 // 40 = 128 env-steps (4 updates) from 4,992 to 5,120, which are
+# two (the reference's range(4992, 5121, 128)), each with an evaluation.
+SAC_RUN = ["system.total_timesteps=5120", "arch.num_evaluation=40", "arch.num_eval_episodes=16",
+           "arch.absolute_metric=False", "+arch.device=cuda"]
+SAC_TIMED_UPDATES = 8
+
+
+def sac_learner(config_name: str, centralised: bool, overrides=()):
+    """(config, explore, learn, state) of SAC at the shipped config plus
+    `overrides`, one update a `learn` call, from the seed's state."""
+    from mava_tpu_torch import envs as environments
+    from mava_tpu_torch.systems.sac import ff_isac
+    from mava_tpu_torch.utils.config import load_config
+
+    cfg = load_config(config_name, ["+arch.device=cuda", *overrides])
+    cfg.arch.n_devices = 1
+    cfg.system.scan_steps = 1
+    device = torch.device("cuda")
+    env, _ = environments.make(cfg, device, add_global_state=centralised)
+    gen = torch.Generator(device=device).manual_seed(cfg.system.seed)
+    explore, learn, _, state = ff_isac.learner_setup(env, gen, cfg, device, centralised)
+    return cfg, explore, learn, state
+
+
+def sac_params(params) -> list:
+    nets = (params.actor, *params.q.online, *params.q.targets)
+    return [p.detach() for net in nets for p in net.parameters()] + [params.log_alpha.detach()]
+
+
+def sac_run(gru, system: str, config_name: str, centralised: bool) -> None:
+    """`run_experiment` of `system` as a user calls it, with the GRU counts set to
+    0 just before and read just after: the SAC path launches no hand kernel.
+    Every parameter on the card and changed, every loss finite, the buffer of
+    1,000,000 items on the card, written up to the explore phase and 8 updates."""
+    from mava_tpu_torch.systems.sac import ff_isac, ff_masac
+    from mava_tpu_torch.utils.config import load_config
+
+    entry = ff_masac if centralised else ff_isac
+    config = load_config(config_name, SAC_RUN)
+    cfg, _, _, state = sac_learner(config_name, centralised)  # the seed's parameters
+    initial = [p.clone() for p in sac_params(state.params)]
+    del state
+    gru.reset_launch_counts()
+    start = time.perf_counter()
+    performance, output = entry.run_experiment(config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = dict(gru.kernel_launches, fwd_calls=gru.fwd_launches, bwd_calls=gru.bwd_launches)
+    check(not any(launches.values()), f"{system} launched a GRU kernel: {launches}")
+    final = sac_params(output.learner_state.params)
+    check(all(p.device.type == "cuda" for p in final), f"{system}: a parameter is not on the card")
+    check(all(not torch.equal(a, b) for a, b in zip(initial, final)),
+          f"{system}: a parameter did not change")
+    for name, values in output.train_metrics.items():
+        check(torch.isfinite(values).all().item(), f"{system}: loss {name} not finite")
+    check(performance == performance, f"{system}: the eval return is not a number")
+    buffer = output.learner_state.buffer_state
+    leaves = pytree.tree_leaves(buffer.experience)
+    explored = cfg.system.explore_steps // cfg.arch.num_envs * cfg.arch.num_envs
+    check(all(x.shape[0] == 1_000_000 and x.device.type == "cuda" for x in leaves),
+          f"{system}: the buffer is not 1,000,000 items on the card")
+    check(buffer.current_index == explored + 8 * 32 and output.learner_state.t == explored + 256,
+          f"{system}: {buffer.current_index} items written, t = {output.learner_state.t}")
+    print(f"  {system} run_experiment: explore {explored} env-steps + 8 updates, eval return "
+          f"{performance:.3f}, {wall:.1f} s wall, GRU launches {launches}")
+
+
+def sac_updates(label: str, config_name: str, centralised: bool, overrides, gpu: str,
+                timed: int) -> dict:
+    """The explore phase, then `timed` updates after a warm-up one, timed on the
+    host clock; then one update under torch.profiler. Returns what was read."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg, explore, learn, state = sac_learner(config_name, centralised, overrides)
+    leaves = pytree.tree_leaves(state.buffer_state.experience)
+    buffer_gb = sum(x.numel() * x.element_size() for x in leaves) / 1e9
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = explore(state)
+    torch.cuda.synchronize()
+    explore_s = time.perf_counter() - t0
+    seconds, q_vals = [], []
+    for _ in range(timed + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = learn(state)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        state = out.learner_state
+        q_vals.append(out.train_metrics["q1_a_vals"].mean().item())
+        check(all(torch.isfinite(v).all().item() for v in out.train_metrics.values()),
+              f"{label}: a loss is not finite")
+    steps = cfg.system.rollout_length * cfg.arch.num_envs
+    print(f"  {label}: buffer of {cfg.system.buffer_size} items, {buffer_gb:.3f} GB on the card "
+          f"(peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB); explore "
+          f"{state.t - steps * len(seconds)} env-steps in {explore_s:.1f} s; mean Q "
+          f"{q_vals[0]:.3f} -> {q_vals[-1]:.3f}")
+    print_updates(f"{label} (after one warm-up)", seconds[1:] or seconds, steps, gpu)
+    prof = profile_update(label, lambda: learn(state), steps, cfg.system.rollout_length)
+    train_launches = prof["span_launches"].get("sac/train", 0)
+    per_train_step = train_launches / cfg.system.epochs
+    mean = sum(seconds[1:] or seconds) / len(seconds[1:] or seconds)
+    print(f"  {label}: {prof['launches']} launches an update, {per_train_step:.1f} a train step "
+          f"({cfg.system.epochs} a update, actor and alpha on every "
+          f"{cfg.system.policy_update_delay}th), {steps / mean:.1f} env-steps/s, idle share "
+          f"{prof['idle_share']:.3f} on {gpu}")
+    return {"env_steps_per_s": steps / mean, "launches": prof["launches"],
+            "launches_per_train_step": per_train_step, "idle_share": prof["idle_share"],
+            "buffer_gb": buffer_gb}
+
+
+def sac_phase(gru, gpu: str) -> dict:
+    """ff-ISAC and ff-MASAC on MaSwarm spread-3ag at the shipped config with the
+    1,000,000-item buffer on the card: through `run_experiment` (no GRU kernel
+    launched), then timed and profiled updates; one ff-ISAC update on MaReacher
+    reacher-2x1. The SAC path runs only MLPs: no hand kernel is owed."""
+    out = {}
+    for system, config_name, centralised in SAC_SYSTEMS:
+        sac_run(gru, system, config_name, centralised)
+        out[system] = sac_updates(f"{system} on MaSwarm spread-3ag", config_name, centralised, [],
+                                  gpu, SAC_TIMED_UPDATES)
+    out["ff_isac_mareacher"] = sac_updates("ff_isac on MaReacher reacher-2x1", "default_ff_isac",
+                                           False, ["env=mareacher"], gpu, 1)
+    return out
+
+
 # ------------------------------------------------------------------ profile
-def profile_phase(system: str, overrides, rollout_length: int) -> None:
+def profile_phase(system: str, overrides, rollout_length: int) -> dict:
     """One full-width update of `system` under torch.profiler: where its time goes."""
+    learn, state, steps = learner(system, overrides)
+    state = learn(state).learner_state  # warm-up
+    return profile_update(system, lambda: learn(state), steps, rollout_length)
+
+
+def profile_update(label: str, run, steps: int, rollout_length: int) -> dict:
+    """`run()` (one update, warmed up) under torch.profiler: host ms, launches and
+    kernel ms of each span, the GRU kernels by name, the device's busy time and
+    idle share. Returns them, with the launches of each span."""
     from torch.profiler import ProfilerActivity, profile
 
-    learn, state, steps = learner(system, overrides)
-    span_prefix = ("ff_ippo/", "rec_ippo/", "rec_iql/", "gru/")
-    state = learn(state).learner_state  # warm-up
+    span_prefix = ("ff_ippo/", "rec_ippo/", "rec_iql/", "sac/", "gru/")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        learn(state)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = list(prof.events())
@@ -957,7 +1103,7 @@ def profile_phase(system: str, overrides, rollout_length: int) -> None:
                 and "launch" in e.name.lower() and e.name.startswith(("cuda", "cu"))]
     spans = [e for e in events if e.name.startswith(span_prefix)
              and e.device_type == torch.autograd.DeviceType.CPU]
-    print(f"  {system} update of {steps} env-steps: {wall_ms:.1f} ms host, {len(launches)} "
+    print(f"  {label} update of {steps} env-steps: {wall_ms:.1f} ms host, {len(launches)} "
           f"launches, {len(kernels)} kernels")
     def launched_in(span):
         return [e for e in launches if span.time_range.start <= e.time_range.start
@@ -966,6 +1112,7 @@ def profile_phase(system: str, overrides, rollout_length: int) -> None:
     # The stacked K1 is K1's kernel function; its launches sit in the wrapper's span.
     stacked_ids = {e.id for span in spans if span.name == "gru/fwd_stacked"
                    for e in launched_in(span)}
+    span_launches = {}
     for span in sorted(spans, key=lambda e: e.time_range.start):
         if span.name.startswith("gru/"):
             continue
@@ -973,10 +1120,11 @@ def profile_phase(system: str, overrides, rollout_length: int) -> None:
         # A kernel belongs to the span whose host interval holds the launch
         # call it is correlated with (the two share an id).
         inside = launched_in(span)
+        span_launches[span.name] = span_launches.get(span.name, 0) + len(inside)
         ids = {e.id for e in inside}
         ms = sum(k.time_range.end - k.time_range.start for k in kernels if k.id in ids) / 1e3
         per_step = (f" ({len(inside) / rollout_length:.1f} a rollout step)"
-                    if span.name.endswith("/rollout") else "")
+                    if span.name.endswith(("/rollout", "/act")) else "")
         print(f"  {span.name}: {(hi - lo) / 1e3:.1f} ms host, {len(inside)} launches{per_step}, "
               f"{ms:.2f} ms of kernels")
     for _, counter, _, _ in KERNELS:
@@ -993,11 +1141,12 @@ def profile_phase(system: str, overrides, rollout_length: int) -> None:
         end = max(end, hi)
     idle = 1.0 - busy / 1e3 / wall_ms
     print(f"  device busy {busy / 1e3:.1f} ms of {wall_ms:.1f} ms: idle share {idle:.3f}")
-    rollout = [e for e in spans if e.name.endswith("/rollout")]
+    rollout = [e for e in spans if e.name.endswith(("/rollout", "/act"))]
     per_step = (len([e for e in launches if rollout[0].time_range.start <= e.time_range.start
                      <= rollout[0].time_range.end]) / rollout_length) if rollout else None
     return {"wall_ms": wall_ms, "busy_ms": busy / 1e3, "idle_share": idle,
-            "launches": len(launches), "launches_per_rollout_step": per_step}
+            "launches": len(launches), "launches_per_rollout_step": per_step,
+            "span_launches": span_launches}
 
 
 def main() -> int:
@@ -1037,6 +1186,9 @@ def main() -> int:
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     print("rec-IQL phase (SMAX 3s5z):")
     iql = iql_phase(gru, gpu)
+    print(f"  ({time.perf_counter() - start:.0f} s since the start)")
+    print("SAC phase (ff-ISAC, ff-MASAC on MaSwarm; ff-ISAC on MaReacher):")
+    sac_phase(gru, gpu)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     print("feed-forward phase (ff-IPPO, ff-MAPPO, Matrax, the bench program):")
     feedforward_phase(gru, gpu)

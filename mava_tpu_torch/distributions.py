@@ -1,14 +1,17 @@
-"""Categorical action distributions (port of `mava_tpu/distributions.py:25-93`
-and `:182-212`).
+"""Action distributions (port of `mava_tpu/distributions.py`): the categorical
+ones (:25-93, :182-212) and the tanh-squashed Normal of continuous actions
+(:96-180).
 
 Same surface as the reference: `sample`, `sample_from_noise`, `raw_params`,
-`log_prob`, `entropy` and `mode`. Randomness comes from an explicit
-`torch.Generator`, or is handed in as Gumbel noise.
+`log_prob`, `entropy` and `mode` (and `TanhNormal.sample_and_log_prob`).
+Randomness comes from an explicit `torch.Generator`, or is handed in as Gumbel
+noise (categorical) or standard normals (tanh-Normal).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,6 +23,11 @@ def gumbel(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
     -log(-log(U)) with U uniform on [tiny, 1)."""
     u = torch.rand(shape, generator=generator, device=device)
     return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+
+
+def normal(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Standard normal noise: what `TanhNormal.sample_from_noise` takes."""
+    return torch.randn(shape, generator=generator, device=device)
 
 
 class Categorical:
@@ -95,3 +103,106 @@ class MaskedEpsGreedy(Categorical):
 
     def mode(self) -> torch.Tensor:
         return self._greedy
+
+
+_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+_HALF_LOG_2PI_E = 0.5 * math.log(2.0 * math.pi * math.e)
+
+
+def _normal_log_prob(value: torch.Tensor, loc: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    log_unnormalized = -0.5 * torch.square((value - loc) / scale)
+    return log_unnormalized - (_HALF_LOG_2PI + torch.log(scale))
+
+
+def _tanh_forward_log_det_jacobian(x: torch.Tensor) -> torch.Tensor:
+    """log|d tanh(x)/dx| = 2 (log 2 - x - softplus(-2x)). The softplus is
+    `logaddexp(., 0)` as the reference's (`F.softplus` turns into the identity
+    above 20)."""
+    return 2.0 * (math.log(2.0) - x - torch.logaddexp(-2.0 * x, torch.zeros_like(x)))
+
+
+class _LogNdtr(torch.autograd.Function):
+    """`log_ndtr` as the reference computes it: the value rounded from float64
+    (PyTorch's float32 `log_ndtr` is an ulp off in the tail where the
+    reference's is not), and the derivative as `jax.scipy.special.log_ndtr`'s
+    jvp groups it: exp((-0.5 x² - log√(2π)) - log_ndtr(x)). The derivative
+    scales the value's error by |x|, so an ulp at x = -4 shows as 1e-6."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        y = torch.special.log_ndtr(x.double()).to(x.dtype)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        x, y = ctx.saved_tensors
+        return grad * torch.exp(-0.5 * torch.square(x) - _HALF_LOG_2PI - y)
+
+
+class TanhNormal:
+    """Independent tanh-squashed diagonal Normal over the last axis (reference
+    `distributions.py:111-180`): events lie in [-1, 1]; `log_prob` clips them
+    at |a| = `threshold` and gives the clipped ends the Normal's tail mass
+    (differentiable in loc and scale) spread over the clipped width; `entropy`
+    is a one-sample estimate of H[normal] + E[log det J_tanh]."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor, threshold: float = 0.999):
+        self.loc = loc
+        self.scale = scale
+        self._threshold = threshold
+        # float32 constants, as the reference's jnp calls make them.
+        f32 = dict(dtype=loc.dtype, device=loc.device)
+        inverse_threshold = torch.atanh(torch.tensor(threshold, **f32))
+        log_epsilon = torch.log(torch.tensor(1.0 - threshold, **f32))
+        # norm.logcdf(x, loc, scale) = log_ndtr((x - loc) / scale).
+        self._log_prob_left = _LogNdtr.apply((-inverse_threshold - loc) / scale) - log_epsilon
+        self._log_prob_right = _LogNdtr.apply((-inverse_threshold + loc) / scale) - log_epsilon
+
+    def _noise(self, generator: Optional[torch.Generator]) -> torch.Tensor:
+        return normal(self.loc.shape, generator, self.loc.device)
+
+    def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.sample_from_noise(self._noise(generator))
+
+    def sample_from_noise(self, normal_noise: torch.Tensor) -> torch.Tensor:
+        """tanh(loc + scale * noise) with pre-drawn standard normals."""
+        return torch.tanh(self.loc + self.scale * normal_noise)
+
+    def raw_params(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (self.loc, self.scale)
+
+    def sample_and_log_prob(
+        self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(action, log_prob) of one draw. The log-prob is the unclipped
+        pre-tanh value's (reference :150-157), not `log_prob(action)`, which
+        clips at the threshold."""
+        noise = self._noise(generator) if noise is None else noise
+        pre_tanh = self.loc + self.scale * noise
+        per_dim = _normal_log_prob(pre_tanh, self.loc, self.scale)
+        per_dim = per_dim - _tanh_forward_log_det_jacobian(pre_tanh)
+        return torch.tanh(pre_tanh), per_dim.sum(-1)
+
+    def log_prob(self, event: torch.Tensor) -> torch.Tensor:
+        t = self._threshold
+        event = torch.clamp(event, -t, t)
+        pre_tanh = torch.atanh(event)
+        in_bounds = _normal_log_prob(pre_tanh, self.loc, self.scale)
+        in_bounds = in_bounds - _tanh_forward_log_det_jacobian(pre_tanh)
+        per_dim = torch.where(
+            event <= -t, self._log_prob_left,
+            torch.where(event >= t, self._log_prob_right, in_bounds),
+        )
+        return per_dim.sum(-1)
+
+    def entropy(
+        self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        noise = self._noise(generator) if noise is None else noise
+        pre_tanh = self.loc + self.scale * noise
+        per_dim = _HALF_LOG_2PI_E + torch.log(self.scale) + _tanh_forward_log_det_jacobian(pre_tanh)
+        return per_dim.sum(-1)
+
+    def mode(self) -> torch.Tensor:
+        return torch.tanh(self.loc)

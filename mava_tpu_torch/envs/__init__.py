@@ -3,8 +3,9 @@
 Same wrapper order as the reference: GlobalState? -> AgentID? -> AutoReset ->
 RecordEpisodeMetrics on the train env; the same without AutoReset on the eval
 env. The global state is therefore built from views without the one-hot ids.
-RobotWarehouse, Matrax and SMAX are ported so far; the other environments are
-listed in ROADMAP.md.
+RobotWarehouse, Matrax, SMAX, MaSwarm and MaReacher are ported so far; the
+other environments are listed in ROADMAP.md. MaSwarm and MaReacher have no
+global state of their own: the wrapper tiles their agents' views.
 """
 
 from __future__ import annotations
@@ -98,6 +99,22 @@ def _make_matrax(config, device: torch.device) -> Tuple[Any, Any]:
         )
     kwargs.setdefault("task_name", scenario_task)
     return Matrax(**kwargs, device=device), Matrax(**kwargs, device=device)
+
+
+@register("MaSwarm")
+def _make_maswarm(config, device: torch.device) -> Tuple[Any, Any]:
+    from mava_tpu_torch.envs.maswarm import MaSwarm
+
+    kwargs = _env_kwargs(config)
+    return MaSwarm(**kwargs, device=device), MaSwarm(**kwargs, device=device)
+
+
+@register("MaReacher")
+def _make_mareacher(config, device: torch.device) -> Tuple[Any, Any]:
+    from mava_tpu_torch.envs.mareacher import MaReacher
+
+    kwargs = _env_kwargs(config)
+    return MaReacher(**kwargs, device=device), MaReacher(**kwargs, device=device)
 
 
 def make(

@@ -3,6 +3,8 @@
 
 The critics come in two kinds: on the agent's own view, or centralised on
 `observation.global_state` (CTDE), which only an `ObservationGlobalState` has.
+So does SAC's `FeedForwardQNet`, which also reads an action (MASAC's
+centralised one reads the joint action).
 
 `ScannedRNN` keeps the reference's parameter layout: `wi` (F,3H), `bi` (3H),
 `wh` (H,3H) and `bhn` (H) are raw parameters in JAX's (in, out) layout, which
@@ -77,6 +79,23 @@ class FeedForwardValueNet(nn.Module):
     def forward(self, observation) -> torch.Tensor:
         x = _critic_input(observation, self.centralised_critic)
         return self.value_head(self.torso(x)).squeeze(-1)
+
+
+class FeedForwardQNet(nn.Module):
+    """Q(obs, action) for continuous control (reference `actor_critic.py:61-81`):
+    the torso on concat([x, action]), then Dense(1) (orthogonal 1.0). `x` is
+    the agent's view, or the global state when centralised; `in_features` is
+    the width of that concatenation."""
+
+    def __init__(self, torso: MLPTorso, centralised_critic: bool = False):
+        super().__init__()
+        self.torso = torso
+        self.centralised_critic = centralised_critic
+        self.q_head = orthogonal_linear(torso.out_features, 1, 1.0)
+
+    def forward(self, observation, action: torch.Tensor) -> torch.Tensor:
+        x = torch.cat([_critic_input(observation, self.centralised_critic), action], dim=-1)
+        return self.q_head(self.torso(x)).squeeze(-1)
 
 
 def lecun_normal_(w: torch.Tensor) -> torch.Tensor:

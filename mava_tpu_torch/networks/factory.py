@@ -5,12 +5,15 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
-from mava_tpu_torch.distributions import Categorical, gumbel
-from mava_tpu_torch.networks.heads import DiscreteActionHead
+from mava_tpu_torch.distributions import Categorical, TanhNormal, gumbel, normal
+from mava_tpu_torch.networks.heads import ContinuousActionHead, DiscreteActionHead
 from mava_tpu_torch.networks.torsos import MLPTorso
 
 _TORSOS = {"MLPTorso": MLPTorso}
-_HEADS = {"DiscreteActionHead": DiscreteActionHead}
+_HEADS = {
+    "DiscreteActionHead": DiscreteActionHead,
+    "ContinuousActionHead": ContinuousActionHead,
+}
 
 
 def _lookup(table: Dict[str, Any], kind: str, what: str) -> Any:
@@ -37,14 +40,22 @@ def make_action_head(cfg: Dict[str, Any], in_features: int, action_dim: int):
 
 def make_rollout_noise_fn(cfg: Dict[str, Any]) -> Callable:
     """`fn(shape, generator, device)` -> the sampling noise of the head's
-    `sample_from_noise` (Gumbel for the discrete head)."""
-    return _lookup({"DiscreteActionHead": gumbel}, cfg["type"], "Action head")
+    `sample_from_noise`: Gumbel for the discrete head, standard normal for the
+    continuous one."""
+    return _lookup(
+        {"DiscreteActionHead": gumbel, "ContinuousActionHead": normal},
+        cfg["type"],
+        "Action head",
+    )
 
 
 def make_log_prob_from_params(cfg: Dict[str, Any]) -> Callable:
     """`fn(raw_params, action) -> log_prob`, the companion of `raw_params`."""
     return _lookup(
-        {"DiscreteActionHead": lambda p, a: Categorical(p).log_prob(a)},
+        {
+            "DiscreteActionHead": lambda p, a: Categorical(p).log_prob(a),
+            "ContinuousActionHead": lambda p, a: TanhNormal(p[0], p[1]).log_prob(a),
+        },
         cfg["type"],
         "Action head",
     )

@@ -1,6 +1,7 @@
+from mava_tpu_torch.replay.item_buffer import ItemBuffer, ItemBufferState
 from mava_tpu_torch.replay.trajectory_buffer import (
     TrajectoryBuffer,
     TrajectoryBufferState,
 )
 
-__all__ = ["TrajectoryBuffer", "TrajectoryBufferState"]
+__all__ = ["ItemBuffer", "ItemBufferState", "TrajectoryBuffer", "TrajectoryBufferState"]

@@ -2,7 +2,8 @@
 does not take yet, the schedule of updates and evaluations, and the
 learn-evaluate-log loop (reference `systems/ppo/ff_ippo.py:402-525`, which each
 reference system repeats; rec-IQL's `:458-601` is the same loop with its
-update count `scan_steps` equal to `num_updates_per_eval`).
+update count `scan_steps` equal to `num_updates_per_eval`; SAC's
+`ff_isac.py:631-685` runs it from the env-step count after its explore phase).
 """
 
 from __future__ import annotations
@@ -73,28 +74,37 @@ def train_and_evaluate(
     eval_act_fn: EvalActFn,
     init_actor_state: Callable[[bool], Dict[str, Any]],
     misc_metrics: Optional[Callable[[int], Dict[str, float]]] = None,
+    rounds: Optional[range] = None,
+    logger: Optional[MavaLogger] = None,
 ) -> Tuple[float, ExperimentOutput]:
-    """`arch.num_evaluation` rounds of learn, log, evaluate, then the absolute
-    metric on the best actor; returns (evaluation performance, last learner
-    output). `init_actor_state(absolute_metric)` gives the evaluator's initial
-    actor state ({} for a feed-forward actor, the hidden state for a recurrent
-    one); `misc_metrics(t)` adds a system's own entries to the MISC log line
-    (rec-IQL's epsilon)."""
+    """Rounds of learn, log, evaluate, then the absolute metric on the best
+    actor; returns (evaluation performance, last learner output).
+    `init_actor_state(absolute_metric)` gives the evaluator's initial actor
+    state ({} for a feed-forward actor, the hidden state for a recurrent one);
+    `misc_metrics(t)` adds a system's own entries to the MISC log line
+    (rec-IQL's epsilon). `rounds` holds the env-step count at which each round
+    starts, a round being `rounds.step` env-steps; by default
+    `arch.num_evaluation` rounds of `num_updates_per_eval` updates from 0 (SAC
+    starts after its explore phase). `logger` is the run's logger, if the
+    caller has already logged with it."""
     evaluator = get_eval_fn(eval_env, eval_act_fn, config, absolute_metric=False)
     eval_generator = torch.Generator(device=device).manual_seed(config.system.seed + 1)
-    steps_per_rollout = (
-        config.system.num_updates_per_eval * config.system.rollout_length * config.arch.num_envs
-    )
-    logger = MavaLogger(config)
+    if rounds is None:
+        steps_per_rollout = (
+            config.system.num_updates_per_eval * config.system.rollout_length * config.arch.num_envs
+        )
+        rounds = range(0, steps_per_rollout * config.arch.num_evaluation, steps_per_rollout)
+    steps_per_rollout = rounds.step
+    logger = logger or MavaLogger(config)
 
     max_episode_return = -np.inf
     best_actor = None
-    for eval_step in range(config.arch.num_evaluation):
+    for eval_step, start in enumerate(rounds):
         timer = PhaseTimer(device)
         with timer.phase("learn"):
             learner_output = learn(learner_state)
         elapsed = timer.phases["learn"]
-        t = int(steps_per_rollout * (eval_step + 1))
+        t = int(start + steps_per_rollout)
         episode_metrics, ep_completed = get_final_step_metrics(
             learner_output.episode_metrics
         )

@@ -1,8 +1,8 @@
 """Carry flax parameters over to the port's modules.
 
 `from_flax_params(tree)` maps the parameter tree of a flax `FeedForwardActor`,
-`FeedForwardValueNet`, `RecurrentActor`, `RecurrentValueNet` or `RecQNetwork`
-(as numpy arrays, with or without the top-level "params" key) to a
+`FeedForwardValueNet`, `FeedForwardQNet`, `RecurrentActor`, `RecurrentValueNet`
+or `RecQNetwork` (as numpy arrays, with or without the top-level "params" key) to a
 `state_dict` of the port's module of the same name:
 
   * flax `Dense` kernels are (in, out); `nn.Linear.weight` is (out, in), so
@@ -12,8 +12,11 @@
     scale) to `norm_biases.k`;
   * the GRU's `wi` (F,3H), `bi` (3H), `wh` (H,3H) and `bhn` (H) keep their JAX
     layout, the layout the GRU kernel takes;
-  * a network's own last `Dense_0` is the critics' `value_head`, or
-    `RecQNetwork`'s `q_head` when `head="q_head"`.
+  * an action head's `Dense_0` is `action_head.linear`; the continuous head's
+    log-std is its `Dense_1` (`action_head.log_std_linear`) or the parameter
+    `log_std` (`action_head.log_std`);
+  * a network's own last `Dense_0` is the critics' `value_head`, or the
+    `q_head` of `RecQNetwork` and `FeedForwardQNet` when `head="q_head"`.
 """
 
 from __future__ import annotations
@@ -50,7 +53,15 @@ def from_flax_params(tree: Mapping[str, Any], head: str = "value_head") -> Dict[
                 else:
                     raise KeyError(f"from_flax_params: unexpected torso child {child!r}")
         elif name == "action_head":
-            out.update(_dense("action_head.linear", sub["Dense_0"]))
+            for child, leaves in sub.items():
+                if child == "Dense_0":
+                    out.update(_dense("action_head.linear", leaves))
+                elif child == "Dense_1":
+                    out.update(_dense("action_head.log_std_linear", leaves))
+                elif child == "log_std":
+                    out["action_head.log_std"] = torch.as_tensor(np.asarray(leaves).copy())
+                else:
+                    raise KeyError(f"from_flax_params: unexpected action head child {child!r}")
         elif name == "Dense_0":  # the critic's value layer or the Q-network's head
             out.update(_dense(head, sub))
         else:

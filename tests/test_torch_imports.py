@@ -1,0 +1,34 @@
+"""The port stands alone: importing every module of `mava_tpu_torch`, and the
+scripts that drive it on the GPU (`chip_smoke.py`, `bench_torch.py`), loads
+neither `jax` nor any module of `mava_tpu`. Run in a fresh interpreter, since
+the test process itself imports both."""
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = """
+import importlib, json, pkgutil, sys
+import mava_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(mava_tpu_torch.__path__, "mava_tpu_torch.")]
+for name in names + ["chip_smoke", "bench_torch"]:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith(("jax.", "jaxlib")) or m.split(".")[0] == "mava_tpu")
+print(json.dumps({"modules": names, "leaked": leaked}))
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300, check=True)
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["leaked"] == []
+    # Every slice's modules are walked, the SAC ones included.
+    for name in ("mava_tpu_torch.systems.sac.ff_isac", "mava_tpu_torch.envs.mareacher",
+                 "mava_tpu_torch.replay.item_buffer", "mava_tpu_torch.ops.gru"):
+        assert name in report["modules"]

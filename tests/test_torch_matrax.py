@@ -128,5 +128,6 @@ def test_bad_tasks_raise(kwargs, match):
 
 
 def test_unported_env_error_lists_matrax():
-    with pytest.raises(ValueError, match=r"ported: \['Matrax', 'RobotWarehouse', 'Smax'\]"):
+    ported = r"ported: \['MaReacher', 'MaSwarm', 'Matrax', 'RobotWarehouse', 'Smax'\]"
+    with pytest.raises(ValueError, match=ported):
         tenvs.make(load_config("default_ff_ippo", ["env=lbf"]), "cpu")
