@@ -27,9 +27,10 @@ Run from the root of the repository. It
      bound from the shape and prints the cycles per step and phase of the
      resident K1 and K2a. The stacked K1 is timed beside its bound, two
      unstacked K1 calls and two cuDNN forwards; K1, K2p, K2a and K2b also at
-     the shapes of the SMAX and rec-IQL paths (T=128 B=128, T=128 B=64, T=20
-     B=256), with the clusters each resident launch asks for and the card holds
-     at once (`cudaOccupancyMaxActiveClusters`);
+     the shapes of the SMAX, rec-IQL and MaConnector rCNN paths (T=128 B=128,
+     T=128 B=64, T=20 B=256; T=128 B=160, 80, 48 and 24), checked against their
+     plain versions there, with the clusters each resident launch asks for and
+     the card holds at once (`cudaOccupancyMaxActiveClusters`);
   4. slice phase: trains rec-IPPO on RWARE tiny-2ag at the shipped network
      width (`default_rec_ippo`: 16 envs, rollout 128, 4 epochs x 2 minibatches)
      for 4 updates through `run_experiment`, and checks that every parameter is
@@ -55,7 +56,16 @@ Run from the root of the repository. It
      each backward kernel an update; the fused target pass against the unfused
      one on the same sampled sequences; env-steps/s and mean Q; one update under
      `torch.profiler`;
-  8. SAC phase: `default_ff_isac` and `default_ff_masac` on MaSwarm spread-3ag as
+  8. grid phase: rec-MAPPO with `network=rcnn` (CNN [32, 32] 3x3 -> GRU H =
+     128 -> MLP [128]) on MaConnector con-10x10x10a at the shipped system
+     config, 4 updates through `rec_mappo.run_experiment` with exactly 17
+     forward and 16 of each backward kernel an update (B = 160 on the critic
+     pass, 80 in the losses), one update on the kernels against one on the
+     plain GRU; then 4 updates each of ff-IPPO `network=cnn` on Cleaner
+     clean-10x10x10a, ff-MAPPO on LBF 8x8-2p-2f-coop and ff-IPPO on Gigastep
+     hide_and_seek_5_vs_5_fobs (no GRU kernel). Each: env-steps/s, launches per
+     rollout step and idle share of one profiled update, peak memory on the card;
+  9. SAC phase: `default_ff_isac` and `default_ff_masac` on MaSwarm spread-3ag as
      shipped (16 envs, rollout 2, 32 epochs, delay 4, batch 32, the
      1,000,000-item buffer on the card) through their `run_experiment`: the
      4,992-step explore phase and two rounds of 4 updates, every parameter
@@ -64,12 +74,12 @@ Run from the root of the repository. It
      `torch.profiler` (spans `sac/act`, `sac/train`): env-steps/s, launches per
      update and per train step, the device's idle share; the same for one
      ff-ISAC update on MaReacher reacher-2x1;
-  9. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
+  10. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
      updates each through their `run_experiment` with the same health checks
      (they reach no hand-written kernel), three timed ff-IPPO updates, ff-IPPO on
      Matrax Penalty-25 for 30 updates with its eval return, and a short run of
      the bench program (`bench_torch.run` at 512 envs);
-  10. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
+  11. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
      512 envs under `torch.profiler`: host ms, launches and kernel ms per span,
      launches per rollout step, per-kernel totals and the device's idle share.
 It prints one JSON line with the kernels' records, then, as its last line,
@@ -101,11 +111,24 @@ PEAK_BYTES_PER_S = 3.35e12
 SOURCE = "mava_tpu_torch/csrc/gru_sequence.cu"
 SLICE_SHAPES = [(128, 16, 128), (128, 32, 128)]
 # rec-MAPPO on SMAX 3s5z (16 envs x 8 agents): the critic pass and the losses;
-# rec-IQL's loss pass (32 sequences of 20 steps x 8 agents).
-PATH_SHAPES = [(128, 128, 128), (128, 64, 128), (20, 256, 128)]
+# rec-IQL's loss pass (32 sequences of 20 steps x 8 agents); rec-MAPPO with rCNN
+# on MaConnector con-10x10x10a (16 envs x 10 agents) and con-5x5x3a (16 x 3: 24
+# rows fill half of a cluster's 16).
+PATH_SHAPES = [(128, 128, 128), (128, 64, 128), (20, 256, 128),
+               (128, 160, 128), (128, 80, 128), (128, 48, 128), (128, 24, 128)]
 # The stacked K1 of rec-IQL's fused target pass (S, T, B, H), and a ragged B.
 STACKED_SHAPES = [(2, 20, 256, 128), (2, 20, 250, 128)]
 SMAX = ["env=smax", "env/scenario=3s5z"]
+# The grid phase: rec-MAPPO with rCNN (CNN [32, 32] 3x3 -> GRU H = 128 -> MLP
+# [128]) on MaConnector, then the feed-forward paths of the other new envs.
+CONNECTOR = ["env=connector", "env/scenario=con-10x10x10a", "network=rcnn"]
+GRID_FF = [
+    ("ff-IPPO cnn on Cleaner clean-10x10x10a", "ff_ippo",
+     ["env=cleaner", "env/scenario=clean-10x10x10a", "network=cnn"]),
+    ("ff-MAPPO on LBF 8x8-2p-2f-coop", "ff_mappo", ["env=lbf", "env/scenario=8x8-2p-2f-coop"]),
+    ("ff-IPPO on Gigastep hide_and_seek_5_vs_5_fobs", "ff_ippo",
+     ["env=gigastep", "env/scenario=hide_and_seek_5_vs_5_fobs"]),
+]
 IQL_UPDATES = 200
 SHAPES = SLICE_SHAPES + [(7, 5, 128), (9, 3, 256), (33, 17, 128), (5, 40, 256), (6, 4, 72),
                          (3, 2, 512)]
@@ -834,6 +857,54 @@ def smax_phase(gru, gpu: str) -> dict:
     return {"launches": launches, "profile": profile}
 
 
+def grid_run(gru, gpu: str, label: str, system: str, overrides) -> dict:
+    """`system` with `overrides` through its `run_experiment` (the counts set
+    to 0 just before and read just after; the card's peak memory over the
+    run, above what was allocated before it), then timed updates and one
+    profiled: env-steps/s, launches per rollout step, the device's idle share."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    config, launches = train(system, gru, overrides)
+    peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
+    if system == "rec_mappo":
+        seconds, _, steps, plain = kernels_against_plain(system, 2, overrides)
+        print_updates(f"{label}, plain GRU", plain, steps, gpu)
+    else:
+        check(not any(launches.values()), f"{label} launched a GRU kernel: {launches}")
+        seconds, _, _, steps = one_update(system, overrides, repeats=2)
+    print_updates(label, seconds, steps, gpu)
+    prof = profile_phase(system, overrides, config.system.rollout_length)
+    rate = steps * len(seconds) / sum(seconds)
+    print(f"  {label}: {rate:.1f} env-steps/s, {prof['launches_per_rollout_step']:.1f} launches "
+          f"a rollout step, idle share {prof['idle_share']:.3f}, peak memory {peak_gb:.3f} GB "
+          f"above the {before / 1e9:.3f} GB allocated before the run, on {gpu}")
+    return {"launches": launches, "updates": config.system.num_updates,
+            "env_steps_per_s": rate, "peak_gb": peak_gb,
+            "launches_per_rollout_step": prof["launches_per_rollout_step"],
+            "idle_share": prof["idle_share"]}
+
+
+def grid_phase(gru, gpu: str) -> dict:
+    """rec-MAPPO with rCNN on MaConnector con-10x10x10a at the shipped system
+    config: the CNN pre-torsos on (10, 10, 5) views and the (10, 10, 3) grid
+    state, the GRU kernels at B = 160 (critic pass) and 80 (losses), exactly
+    17 K1 and 16 of each backward kernel an update, one update on the kernels
+    against one on the plain GRU. Then ff-IPPO cnn on Cleaner, ff-MAPPO on LBF
+    and ff-IPPO on Gigastep, which reach no GRU kernel."""
+    out = {"connector": grid_run(gru, gpu, "rec-MAPPO rcnn on MaConnector con-10x10x10a",
+                                 "rec_mappo", CONNECTOR)}
+    updates = out["connector"]["updates"]
+    for _, counter, _, per_update in KERNELS:
+        got = out["connector"]["launches"][counter]
+        check(got == per_update * updates,
+              f"rec_mappo rcnn on MaConnector: {counter} launched {got} times in {updates} "
+              f"updates, not {per_update} an update")
+    for label, system, overrides in GRID_FF:
+        out[label] = grid_run(gru, gpu, label, system, overrides)
+    return out
+
+
 def iql_phase(gru, gpu: str) -> dict:
     """rec-IQL on SMAX 3s5z at the shipped config: the stacked K1 on the fused
     target pass, K1 and the backward kernels on the loss pass. Then the fused
@@ -1187,6 +1258,9 @@ def main() -> int:
     print("rec-IQL phase (SMAX 3s5z):")
     iql = iql_phase(gru, gpu)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
+    print("grid phase (rec-MAPPO rcnn on MaConnector; Cleaner, LBF, Gigastep):")
+    grid = grid_phase(gru, gpu)
+    print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     print("SAC phase (ff-ISAC, ff-MASAC on MaSwarm; ff-ISAC on MaReacher):")
     sac_phase(gru, gpu)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
@@ -1210,7 +1284,8 @@ def main() -> int:
     stacked = kernels["stacked"]
     for name, counter, replaces, _ in KERNELS:
         paths = {"launches_smax_rec_mappo": smax["launches"][counter],
-                 "launches_rec_iql": iql["launches"][counter]}
+                 "launches_rec_iql": iql["launches"][counter],
+                 "launches_maconnector_rcnn_rec_mappo": grid["connector"]["launches"][counter]}
         if counter == "fwd_stacked":
             record["kernels"].append({
                 "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,

@@ -5,7 +5,8 @@ module here mirrors the module of the same path there. The port imports
 `torch` and never JAX. It reads the YAML config tree under
 `mava_tpu/configs/` as data.
 
-Ported so far: recurrent IPPO on RobotWarehouse, with the GRU sequence
-recurrence (`ops/gru.py`) as hand-written CUDA kernels for Hopper
-(`csrc/gru_sequence.cu`).
+Ported so far: the seven systems (ff/rec IPPO and MAPPO, rec-IQL, ff-ISAC,
+ff-MASAC), nine of the environments with the wrapper chain, the MLP and CNN
+torsos, and the GRU sequence recurrence (`ops/gru.py`) as hand-written CUDA
+kernels for Hopper (`csrc/gru_sequence.cu`). `ROADMAP.md` lists the rest.
 """

@@ -3,9 +3,11 @@
 Same wrapper order as the reference: GlobalState? -> AgentID? -> AutoReset ->
 RecordEpisodeMetrics on the train env; the same without AutoReset on the eval
 env. The global state is therefore built from views without the one-hot ids.
-RobotWarehouse, Matrax, SMAX, MaSwarm and MaReacher are ported so far; the
-other environments are listed in ROADMAP.md. MaSwarm and MaReacher have no
-global state of their own: the wrapper tiles their agents' views.
+RobotWarehouse, Matrax, SMAX, MaSwarm, MaReacher, LevelBasedForaging, Cleaner,
+MaConnector and Gigastep are ported so far; the other environments are listed
+in ROADMAP.md. MaSwarm, MaReacher, LBF and Gigastep have no global state of
+their own: the wrapper tiles their agents' views. Cleaner and MaConnector give
+grid views (`obs_shape`: rows, cols, channels) and a grid global state.
 """
 
 from __future__ import annotations
@@ -115,6 +117,42 @@ def _make_mareacher(config, device: torch.device) -> Tuple[Any, Any]:
 
     kwargs = _env_kwargs(config)
     return MaReacher(**kwargs, device=device), MaReacher(**kwargs, device=device)
+
+
+@register("LevelBasedForaging")
+def _make_lbf(config, device: torch.device) -> Tuple[Any, Any]:
+    from mava_tpu_torch.envs.lbf import LevelBasedForaging
+
+    kwargs = _env_kwargs(config)
+    kwargs["use_individual_rewards"] = config.env.get("use_individual_rewards", False)
+    return (
+        LevelBasedForaging(**kwargs, device=device),
+        LevelBasedForaging(**kwargs, device=device),
+    )
+
+
+@register("Cleaner")
+def _make_cleaner(config, device: torch.device) -> Tuple[Any, Any]:
+    from mava_tpu_torch.envs.cleaner import Cleaner
+
+    kwargs = _env_kwargs(config)
+    return Cleaner(**kwargs, device=device), Cleaner(**kwargs, device=device)
+
+
+@register("MaConnector")
+def _make_connector(config, device: torch.device) -> Tuple[Any, Any]:
+    from mava_tpu_torch.envs.connector import MaConnector
+
+    kwargs = _env_kwargs(config)
+    return MaConnector(**kwargs, device=device), MaConnector(**kwargs, device=device)
+
+
+@register("Gigastep")
+def _make_gigastep(config, device: torch.device) -> Tuple[Any, Any]:
+    from mava_tpu_torch.envs.gigastep import Gigastep
+
+    kwargs = _env_kwargs(config)
+    return Gigastep(**kwargs, device=device), Gigastep(**kwargs, device=device)
 
 
 def make(

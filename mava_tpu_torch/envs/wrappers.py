@@ -13,6 +13,7 @@ Randomness follows the wrapped env's split into noise and dynamics:
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
@@ -49,19 +50,32 @@ class Wrapper:
         return self._env.step(state, action, noise)
 
 
+def obs_shape(env: Any) -> Tuple[int, ...]:
+    """The shape of one agent's view: (features,) for a vector view, or the
+    env's `obs_shape`, (rows, cols, channels), for a grid view."""
+    shape = getattr(env, "obs_shape", None)
+    return tuple(shape) if shape is not None else (env.num_obs_features,)
+
+
 class GlobalStateWrapper(Wrapper):
     """Adds a global state for centralised critics: every agent's view,
     flattened and concatenated per env, tiled to one copy per agent
     (reference `wrappers.py:65-117`). An env's own
     `get_global_state(obs, state)` takes its place where there is one, and then
-    the env also says how wide it is (`num_global_state_features`).
+    the env also says its shape per agent (`global_state_shape`, a grid's) or
+    width (`num_global_state_features`).
     """
 
     @property
-    def num_global_state_features(self) -> int:
+    def global_state_shape(self) -> Tuple[int, ...]:
         if hasattr(self._env, "get_global_state"):
-            return self._env.num_global_state_features
-        return self.num_agents * self._env.num_obs_features
+            shape = getattr(self._env, "global_state_shape", None)
+            return tuple(shape) if shape is not None else (self._env.num_global_state_features,)
+        return (self.num_agents * math.prod(obs_shape(self._env)),)
+
+    @property
+    def num_global_state_features(self) -> int:
+        return math.prod(self.global_state_shape)
 
     def _add_global_state(self, timestep: TimeStep, state: Any) -> TimeStep:
         obs = timestep.observation
@@ -89,7 +103,17 @@ class GlobalStateWrapper(Wrapper):
 
 class AgentIDWrapper(Wrapper):
     """Concatenates a one-hot agent id onto `agents_view`
-    (reference `wrappers.py:120-144`)."""
+    (reference `wrappers.py:120-144`). Vector views only: the grid envs see
+    their own position in their view (`env.implicit_agent_id`), and the
+    reference's concatenation fails on a grid view too."""
+
+    def __init__(self, env: Any):
+        if len(obs_shape(env)) != 1:
+            raise ValueError(
+                f"AgentIDWrapper takes vector views, not {obs_shape(env)}: "
+                "set env.implicit_agent_id=True for a grid env."
+            )
+        super().__init__(env)
 
     @property
     def num_obs_features(self) -> int:

@@ -9,9 +9,10 @@ from mava_tpu_torch.networks.actor_critic import (
     resolve_gru_impl,
 )
 from mava_tpu_torch.networks.heads import ContinuousActionHead, DiscreteActionHead
-from mava_tpu_torch.networks.torsos import MLPTorso
+from mava_tpu_torch.networks.torsos import CNNTorso, MLPTorso
 
 __all__ = [
+    "CNNTorso",
     "ContinuousActionHead",
     "DiscreteActionHead",
     "FeedForwardActor",

@@ -20,14 +20,13 @@ the recurrence as one launch of the stacked GRU kernel (the reference vmaps
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from mava_tpu_torch.distributions import MaskedEpsGreedy
-from mava_tpu_torch.networks.torsos import MLPTorso, orthogonal_linear
+from mava_tpu_torch.networks.torsos import MLPTorso, lecun_normal_, orthogonal_linear
 from mava_tpu_torch.ops.gru import gru_sequence, gru_sequence_stacked
 from mava_tpu_torch.types import ObservationGlobalState
 
@@ -96,13 +95,6 @@ class FeedForwardQNet(nn.Module):
     def forward(self, observation, action: torch.Tensor) -> torch.Tensor:
         x = torch.cat([_critic_input(observation, self.centralised_critic), action], dim=-1)
         return self.q_head(self.torso(x)).squeeze(-1)
-
-
-def lecun_normal_(w: torch.Tensor) -> torch.Tensor:
-    """flax `lecun_normal`: a normal truncated at 2 std, rescaled to variance
-    1/fan_in (fan_in = w.shape[0] in the (in, out) layout)."""
-    std = math.sqrt(1.0 / w.shape[0]) / 0.87962566103423978
-    return nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std)
 
 
 def _blockwise_orthogonal_(w: torch.Tensor) -> torch.Tensor:

@@ -3,13 +3,13 @@
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Sequence, Union
 
 from mava_tpu_torch.distributions import Categorical, TanhNormal, gumbel, normal
 from mava_tpu_torch.networks.heads import ContinuousActionHead, DiscreteActionHead
-from mava_tpu_torch.networks.torsos import MLPTorso
+from mava_tpu_torch.networks.torsos import CNNTorso, MLPTorso
 
-_TORSOS = {"MLPTorso": MLPTorso}
+_TORSOS = {"MLPTorso": MLPTorso, "CNNTorso": CNNTorso}
 _HEADS = {
     "DiscreteActionHead": DiscreteActionHead,
     "ContinuousActionHead": ContinuousActionHead,
@@ -25,11 +25,22 @@ def _lookup(table: Dict[str, Any], kind: str, what: str) -> Any:
     return table[kind]
 
 
-def make_torso(cfg: Dict[str, Any], in_features: int) -> MLPTorso:
-    """cfg e.g. {"type": "MLPTorso", "layer_sizes": [128], "activation": "relu"}."""
+def make_torso(cfg: Dict[str, Any], in_shape: Union[int, Sequence[int]]):
+    """cfg e.g. {"type": "MLPTorso", "layer_sizes": [128], "activation": "relu"}.
+
+    `in_shape` is the shape of one input without its leading dims: an int or
+    a one-entry shape (features) for `MLPTorso`, (rows, cols, channels) for
+    `CNNTorso`."""
     cfg = dict(cfg)
     kind = cfg.pop("type")
-    return _lookup(_TORSOS, kind, "Torso")(in_features, **cfg)
+    torso = _lookup(_TORSOS, kind, "Torso")
+    if torso is CNNTorso:
+        return CNNTorso(tuple(in_shape), **cfg)
+    if not isinstance(in_shape, int):
+        if len(in_shape) != 1:
+            raise ValueError(f"{kind} takes vector inputs, not shape {tuple(in_shape)}")
+        (in_shape,) = in_shape
+    return torso(in_shape, **cfg)
 
 
 def make_action_head(cfg: Dict[str, Any], in_features: int, action_dim: int):

@@ -45,7 +45,9 @@ def start_experiment(config: Config) -> torch.device:
             "arch.device is cuda but CUDA is not available; "
             "pass +arch.device=cpu to run the port on the CPU."
         )
-    # Full fp32 everywhere on the card, as on the reference's path.
+    # Full fp32 everywhere on the card, as on the reference's path: cuBLAS
+    # matmuls and cuDNN's convolutions (`CNNTorso`), which PyTorch would
+    # otherwise run as TF32. `CNNTorso`'s bf16 mode is the one opt-in fast path.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     config.arch.n_devices = 1

@@ -27,6 +27,7 @@ from torch.profiler import record_function
 from torch.utils import _pytree as pytree
 
 from mava_tpu_torch import envs as environments
+from mava_tpu_torch.envs.wrappers import obs_shape
 from mava_tpu_torch.evaluator import make_ff_eval_act_fn
 from mava_tpu_torch.networks import FeedForwardActor, FeedForwardValueNet
 from mava_tpu_torch.networks.factory import (
@@ -189,23 +190,23 @@ def make_networks(
     centralised_critic: bool = False,
 ):
     """The actor and critic, initialised from `seed` as the reference's flax
-    initialisers draw (in distribution), then moved to `device`. A centralised
-    critic's first layer is as wide as the global state."""
+    initialisers draw (in distribution), then moved to `device`. Each torso
+    is sized from the shape of what it reads: an agent's view, or for a
+    centralised critic the global state (a vector, or a grid for `CNNTorso`)."""
     net = config.network
-    critic_features = (
-        env.num_global_state_features if centralised_critic else env.num_obs_features
-    )
+    in_shape = obs_shape(env)
+    critic_shape = env.global_state_shape if centralised_critic else in_shape
     # nn.init draws from the CPU default generator: seed it inside a fork so
     # the caller's generator state is left as it was.
     with torch.random.fork_rng(devices=[]):
         torch.random.default_generator.manual_seed(seed)
-        actor_torso = make_torso(net.actor_network.pre_torso, env.num_obs_features)
+        actor_torso = make_torso(net.actor_network.pre_torso, in_shape)
         actor = FeedForwardActor(
             actor_torso,
             make_action_head(net.action_head, actor_torso.out_features, env.action_dim),
         )
         critic = FeedForwardValueNet(
-            make_torso(net.critic_network.pre_torso, critic_features), centralised_critic
+            make_torso(net.critic_network.pre_torso, critic_shape), centralised_critic
         )
     return actor.to(device), critic.to(device)
 

@@ -28,6 +28,7 @@ from torch.profiler import record_function
 from torch.utils import _pytree as pytree
 
 from mava_tpu_torch import envs as environments
+from mava_tpu_torch.envs.wrappers import obs_shape
 from mava_tpu_torch.evaluator import get_num_eval_envs, make_rec_eval_act_fn
 from mava_tpu_torch.networks import RecurrentActor, RecurrentValueNet, ScannedRNN
 from mava_tpu_torch.networks.factory import (
@@ -241,17 +242,19 @@ def make_networks(
     centralised_critic: bool = False,
 ):
     """The actor and critic, initialised from `seed` as the reference's flax
-    initialisers draw (in distribution), then moved to `device`. A centralised
-    critic's first layer is as wide as the global state."""
+    initialisers draw (in distribution), then moved to `device`. Each
+    pre-torso is sized from the shape of what it reads: an agent's view, or
+    for a centralised critic the global state (a vector, or a grid for
+    `CNNTorso`)."""
     net = config.network
     gru_impl = net.get("gru_impl", None)
-    in_features = env.num_obs_features
-    critic_features = env.num_global_state_features if centralised_critic else in_features
+    in_shape = obs_shape(env)
+    critic_shape = env.global_state_shape if centralised_critic else in_shape
     # nn.init draws from the CPU default generator: seed it inside a fork so
     # the caller's generator state is left as it was.
     with torch.random.fork_rng(devices=[]):
         torch.random.default_generator.manual_seed(seed)
-        actor_pre = make_torso(net.actor_network.pre_torso, in_features)
+        actor_pre = make_torso(net.actor_network.pre_torso, in_shape)
         actor_post = make_torso(net.actor_network.post_torso, net.hidden_state_dim)
         actor = RecurrentActor(
             actor_pre,
@@ -260,7 +263,7 @@ def make_networks(
             net.hidden_state_dim,
             gru_impl,
         )
-        critic_pre = make_torso(net.critic_network.pre_torso, critic_features)
+        critic_pre = make_torso(net.critic_network.pre_torso, critic_shape)
         critic_post = make_torso(net.critic_network.post_torso, net.hidden_state_dim)
         critic = RecurrentValueNet(
             critic_pre, critic_post, net.hidden_state_dim, gru_impl, centralised_critic

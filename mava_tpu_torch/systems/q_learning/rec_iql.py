@@ -36,6 +36,7 @@ from torch.utils import _pytree as pytree
 
 from mava_tpu_torch import envs as environments
 from mava_tpu_torch.distributions import gumbel, masked_greedy
+from mava_tpu_torch.envs.wrappers import obs_shape
 from mava_tpu_torch.evaluator import get_num_eval_envs
 from mava_tpu_torch.networks import RecQNetwork, ScannedRNN
 from mava_tpu_torch.networks.factory import make_torso
@@ -218,7 +219,7 @@ def make_q_network(env: Any, config: Config, device: torch.device, seed: int) ->
     net = config.network
     with torch.random.fork_rng(devices=[]):
         torch.random.default_generator.manual_seed(seed)
-        pre = make_torso(net.q_network.pre_torso, env.num_obs_features)
+        pre = make_torso(net.q_network.pre_torso, obs_shape(env))
         post = make_torso(net.q_network.post_torso, net.hidden_state_dim)
         q_net = RecQNetwork(pre, post, env.action_dim, net.hidden_state_dim,
                             net.get("gru_impl", None))

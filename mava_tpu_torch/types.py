@@ -93,7 +93,7 @@ def truncation(
 class Observation(NamedTuple):
     """Per-agent observation (reference `mava_tpu/types.py:111-116`)."""
 
-    agents_view: Array  # (E, num_agents, num_obs_features)
+    agents_view: Array  # (E, num_agents, num_obs_features) or a grid (E, num_agents, R, C, ch)
     action_mask: Array  # (E, num_agents, num_actions) bool
     step_count: Array  # (E, num_agents) int32
 
@@ -104,7 +104,7 @@ class ObservationGlobalState(NamedTuple):
 
     agents_view: Array  # (E, num_agents, num_obs_features)
     action_mask: Array  # (E, num_agents, num_actions) bool
-    global_state: Array  # (E, num_agents, num_global_state_features)
+    global_state: Array  # (E, num_agents, num_global_state_features) or a grid
     step_count: Array  # (E, num_agents) int32
 
 

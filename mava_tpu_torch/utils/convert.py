@@ -7,8 +7,10 @@ or `RecQNetwork` (as numpy arrays, with or without the top-level "params" key) t
 
   * flax `Dense` kernels are (in, out); `nn.Linear.weight` is (out, in), so
     they are transposed;
-  * a torso's flax children interleave (`Dense_0, LayerNorm_0, Dense_1, ...`);
-    `Dense_k` goes to `layers.k` and the bias of `LayerNorm_k` (it has no
+  * a torso's flax children interleave (`Dense_0, LayerNorm_0, Dense_1, ...`,
+    or `Conv_0, LayerNorm_0, Conv_1, ...`); `Dense_k` goes to `layers.k`,
+    `Conv_k` to `convs.k` (its (kh, kw, in, out) kernel permuted to
+    `Conv2d`'s (out, in, kh, kw)) and the bias of `LayerNorm_k` (it has no
     scale) to `norm_biases.k`;
   * the GRU's `wi` (F,3H), `bi` (3H), `wh` (H,3H) and `bhn` (H) keep their JAX
     layout, the layout the GRU kernel takes;
@@ -46,6 +48,11 @@ def from_flax_params(tree: Mapping[str, Any], head: str = "value_head") -> Dict[
                 kind, _, index = child.rpartition("_")
                 if kind == "Dense":
                     out.update(_dense(f"{name}.layers.{index}", leaves))
+                elif kind == "Conv":
+                    kernel = np.asarray(leaves["kernel"]).transpose(3, 2, 0, 1)
+                    out[f"{name}.convs.{index}.weight"] = torch.as_tensor(kernel.copy())
+                    out[f"{name}.convs.{index}.bias"] = torch.as_tensor(
+                        np.asarray(leaves["bias"]).copy())
                 elif kind == "LayerNorm" and set(leaves) == {"bias"}:
                     out[f"{name}.norm_biases.{index}"] = torch.as_tensor(
                         np.asarray(leaves["bias"]).copy()

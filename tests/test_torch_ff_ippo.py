@@ -47,8 +47,8 @@ SYSTEMS = {
 }
 
 
-def _jax_update(system, centralised, overrides):
-    cfg = _prepare(jax_load_config(f"default_{system}", TINY + overrides))
+def _jax_update(system, centralised, overrides, tiny=TINY):
+    cfg = _prepare(jax_load_config(f"default_{system}", tiny + overrides))
     env, _ = jenvs.make(cfg, add_global_state=centralised)
     keys = jax.random.split(jax.random.PRNGKey(3), 3)
     learn, _, state = jff_ippo.learner_setup(

@@ -128,6 +128,7 @@ def test_bad_tasks_raise(kwargs, match):
 
 
 def test_unported_env_error_lists_matrax():
-    ported = r"ported: \['MaReacher', 'MaSwarm', 'Matrax', 'RobotWarehouse', 'Smax'\]"
+    ported = (r"ported: \['Cleaner', 'Gigastep', 'LevelBasedForaging', 'MaConnector', "
+              r"'MaReacher', 'MaSwarm', 'Matrax', 'RobotWarehouse', 'Smax'\]")
     with pytest.raises(ValueError, match=ported):
-        tenvs.make(load_config("default_ff_ippo", ["env=lbf"]), "cpu")
+        tenvs.make(load_config("default_ff_ippo", ["env=maswimmer"]), "cpu")

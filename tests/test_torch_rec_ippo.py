@@ -49,9 +49,9 @@ def _prepare(cfg):
     return cfg
 
 
-def _jax_update(layout, system="rec_ippo", centralised=False, env_overrides=()):
+def _jax_update(layout, system="rec_ippo", centralised=False, env_overrides=(), tiny=TINY):
     cfg = _prepare(jax_load_config(
-        f"default_{system}", TINY + [f"system.chunk_layout={layout}", *env_overrides]))
+        f"default_{system}", tiny + [f"system.chunk_layout={layout}", *env_overrides]))
     env, _ = jenvs.make(cfg, add_global_state=centralised)
     keys = jax.random.split(jax.random.PRNGKey(3), 3)
     learn, _, state = jrec_ippo.learner_setup(
@@ -111,11 +111,11 @@ def _assert_update_matches(out, jout):
 
 
 def check_one_recurrent_update(layout, impl, system="rec_ippo", centralised=False,
-                               env_overrides=(), to_torch_state=_to_torch_state):
-    jstate, noise, perms, jout = _jax_update(layout, system, centralised, env_overrides)
+                               env_overrides=(), to_torch_state=_to_torch_state, tiny=TINY):
+    jstate, noise, perms, jout = _jax_update(layout, system, centralised, env_overrides, tiny)
     _assert_no_episode_ended(jout)
 
-    cfg = _prepare(load_config(f"default_{system}", TINY + [
+    cfg = _prepare(load_config(f"default_{system}", tiny + [
         f"system.chunk_layout={layout}", f"network.gru_impl={impl}", *env_overrides]))
     env, _ = tenvs.make(cfg, "cpu", add_global_state=centralised)
     learn, _, state = rec_ippo.learner_setup(

@@ -11,6 +11,7 @@ each epsilon-greedy sample, the env's request Gumbels and auto-reset uniforms,
 and the buffer's (rows, starts).
 """
 
+import os
 import sys
 
 import jax
@@ -400,3 +401,26 @@ def test_cli_without_cuda_raises():
         pytest.skip("CUDA is available here")
     with pytest.raises(RuntimeError, match=r"\+arch.device=cpu"):
         rec_iql.run_experiment(load_config("default_rec_iql", ["system.num_updates=2"]))
+
+
+@pytest.mark.slow
+@pytest.mark.skipif(os.environ.get("RUN_LEARNING_GATE") != "1",
+                    reason="learning gate is opt-in: set RUN_LEARNING_GATE=1")
+def test_rec_iql_learns_matrax_climbing():
+    """The port's twin of `test_learning_gate.py::test_rec_iql_learns_matrax_climbing`:
+    the same config and threshold (the safe equilibrium pays 50 an episode,
+    random about -34)."""
+    cfg = load_config("default_rec_iql", [
+        "env=matrax",
+        "env.scenario.task_name=Climbing-stateless-v0",
+        "env.kwargs.time_limit=10",
+        "arch.num_envs=16",
+        "system.total_timesteps=120000",
+        "arch.num_evaluation=3",
+        "arch.num_eval_episodes=32",
+        "arch.absolute_metric=False",
+        "logger.use_console=False",
+        "+arch.device=cpu",
+    ])
+    perf, _ = rec_iql.run_experiment(cfg)
+    assert perf > 20.0, f"rec-IQL failed the Climbing learning gate: {perf}"

@@ -173,7 +173,7 @@ def test_final_step_metrics_match(any_done):
 
 
 def test_unported_env_raises():
-    cfg = load_config("default_rec_ippo", ["env=lbf"])
+    cfg = load_config("default_rec_ippo", ["env=maswimmer"])
     with pytest.raises(ValueError, match="not yet ported"):
         tenvs.make(cfg, "cpu")
 
