@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --dynamics]
 
 Run from the root of the repository. It
   1. prints the torch and CUDA versions and the card's name and power limit;
@@ -51,7 +51,7 @@ Run from the root of the repository. It
      against one on the plain GRU; env-steps/s; one update under
      `torch.profiler` (launches per rollout step, idle share);
   7. rec-IQL phase: `default_rec_iql` on SMAX 3s5z through
-     `rec_iql.run_experiment`, 200 updates with exactly 2 stacked forwards (the
+     `rec_iql.run_experiment`, 50 updates with exactly 2 stacked forwards (the
      fused double-DQN target pass, S = 2, T = 20, B = 256), 2 forwards and 2 of
      each backward kernel an update; the fused target pass against the unfused
      one on the same sampled sequences; env-steps/s and mean Q; one update under
@@ -70,18 +70,34 @@ Run from the root of the repository. It
      1,000,000-item buffer on the card) through their `run_experiment`: the
      4,992-step explore phase and two rounds of 4 updates, every parameter
      changed, no GRU kernel launched (the SAC path runs only MLPs); then from a
-     fresh state the explore phase, 8 timed updates and one under
+     fresh state the explore phase, 4 timed updates and one under
      `torch.profiler` (spans `sac/act`, `sac/train`): env-steps/s, launches per
      update and per train step, the device's idle share; the same for one
-     ff-ISAC update on MaReacher reacher-2x1;
-  10. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
+     ff-ISAC update on MaReacher reacher-2x1 after one batch explored;
+  10. articulated phase: for each of MaSwimmer swimmer-2x1, MaHopper hopper-3x1,
+     MaCheetah halfcheetah-6x1, MaWalker walker2d-2x3, MaAnt ant-4x2 and
+     MaHumanoid humanoid-9-8, one step of 16 envs on the card against the same
+     step on the CPU (rtol = atol = 1e-4), the step's host ms, launches and host
+     syncs (none allowed) and the trace time of its q̈; ff-ISAC on each through
+     `run_experiment` (16 envs, rollout 2, 32 epochs, delay 4, batch 32, the
+     1,000,000-item buffer on the card; cut in depth: one batch explored, two
+     rounds of two updates, episodes of 2 steps) with every parameter changed and
+     no GRU launch, then one timed update (env-steps/s, peak memory) and on
+     MaHopper one profiled (launches per act and train step, idle share);
+     ff-MASAC the same on MaHumanoid and MaHopper; continuous ff-IPPO on
+     MaWalker (rollout cut to 8, 2 updates; one update of rollout 1 profiled
+     for the launches per rollout step and the idle share);
+  11. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
      updates each through their `run_experiment` with the same health checks
      (they reach no hand-written kernel), three timed ff-IPPO updates, ff-IPPO on
      Matrax Penalty-25 for 30 updates with its eval return, and a short run of
      the bench program (`bench_torch.run` at 512 envs);
-  11. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
+  12. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
      512 envs under `torch.profiler`: host ms, launches and kernel ms per span,
      launches per rollout step, per-kernel totals and the device's idle share.
+`--dynamics` runs only two measurements of `envs/_dynamics.py` and exits:
+MaReacher with the checked solve of the parent against the unchecked one, and
+tracing a whole RK4 substep against tracing q̈ alone (`dynamics_ab`).
 It prints one JSON line with the kernels' records, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -129,7 +145,7 @@ GRID_FF = [
     ("ff-IPPO on Gigastep hide_and_seek_5_vs_5_fobs", "ff_ippo",
      ["env=gigastep", "env/scenario=hide_and_seek_5_vs_5_fobs"]),
 ]
-IQL_UPDATES = 200
+IQL_UPDATES = 50  # 200 until PR 8, cut to make room for the articulated phase
 SHAPES = SLICE_SHAPES + [(7, 5, 128), (9, 3, 256), (33, 17, 128), (5, 40, 256), (6, 4, 72),
                          (3, 2, 512)]
 # K2p and K2b alone, to show how the tiles and the row split scale: 16x and 4x the rows.
@@ -1022,7 +1038,7 @@ SAC_SYSTEMS = [("ff_isac", "default_ff_isac", False), ("ff_masac", "default_ff_m
 # two (the reference's range(4992, 5121, 128)), each with an evaluation.
 SAC_RUN = ["system.total_timesteps=5120", "arch.num_evaluation=40", "arch.num_eval_episodes=16",
            "arch.absolute_metric=False", "+arch.device=cuda"]
-SAC_TIMED_UPDATES = 8
+SAC_TIMED_UPDATES = 4  # 8 until PR 8, cut to make room for the articulated phase
 
 
 def sac_learner(config_name: str, centralised: bool, overrides=()):
@@ -1047,24 +1063,31 @@ def sac_params(params) -> list:
     return [p.detach() for net in nets for p in net.parameters()] + [params.log_alpha.detach()]
 
 
-def sac_run(gru, system: str, config_name: str, centralised: bool) -> None:
+def sac_run(gru, system: str, config_name: str, centralised: bool, run=tuple(SAC_RUN),
+            updates: int = 8, label: str = "") -> float:
     """`run_experiment` of `system` as a user calls it, with the GRU counts set to
     0 just before and read just after: the SAC path launches no hand kernel.
     Every parameter on the card and changed, every loss finite, the buffer of
-    1,000,000 items on the card, written up to the explore phase and 8 updates."""
+    1,000,000 items on the card, written up to the explore phase and `updates`
+    updates. Returns the peak memory of the run above what was allocated
+    before it, in GB."""
     from mava_tpu_torch.systems.sac import ff_isac, ff_masac
     from mava_tpu_torch.utils.config import load_config
 
     entry = ff_masac if centralised else ff_isac
-    config = load_config(config_name, SAC_RUN)
-    cfg, _, _, state = sac_learner(config_name, centralised)  # the seed's parameters
+    config = load_config(config_name, list(run))
+    cfg, _, _, state = sac_learner(config_name, centralised, [x for x in run if x != "+arch.device=cuda"])
     initial = [p.clone() for p in sac_params(state.params)]
     del state
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     gru.reset_launch_counts()
     start = time.perf_counter()
     performance, output = entry.run_experiment(config)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
+    peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
     launches = dict(gru.kernel_launches, fwd_calls=gru.fwd_launches, bwd_calls=gru.bwd_launches)
     check(not any(launches.values()), f"{system} launched a GRU kernel: {launches}")
     final = sac_params(output.learner_state.params)
@@ -1077,18 +1100,22 @@ def sac_run(gru, system: str, config_name: str, centralised: bool) -> None:
     buffer = output.learner_state.buffer_state
     leaves = pytree.tree_leaves(buffer.experience)
     explored = cfg.system.explore_steps // cfg.arch.num_envs * cfg.arch.num_envs
+    written = explored + updates * cfg.arch.num_envs * cfg.system.rollout_length
     check(all(x.shape[0] == 1_000_000 and x.device.type == "cuda" for x in leaves),
           f"{system}: the buffer is not 1,000,000 items on the card")
-    check(buffer.current_index == explored + 8 * 32 and output.learner_state.t == explored + 256,
+    check(buffer.current_index == written and output.learner_state.t == written,
           f"{system}: {buffer.current_index} items written, t = {output.learner_state.t}")
-    print(f"  {system} run_experiment: explore {explored} env-steps + 8 updates, eval return "
-          f"{performance:.3f}, {wall:.1f} s wall, GRU launches {launches}")
+    print(f"  {system}{label} run_experiment: explore {explored} env-steps + {updates} updates, "
+          f"eval return {performance:.3f}, {wall:.1f} s wall, peak memory {peak_gb:.3f} GB above "
+          f"the {before / 1e9:.3f} GB allocated before, GRU launches {launches}")
+    return peak_gb
 
 
 def sac_updates(label: str, config_name: str, centralised: bool, overrides, gpu: str,
-                timed: int) -> dict:
+                timed: int, profiled: bool = True) -> dict:
     """The explore phase, then `timed` updates after a warm-up one, timed on the
-    host clock; then one update under torch.profiler. Returns what was read."""
+    host clock; then, if `profiled`, one update under torch.profiler. Returns
+    what was read."""
     torch.cuda.reset_peak_memory_stats()
     cfg, explore, learn, state = sac_learner(config_name, centralised, overrides)
     leaves = pytree.tree_leaves(state.buffer_state.experience)
@@ -1115,17 +1142,20 @@ def sac_updates(label: str, config_name: str, centralised: bool, overrides, gpu:
           f"{state.t - steps * len(seconds)} env-steps in {explore_s:.1f} s; mean Q "
           f"{q_vals[0]:.3f} -> {q_vals[-1]:.3f}")
     print_updates(f"{label} (after one warm-up)", seconds[1:] or seconds, steps, gpu)
+    mean = sum(seconds[1:] or seconds) / len(seconds[1:] or seconds)
+    if not profiled:
+        return {"env_steps_per_s": steps / mean, "buffer_gb": buffer_gb}
     prof = profile_update(label, lambda: learn(state), steps, cfg.system.rollout_length)
     train_launches = prof["span_launches"].get("sac/train", 0)
     per_train_step = train_launches / cfg.system.epochs
-    mean = sum(seconds[1:] or seconds) / len(seconds[1:] or seconds)
     print(f"  {label}: {prof['launches']} launches an update, {per_train_step:.1f} a train step "
           f"({cfg.system.epochs} a update, actor and alpha on every "
           f"{cfg.system.policy_update_delay}th), {steps / mean:.1f} env-steps/s, idle share "
           f"{prof['idle_share']:.3f} on {gpu}")
     return {"env_steps_per_s": steps / mean, "launches": prof["launches"],
             "launches_per_train_step": per_train_step, "idle_share": prof["idle_share"],
-            "buffer_gb": buffer_gb}
+            "launches_per_act_step": prof["span_launches"].get("sac/act", 0)
+            / cfg.system.rollout_length, "buffer_gb": buffer_gb}
 
 
 def sac_phase(gru, gpu: str) -> dict:
@@ -1139,8 +1169,244 @@ def sac_phase(gru, gpu: str) -> dict:
         out[system] = sac_updates(f"{system} on MaSwarm spread-3ag", config_name, centralised, [],
                                   gpu, SAC_TIMED_UPDATES)
     out["ff_isac_mareacher"] = sac_updates("ff_isac on MaReacher reacher-2x1", "default_ff_isac",
-                                           False, ["env=mareacher"], gpu, 1)
+                                           False, ["env=mareacher", "system.explore_steps=32"],
+                                           gpu, 1)
     return out
+
+
+# ------------------------------------------------------------------ articulated phase
+ARTICULATED = [("maswimmer", "swimmer-2x1"), ("mahopper", "hopper-3x1"),
+               ("macheetah", "halfcheetah-6x1"), ("mawalker", "walker2d-2x3"),
+               ("maant", "ant-4x2"), ("mahumanoid", "humanoid-9-8")]
+# Cut in depth only (an env step costs 0.1-2.9 s of host at 16 envs): episodes
+# of 2 steps, so an evaluation of 16 episodes is 2 steps; SAC explores one batch
+# (32 items) and runs two rounds of two updates; ff-IPPO rolls out 8 steps. An
+# update is profiled on MaHopper only, and ff-IPPO's with a rollout of 1 step:
+# processing the profile of an update takes ~0.3 ms an event, over two minutes
+# for MaHumanoid's 240,000 launches (PERF.md §5 has every env's, from a run of
+# this phase that profiled them all).
+ARTICULATED_CUT = ["env.kwargs.time_limit=2", "arch.num_eval_episodes=16",
+                   "arch.absolute_metric=False"]
+ARTICULATED_SAC = ["system.explore_steps=32", "system.total_timesteps=128",
+                   "arch.num_evaluation=2", "+arch.device=cuda"]
+ARTICULATED_SAC_UPDATES = 4
+ARTICULATED_MASAC = ["mahumanoid", "mahopper"]
+ARTICULATED_PROFILED = ["mahopper"]
+ARTICULATED_PPO = ["env=mawalker", "env/scenario=walker2d-2x3", "network=continuous_mlp",
+                   "system.rollout_length=8", "system.num_updates=2", *ARTICULATED_CUT]
+
+
+def inner_env(env):
+    while hasattr(env, "_env"):
+        env = env._env
+    return env
+
+
+def launches_and_syncs(fn) -> dict:
+    """`fn()` under torch.profiler: kernel launches, host syncs (stream, device
+    and event synchronizes beyond those of profiling nothing) and
+    device-to-host copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def read(run):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = list(prof.events())
+        names = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+        return {"launches": sum("launch" in n.lower() and n.startswith(("cuda", "cu"))
+                                for n in names),
+                "syncs": sum(n in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                                   "cudaEventSynchronize") for n in names),
+                "dtoh": sum(e.device_type == torch.autograd.DeviceType.CUDA and "DtoH" in e.name
+                            for e in events)}
+
+    nothing, got = read(lambda: None), read(fn)
+    return {k: got[k] - nothing[k] for k in got}
+
+
+def articulated_step(env_name: str, scenario: str, gpu: str) -> dict:
+    """One step of 16 envs on the card against the same step on the CPU, from a
+    state and actions made on the CPU (the shipped reset, the bodies moving at
+    up to 1 unit/s into and off the ground): states, views, rewards, discounts
+    and step types to rtol = atol = 1e-4. Then what a step costs: host ms,
+    launches and host syncs (none allowed), and the trace of the 16-env q̈."""
+    from mava_tpu_torch import envs
+    from mava_tpu_torch.envs._dynamics import BodyState
+    from mava_tpu_torch.utils.config import load_config
+
+    cfg = load_config("default_ff_isac", [f"env={env_name}", f"env/scenario={scenario}",
+                                          *ARTICULATED_CUT])
+    cpu = inner_env(envs.make(cfg, "cpu")[0])
+    card = inner_env(envs.make(cfg, torch.device("cuda"))[0])
+    gen = torch.Generator().manual_seed(0)
+    state, _ = cpu.reset(cpu.reset_noise(16, gen))
+    state = state._replace(qd=torch.rand(state.q.shape, generator=gen) * 2 - 1)
+    action = torch.rand(16, cpu.num_agents, cpu.action_dim, generator=gen) * 2.4 - 1.2
+    want, want_ts = cpu.step(state, action)
+    on_card, action = BodyState(*(x.cuda() for x in state)), action.cuda()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    got, got_ts = card.step(on_card, action)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - start
+    pairs = {"q": (got.q, want.q), "qd": (got.qd, want.qd),
+             "agents_view": (got_ts.observation.agents_view, want_ts.observation.agents_view),
+             "reward": (got_ts.reward, want_ts.reward)}
+    errs = {k: (a.cpu() - b).abs().max().item() for k, (a, b) in pairs.items()}
+    for k, (a, b) in pairs.items():
+        check(torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-4),
+              f"{env_name}: the card's {k} is {errs[k]:.2e} off the CPU's")
+    for k in ("discount", "step_type"):
+        check(torch.equal(getattr(got_ts, k).cpu(), getattr(want_ts, k)),
+              f"{env_name}: the card's {k} differs from the CPU's")
+    seconds = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        card.step(got, action)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+    costs = launches_and_syncs(lambda: card.step(got, action))
+    check(costs["syncs"] == 0 and costs["dtoh"] == 0,
+          f"{env_name}: an env step reads back to the host: {costs}")
+    trace_s = {str(tuple(k[0][0])) + " " + str(k[0][2]): round(v, 2)
+               for k, v in card.integrate.trace_seconds().items()}
+    ms = sum(seconds) / len(seconds) * 1e3
+    print(f"  {env_name} {scenario}: card vs CPU max |err| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; an env step of 16 envs {ms:.1f} ms host ("
+          + " ".join(f"{x * 1e3:.1f}" for x in seconds) + f"), {costs['launches']} launches, "
+          f"{costs['syncs']} host syncs, {costs['dtoh']} device-to-host copies; q̈ traced in "
+          f"{trace_s} s (the first step {first_s:.1f} s) on {gpu}")
+    return {"step_ms": ms, **costs, "trace_s": trace_s, "errs": errs}
+
+
+def articulated_phase(gru, gpu: str, start: float) -> dict:
+    """The articulated suite at its shipped scenarios: each env's step on the
+    card against the CPU and its costs; ff-ISAC on each through
+    `run_experiment` (the 1,000,000-item buffer on the card, no GRU launch)
+    with env-steps/s, and a profiled update on MaHopper; ff-MASAC on
+    MaHumanoid and MaHopper the same; continuous ff-IPPO on MaWalker."""
+    out = {}
+    for env_name, scenario in ARTICULATED:
+        out[env_name] = articulated_step(env_name, scenario, gpu)
+    print(f"  ({time.perf_counter() - start:.0f} s since the start)")
+    sac = [("ff_isac", "default_ff_isac", False, env_name, scenario)
+           for env_name, scenario in ARTICULATED]
+    sac += [("ff_masac", "default_ff_masac", True, env_name, scenario)
+            for env_name, scenario in ARTICULATED if env_name in ARTICULATED_MASAC]
+    for system, config_name, centralised, env_name, scenario in sac:
+        env = [f"env={env_name}", f"env/scenario={scenario}", *ARTICULATED_CUT]
+        label = f"{system} on {env_name} {scenario}"
+        peak = sac_run(gru, system, config_name, centralised, [*env, *ARTICULATED_SAC],
+                       ARTICULATED_SAC_UPDATES, f" on {env_name}")
+        out[label] = {**sac_updates(label, config_name, centralised,
+                                    [*env, "system.explore_steps=32"], gpu, 0,
+                                    env_name in ARTICULATED_PROFILED),
+                      "peak_gb": peak}
+        print(f"  ({time.perf_counter() - start:.0f} s since the start)")
+    label = "continuous ff-IPPO on MaWalker walker2d-2x3"
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, launches = train("ff_ippo", gru, ARTICULATED_PPO)
+    peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
+    check(not any(launches.values()), f"{label} launched a GRU kernel: {launches}")
+    learn, state, steps = learner("ff_ippo", ARTICULATED_PPO)
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    state = learn(state).learner_state
+    torch.cuda.synchronize()
+    rate = steps / (time.perf_counter() - begin)
+    learn, state, steps = learner("ff_ippo", [*ARTICULATED_PPO, "system.rollout_length=1"])
+    state = learn(state).learner_state  # warm-up
+    prof = profile_update(label + ", rollout 1", lambda: learn(state), steps, 1)
+    print(f"  {label}: {rate:.1f} env-steps/s, {prof['launches_per_rollout_step']:.1f} launches a "
+          f"rollout step, idle share {prof['idle_share']:.3f}, peak memory {peak_gb:.3f} GB above "
+          f"the {before / 1e9:.3f} GB allocated before the run, on {gpu}")
+    out[label] = {"env_steps_per_s": rate, "idle_share": prof["idle_share"], "peak_gb": peak_gb,
+                  "launches_per_rollout_step": prof["launches_per_rollout_step"]}
+    return out
+
+
+def dynamics_ab(gpu: str) -> None:
+    """`--dynamics`: two choices of `envs/_dynamics.py` measured on the card.
+    (1) MaReacher's solve as it stood until PR 8, `torch.linalg.solve` with its
+    error check, against `solve_ex` without it, run A B B A in one process:
+    an env step's launches, host syncs and ms, and an ff-ISAC update's
+    env-steps/s. (2) A whole RK4 substep traced as one graph against RK4 over
+    the traced q̈ (what a step runs) on MaHopper and MaCheetah: trace s and
+    ms a substep."""
+    import mava_tpu_torch.envs.mareacher as reacher
+    from mava_tpu_torch.envs import _dynamics
+    from mava_tpu_torch.envs.mahopper import MaHopper
+    from mava_tpu_torch.envs.macheetah import MaCheetah
+
+    solvers = {"linalg.solve (checked)": lambda m, b: torch.linalg.solve(m, b),
+               "solve_ex (unchecked)": _dynamics.solve}
+    for name in ("linalg.solve (checked)", "solve_ex (unchecked)", "solve_ex (unchecked)",
+                 "linalg.solve (checked)"):
+        reacher.solve = solvers[name]
+        try:
+            env = reacher.MaReacher(2, 1, device="cuda")
+            state, _ = env.reset(env.reset_noise(16, torch.Generator(device="cuda").manual_seed(0)))
+            action = torch.zeros(16, 2, 1, device="cuda")
+            env.step(state, action)  # traces q̈
+            seconds = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                begin = time.perf_counter()
+                env.step(state, action)
+                torch.cuda.synchronize()
+                seconds.append((time.perf_counter() - begin) * 1e3)
+            costs = launches_and_syncs(lambda: env.step(state, action))
+            cfg, explore, learn, sac = sac_learner("default_ff_isac", False,
+                                                   ["env=mareacher", "system.explore_steps=32"])
+            sac, _ = explore(sac)
+            rates = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                begin = time.perf_counter()
+                sac = learn(sac).learner_state
+                torch.cuda.synchronize()
+                rates.append(32 / (time.perf_counter() - begin))
+        finally:
+            reacher.solve = _dynamics.solve
+        print(f"  MaReacher reacher-2x1 with {name}: an env step of 16 envs "
+              + " ".join(f"{x:.1f}" for x in seconds) + f" ms, {costs['launches']} launches, "
+              f"{costs['syncs']} host syncs, {costs['dtoh']} device-to-host copies; ff-ISAC "
+              "updates after the first " + " ".join(f"{x:.1f}" for x in rates[1:])
+              + f" env-steps/s on {gpu}")
+    for cls in (MaHopper, MaCheetah):
+        env = cls(device="cuda")
+        state, _ = env.reset(env.reset_noise(16, torch.Generator(device="cuda").manual_seed(0)))
+        tau = torch.zeros_like(state.q)
+        integ = env.integrate
+        runs = {"q̈ traced": lambda: integ.substep(state.q, state.qd, tau),
+                "substep traced": lambda: integ.traced_substep(state.q, state.qd, tau)}
+        traces = {}
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            traces[name] = time.perf_counter() - begin
+        err = max((a - b).abs().max().item() for a, b in zip(runs["q̈ traced"](),
+                                                            runs["substep traced"]()))
+        ms = {name: [] for name in runs}
+        for name in ("q̈ traced", "substep traced", "q̈ traced", "substep traced"):
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            for _ in range(10):
+                runs[name]()
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - begin) * 1e2)
+        print(f"  {cls.__name__}: first call (the trace) " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in traces.items()) + "; ms a substep " + ", ".join(
+            f"{k} " + " ".join(f"{x:.2f}" for x in v) for k, v in ms.items())
+            + f"; max |diff| {err:.1e} on {gpu}")
 
 
 # ------------------------------------------------------------------ profile
@@ -1235,6 +1501,10 @@ def main() -> int:
     gpu = card()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     print(gpu)
+    if "--dynamics" in sys.argv[1:]:
+        print("dynamics A/B (the solve's check; tracing q̈ or a whole substep):")
+        dynamics_ab(gpu)
+        return 0
 
     start = time.perf_counter()
     marked = threading.Thread(target=gru.build_kernels, kwargs={"step_clocks": True})
@@ -1263,6 +1533,9 @@ def main() -> int:
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     print("SAC phase (ff-ISAC, ff-MASAC on MaSwarm; ff-ISAC on MaReacher):")
     sac_phase(gru, gpu)
+    print(f"  ({time.perf_counter() - start:.0f} s since the start)")
+    print("articulated phase (the six articulated envs; ff-ISAC, ff-MASAC, continuous ff-IPPO):")
+    articulated_phase(gru, gpu, start)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     print("feed-forward phase (ff-IPPO, ff-MAPPO, Matrax, the bench program):")
     feedforward_phase(gru, gpu)

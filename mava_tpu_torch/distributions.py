@@ -57,7 +57,11 @@ class Categorical:
         value = value.long().clamp(0, self.num_categories - 1)
         return torch.gather(log_probs, -1, value[..., None])[..., 0]
 
-    def entropy(self) -> torch.Tensor:
+    def entropy(
+        self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """Exact; takes and ignores the draws a `TanhNormal` entropy needs, as the
+        reference's `entropy(seed=None)` (:67), and draws nothing."""
         log_probs = torch.log_softmax(self.logits, dim=-1)
         probs = torch.exp(log_probs)
         # 0 * log 0 -> 0 for masked entries.

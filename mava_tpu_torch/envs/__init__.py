@@ -3,15 +3,18 @@
 Same wrapper order as the reference: GlobalState? -> AgentID? -> AutoReset ->
 RecordEpisodeMetrics on the train env; the same without AutoReset on the eval
 env. The global state is therefore built from views without the one-hot ids.
-RobotWarehouse, Matrax, SMAX, MaSwarm, MaReacher, LevelBasedForaging, Cleaner,
-MaConnector and Gigastep are ported so far; the other environments are listed
-in ROADMAP.md. MaSwarm, MaReacher, LBF and Gigastep have no global state of
-their own: the wrapper tiles their agents' views. Cleaner and MaConnector give
-grid views (`obs_shape`: rows, cols, channels) and a grid global state.
+Every environment of the reference is ported: RobotWarehouse, Matrax, SMAX,
+MaSwarm, MaReacher, LevelBasedForaging, Cleaner, MaConnector, Gigastep and the
+articulated suite (MaSwimmer, MaHopper, MaCheetah, MaWalker, MaAnt,
+MaHumanoid). Only SMAX, Cleaner and MaConnector have a global state of their
+own; for the others the wrapper tiles their agents' views. Cleaner and
+MaConnector give grid views (`obs_shape`: rows, cols, channels) and a grid
+global state.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Tuple
 
 import torch
@@ -40,6 +43,23 @@ def register(name: str) -> Callable:
         return fn
 
     return deco
+
+
+@functools.lru_cache(maxsize=32)
+def _articulated(module: str, name: str, device: torch.device, kwargs: Tuple) -> Any:
+    """One instance of an articulated env per (kwargs, device) in a process:
+    the envs are stateless, and each instance traces its dynamics once per
+    batch shape (seconds, up to a minute for MaHumanoid on a slow host), so
+    the train and eval envs and later experiments share the traced graphs."""
+    import importlib
+
+    cls = getattr(importlib.import_module(f"mava_tpu_torch.envs.{module}"), name)
+    return cls(**dict(kwargs), device=device)
+
+
+def _make_articulated(module: str, name: str, config, device: torch.device) -> Tuple[Any, Any]:
+    env = _articulated(module, name, device, tuple(sorted(_env_kwargs(config).items())))
+    return env, env
 
 
 def _add_extra_wrappers(train_env, eval_env, config, add_global_state: bool):
@@ -155,6 +175,36 @@ def _make_gigastep(config, device: torch.device) -> Tuple[Any, Any]:
     return Gigastep(**kwargs, device=device), Gigastep(**kwargs, device=device)
 
 
+@register("MaSwimmer")
+def _make_maswimmer(config, device: torch.device) -> Tuple[Any, Any]:
+    return _make_articulated("maswimmer", "MaSwimmer", config, device)
+
+
+@register("MaHopper")
+def _make_mahopper(config, device: torch.device) -> Tuple[Any, Any]:
+    return _make_articulated("mahopper", "MaHopper", config, device)
+
+
+@register("MaCheetah")
+def _make_macheetah(config, device: torch.device) -> Tuple[Any, Any]:
+    return _make_articulated("macheetah", "MaCheetah", config, device)
+
+
+@register("MaAnt")
+def _make_maant(config, device: torch.device) -> Tuple[Any, Any]:
+    return _make_articulated("maant", "MaAnt", config, device)
+
+
+@register("MaHumanoid")
+def _make_mahumanoid(config, device: torch.device) -> Tuple[Any, Any]:
+    return _make_articulated("mahumanoid", "MaHumanoid", config, device)
+
+
+@register("MaWalker")
+def _make_mawalker(config, device: torch.device) -> Tuple[Any, Any]:
+    return _make_articulated("mawalker", "MaWalker", config, device)
+
+
 def make(
     config, device: torch.device | str, add_global_state: bool = False
 ) -> Tuple[Any, Any]:
@@ -162,8 +212,7 @@ def make(
     env_name = config.env.env_name
     if env_name not in _REGISTRY:
         raise ValueError(
-            f"Environment '{env_name}' is not yet ported to mava_tpu_torch "
-            f"(ported: {sorted(_REGISTRY)}); see ROADMAP.md, Queue 1."
+            f"Unknown environment '{env_name}'. Available: {sorted(_REGISTRY)}"
         )
     train_env, eval_env = _REGISTRY[env_name](config, torch.device(device))
     return _add_extra_wrappers(train_env, eval_env, config, add_global_state)

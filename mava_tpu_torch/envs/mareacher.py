@@ -8,13 +8,11 @@ Lagrangian of point masses at the link ends:
     T(q, q̇) = ½ Σₖ mₖ |∂pₖ/∂q · q̇|²   (a forward-mode product through the kinematics)
     M(q)     = ∂²T/∂q̇²                 (`torch.func.hessian`)
     C(q,q̇)q̇ = ∂(∂T/∂q̇)/∂q · q̇         (`torch.func.jacfwd` of `torch.func.grad`)
-    M q̈      = τ − C q̇ + ∂(T−V)/∂q − β q̇   (`torch.linalg.solve`)
+    M q̈      = τ − C q̇ + ∂(T−V)/∂q − β q̇   (`_dynamics.solve`)
 
 integrated with RK4, 4 substeps per env step, and the angles wrapped to
-[-π, π). The per-env functions run under `torch.func.vmap` over the envs.
-The vmapped q̈ is traced once per batch shape and device into a graph of plain
-ATen ops (`make_fx`): it computes the same ops, but without the transforms'
-Python work, which would otherwise be paid 16 times an env step.
+[-π, π) (`_dynamics.Integrator`: q̈ vmapped over the envs, one RK4 substep
+traced once per batch shape and device into a graph of plain ATen ops).
 
 The shared team reward is -|fingertip - target| - 0.05 Σa². Episodes end by
 truncation at `time_limit`. `reset_noise` draws the joint angles, then the
@@ -24,11 +22,12 @@ target's radius and angle; the step draws nothing.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
-from torch.func import grad, hessian, jacfwd, jvp, vmap
+from torch.func import grad, hessian, jacfwd, jvp
 
+from mava_tpu_torch.envs._dynamics import Integrator, solve
 from mava_tpu_torch.types import Observation, StepType, TimeStep, restart
 
 _DT = 0.05
@@ -71,7 +70,7 @@ class MaReacher:
         self.masses = torch.full((self.num_joints,), 1.0 / self.num_joints, device=self.device)
         # own joints (cos, sin, vel) + fingertip (2) + target (2) + tip-to-target (2)
         self.num_obs_features = 3 * joints_per_agent + 6
-        self._traced_accel: Dict[Tuple, Callable] = {}
+        self.integrate = Integrator(self._accel, _DT, _SUBSTEPS, _MAX_SPEED, wrap_from=0)
 
     # ------------------------------------------------------------ kinematics, one env
     def _mass_positions(self, q: torch.Tensor) -> torch.Tensor:
@@ -98,40 +97,7 @@ class MaReacher:
         coriolis = jacfwd(momentum)(q) @ qd
         dl_dq = grad(lambda q_: self._kinetic(q_, qd) - self._potential(q_))(q)
         rhs = tau - coriolis + dl_dq - _DAMPING * qd
-        return torch.linalg.solve(mass, rhs)
-
-    def accel(self, q: torch.Tensor, qd: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
-        """q̈ (E, J) of every env: `_accel` vmapped over envs, traced once per
-        batch shape and device."""
-        key = (q.shape, q.device)
-        if key not in self._traced_accel:
-            from torch.fx.experimental.proxy_tensor import make_fx
-
-            batched = vmap(self._accel)
-            traced = make_fx(lambda q, qd, tau: batched(q, qd, tau))(q, qd, tau)
-            traced.graph.eliminate_dead_code()
-            traced.recompile()
-            self._traced_accel[key] = traced
-        return self._traced_accel[key](q, qd, tau)
-
-    def _integrate(self, q: torch.Tensor, qd: torch.Tensor, tau: torch.Tensor):
-        """Classic RK4 on the coupled (q, q̇) ODE, `_SUBSTEPS` per env step, the
-        speed clipped after each; then the angles wrapped (reference :114-139)."""
-        h = _DT / _SUBSTEPS
-        for _ in range(_SUBSTEPS):
-            k1 = (qd, self.accel(q, qd, tau))
-            k2q, k2v = q + 0.5 * h * k1[0], qd + 0.5 * h * k1[1]
-            k2 = (k2v, self.accel(k2q, k2v, tau))
-            k3q, k3v = q + 0.5 * h * k2[0], qd + 0.5 * h * k2[1]
-            k3 = (k3v, self.accel(k3q, k3v, tau))
-            k4q, k4v = q + h * k3[0], qd + h * k3[1]
-            k4 = (k4v, self.accel(k4q, k4v, tau))
-            q = q + (h / 6.0) * (k1[0] + 2 * k2[0] + 2 * k3[0] + k4[0])
-            qd = qd + (h / 6.0) * (k1[1] + 2 * k2[1] + 2 * k3[1] + k4[1])
-            qd = torch.clamp(qd, -_MAX_SPEED, _MAX_SPEED)
-        # jnp.mod and torch.remainder are both floor-mod.
-        q = torch.remainder(q + math.pi, 2 * math.pi) - math.pi
-        return q, qd
+        return solve(mass, rhs)
 
     def _fingertip(self, q: torch.Tensor) -> torch.Tensor:
         """(E, 2) position of the last link's end (the last mass position)."""
@@ -187,7 +153,7 @@ class MaReacher:
              noise: None = None) -> Tuple[MaReacherState, TimeStep]:
         action = torch.clamp(action, -1.0, 1.0)  # (E, A, jpa)
         tau = action.reshape(-1, self.num_joints) * self.torque_scale
-        q, qd = self._integrate(state.q, state.qd, tau)
+        q, qd = self.integrate(state.q, state.qd, tau)
         step_count = state.step_count + 1
         new_state = MaReacherState(step_count, q, qd, state.target)
         reward = self._reward(new_state, action)

@@ -78,13 +78,16 @@ def get_learner_fn(
     config: Config,
     noise: Optional[torch.Tensor] = None,
     permutations: Optional[torch.Tensor] = None,
+    entropy_noise: Optional[torch.Tensor] = None,
 ) -> Callable[[RNNLearnerState], ExperimentOutput]:
     """Build `learner_fn(state)`, which runs `num_updates_per_eval` updates.
 
     `noise` (updates, T, E, A, actions) and `permutations` (updates, epochs,
-    sequences) replace the rollout's Gumbel draws and the epoch shuffles, so a
-    test can hand in the reference's draws; by default both come from the
-    learner state's generator.
+    sequences) replace the rollout's sampling noise (Gumbel or normal) and the epoch
+    shuffles, and `entropy_noise` (updates, epochs, minibatches, *loc) the
+    standard normals of a tanh-Normal's entropy estimate, so a test can hand in
+    the reference's draws; by default all come from the learner state's
+    generator (a discrete head's entropy draws nothing).
     """
     noise_fn = make_rollout_noise_fn(config.network.action_head)
     log_prob_from_params = make_log_prob_from_params(config.network.action_head)
@@ -96,7 +99,7 @@ def get_learner_fn(
     layout = sys_cfg.get("chunk_layout", "contiguous")
     mb_size = num_sequences // sys_cfg.num_minibatches
 
-    def _update_step(state: RNNLearnerState, sample_noise, epoch_perms):
+    def _update_step(state: RNNLearnerState, sample_noise, epoch_perms, ent_noise):
         actor, critic = state.params
         actor_opt, critic_opt = state.opt_states
         gen = state.key
@@ -118,7 +121,8 @@ def get_learner_fn(
                     policy_h, (pytree.tree_map(lambda x: x[None], obs), last_done[None])
                 )
                 action = pi.sample_from_noise(sample_noise[t][None]).squeeze(0)
-                logits = pi.raw_params().squeeze(0)
+                # A tuple (loc, scale) for a continuous head.
+                logits = pytree.tree_map(lambda x: x.squeeze(0), pi.raw_params())
                 env_state, timestep = env.step(
                     env_state, action, env.step_noise(num_envs, gen)
                 )
@@ -184,7 +188,11 @@ def get_learner_fn(
                     actor_loss = clipped_ppo_policy_loss(
                         log_prob, mb_traj.log_prob, mb_adv, sys_cfg.clip_eps
                     )
-                    entropy = pi.entropy().mean()
+                    # A tanh-Normal's entropy is a one-sample estimate: one
+                    # standard normal of loc's shape a minibatch, from `gen`.
+                    entropy = pi.entropy(
+                        gen, None if ent_noise is None else ent_noise[epoch, i]
+                    ).mean()
                     actor_total = actor_loss - ent_coef * entropy
                     actor_grads = torch.autograd.grad(actor_total, actor_params)
 
@@ -225,6 +233,7 @@ def get_learner_fn(
                 state,
                 None if noise is None else noise[u],
                 None if permutations is None else permutations[u],
+                None if entropy_noise is None else entropy_noise[u],
             )
             episode_info.append(info)
             train_info.append(losses)
@@ -279,6 +288,7 @@ def learner_setup(
     centralised_critic: bool = False,
     noise: Optional[torch.Tensor] = None,
     permutations: Optional[torch.Tensor] = None,
+    entropy_noise: Optional[torch.Tensor] = None,
 ) -> Tuple[Callable, torch.nn.Module, RNNLearnerState]:
     """Networks, optimizers, env reset and the learner function."""
     if config.arch.get("stagger_resets", False):
@@ -315,7 +325,9 @@ def learner_setup(
         dones=torch.zeros((num_envs, num_agents), dtype=torch.bool, device=device),
         hstates=hstates,
     )
-    learner = get_learner_fn(env, config, noise=noise, permutations=permutations)
+    learner = get_learner_fn(
+        env, config, noise=noise, permutations=permutations, entropy_noise=entropy_noise
+    )
     return learner, actor, state
 
 

@@ -30,5 +30,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert report["leaked"] == []
     # Every slice's modules are walked, the SAC ones included.
     for name in ("mava_tpu_torch.systems.sac.ff_isac", "mava_tpu_torch.envs.mareacher",
-                 "mava_tpu_torch.replay.item_buffer", "mava_tpu_torch.ops.gru"):
+                 "mava_tpu_torch.replay.item_buffer", "mava_tpu_torch.ops.gru",
+                 "mava_tpu_torch.envs._dynamics", "mava_tpu_torch.envs.pointcloud3d",
+                 "mava_tpu_torch.envs.mahumanoid", "mava_tpu_torch.envs.mawalker"):
         assert name in report["modules"]

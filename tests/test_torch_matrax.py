@@ -128,7 +128,7 @@ def test_bad_tasks_raise(kwargs, match):
 
 
 def test_unported_env_error_lists_matrax():
-    ported = (r"ported: \['Cleaner', 'Gigastep', 'LevelBasedForaging', 'MaConnector', "
-              r"'MaReacher', 'MaSwarm', 'Matrax', 'RobotWarehouse', 'Smax'\]")
-    with pytest.raises(ValueError, match=ported):
-        tenvs.make(load_config("default_ff_ippo", ["env=maswimmer"]), "cpu")
+    """Every environment of the reference is registered in the port, Matrax
+    among them: the two registries hold the same names."""
+    assert "Matrax" in tenvs._REGISTRY
+    assert sorted(tenvs._REGISTRY) == sorted(jenvs._REGISTRY)

@@ -173,8 +173,10 @@ def test_final_step_metrics_match(any_done):
 
 
 def test_unported_env_raises():
-    cfg = load_config("default_rec_ippo", ["env=maswimmer"])
-    with pytest.raises(ValueError, match="not yet ported"):
+    """An env name that no registry holds raises the reference's message."""
+    cfg = load_config("default_rec_ippo")
+    cfg.env.env_name = "NoSuchEnv"
+    with pytest.raises(ValueError, match=r"Unknown environment 'NoSuchEnv'. Available: \["):
         tenvs.make(cfg, "cpu")
 
 

@@ -273,8 +273,21 @@ def _prepare(cfg):
     return cfg
 
 
-def _update_draws(jstate, jout, cfg, unwrapped):
-    """The draws of one JAX update (ff_isac.py:454, :426, :393, :349)."""
+def _maswarm_reset_noise(env_keys, unwrapped):
+    """What the auto-resets after a step of the envs whose keys are `env_keys` draw."""
+    return MaSwarmResetNoise(*map(_t, jax.vmap(lambda k: auto_reset_draws(k, unwrapped))(env_keys)))
+
+
+def _maswarm_key_after_reset(key):
+    """The env key after `MaSwarm.reset(key)` (its first split of three)."""
+    return jax.random.split(key, 3)[0]
+
+
+def _update_draws(jstate, jout, cfg, unwrapped, reset_noise=_maswarm_reset_noise,
+                  key_after_reset=_maswarm_key_after_reset):
+    """The draws of one JAX update (ff_isac.py:454, :426, :393, :349);
+    `reset_noise(env_keys, unwrapped)` gives the env's auto-reset draws and
+    `key_after_reset` the key a reset leaves in the env's state."""
     sys_cfg = cfg.system
     e, a, act, b = cfg.arch.num_envs, unwrapped.num_agents, unwrapped.action_dim, sys_cfg.batch_size
     _, act_key, learn_key = jax.random.split(jstate.key[0], 3)
@@ -301,9 +314,8 @@ def _update_draws(jstate, jout, cfg, unwrapped):
     dones = np.asarray(jout[1][0]["is_terminal_step"])[0]  # (rollout, E)
     env_noise = []
     for done in dones:
-        env_noise.append((None, MaSwarmResetNoise(*map(_t, jax.vmap(
-            lambda k: auto_reset_draws(k, unwrapped))(env_keys)))))
-        reset_keys = jax.vmap(lambda k: jax.random.split(jax.random.split(k)[0], 3)[0])(env_keys)
+        env_noise.append((None, reset_noise(env_keys, unwrapped)))
+        reset_keys = jax.vmap(lambda k: key_after_reset(jax.random.split(k)[0]))(env_keys)
         env_keys = jnp.where(jnp.asarray(done)[:, None], reset_keys, env_keys)
     stack = lambda xs: torch.tensor(np.stack(xs))  # noqa: E731
     return Draws(act_noise=stack(act_noise), rows=stack(rows), q_noise=stack(q_noise),
@@ -333,7 +345,7 @@ def _adam_values(kind: str, params, tree):
     return [_t(tree)]
 
 
-def _load_learner_state(state, jstate):
+def _load_learner_state(state, jstate, to_state=to_torch_state):
     """The port's learner state with the JAX learner's: parameters,
     `log_alpha`, the three Adam states, the buffer, env states, obs, t."""
     s = jax.device_get(jstate)
@@ -355,13 +367,17 @@ def _load_learner_state(state, jstate):
     buffer_state = ItemBufferState(exp, int(np.asarray(s.buffer_state.current_index)),
                                    bool(np.asarray(s.buffer_state.is_full)))
     return state._replace(obs=obs_type(*(_t(x) for x in s.obs)),
-                          env_state=to_torch_state(s.env_state), buffer_state=buffer_state,
+                          env_state=to_state(s.env_state), buffer_state=buffer_state,
                           t=int(np.asarray(s.t)))
 
 
-def check_one_update(system: str, centralised: bool, overrides=()):
+def check_one_update(system: str, centralised: bool, overrides=(),
+                     reset_noise=_maswarm_reset_noise, to_state=to_torch_state,
+                     key_after_reset=_maswarm_key_after_reset):
     """One update of the port from the JAX learner's state and draws, against
-    the JAX learner's (parameters, log_alpha, Adam states, losses, buffer)."""
+    the JAX learner's (parameters, log_alpha, Adam states, losses, buffer).
+    `reset_noise`, `key_after_reset` and `to_state` give the env's draws, keys
+    and state (MaSwarm's by default)."""
     overrides = TINY + list(overrides)
     cfg = _prepare(jax_load_config(system, overrides))
     mesh = make_mesh(jax.devices()[:1])
@@ -373,10 +389,10 @@ def check_one_update(system: str, centralised: bool, overrides=()):
 
     tcfg = _prepare(load_config(system, overrides + ["+arch.device=cpu"]))
     tenv, _ = tenvs.make(tcfg, "cpu", add_global_state=centralised)
-    draws = _update_draws(jstate, jout, cfg, tenv)
+    draws = _update_draws(jstate, jout, cfg, tenv, reset_noise, key_after_reset)
     _, learn, _, state = ff_isac.learner_setup(tenv, torch.Generator().manual_seed(0), tcfg,
                                                torch.device("cpu"), centralised)
-    state = _load_learner_state(state, jstate)
+    state = _load_learner_state(state, jstate, to_state)
     out = learn(state, [draws])
 
     jnew, (jmetrics, jlosses) = jout
