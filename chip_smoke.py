@@ -87,12 +87,21 @@ Run from the root of the repository. It
      ff-MASAC the same on MaHumanoid and MaHopper; continuous ff-IPPO on
      MaWalker (rollout cut to 8, 2 updates; one update of rollout 1 profiled
      for the launches per rollout step and the idle share);
-  11. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
+  11. resume phase: rec-IPPO on SMAX 3s5z at the shipped width with 64 envs
+     through `run_experiment`, 4 updates straight against 2 saved with
+     `logger.checkpointing.save_full_state` and 2 resumed in a fresh run with
+     `load_full_state`: parameters, optimizer moments, generators, env and
+     hidden states bitwise equal, exactly 17 K1 and 16 of each backward kernel
+     an update; one ff-ISAC update on MaSwarm resumed from a full state with a
+     4,096-item buffer, bitwise; ff-IPPO on RWARE tiny-2ag with
+     `arch.stagger_resets=True`: the spread of the envs' step counts after the
+     burn-in, the setup's seconds, one update;
+  12. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
      updates each through their `run_experiment` with the same health checks
      (they reach no hand-written kernel), three timed ff-IPPO updates, ff-IPPO on
      Matrax Penalty-25 for 30 updates with its eval return, and a short run of
      the bench program (`bench_torch.run` at 512 envs);
-  12. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
+  13. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
      512 envs under `torch.profiler`: host ms, launches and kernel ms per span,
      launches per rollout step, per-kernel totals and the device's idle share.
 `--dynamics` runs only two measurements of `envs/_dynamics.py` and exits:
@@ -1486,6 +1495,115 @@ def profile_update(label: str, run, steps: int, rollout_length: int) -> dict:
             "span_launches": span_launches}
 
 
+# ------------------------------------------------------------------ resume phase
+# rec-IPPO on SMAX 3s5z at its shipped width (GRU H = 128, the shipped torsos)
+# with 64 envs: 4 updates in two rounds of 2, against 2 updates saved with their
+# full state, then a fresh run that restores it and trains 2 more.
+RESUME = SMAX + ["arch.num_envs=64", "arch.num_eval_episodes=16", "arch.absolute_metric=False",
+                 "+arch.device=cuda", "logger.use_console=False"]
+RESUME_SAC = ["env=maswarm", "system.explore_steps=64", "system.buffer_size=4096",
+              "system.epochs=4"]
+
+
+def check_bitwise(label: str, got, want) -> None:
+    from mava_tpu_torch.utils.checkpointing import differences, to_host
+
+    diffs = differences(to_host(got), to_host(want))
+    for path, diff in sorted(diffs, key=lambda d: -d[1] if d[1] == d[1] else -float("inf"))[:10]:
+        print(f"  {label}: {path} differs by {diff:.3e}")
+    check(not diffs, f"{label}: the resumed run is not bitwise equal to the uninterrupted one "
+                     f"({len(diffs)} tensors differ)")
+
+
+def resume_phase(gru, gpu: str) -> dict:
+    """The checkpoint path: rec-IPPO on SMAX 3s5z through `run_experiment` as a
+    user resumes it (`save_full_state`, then `load_full_state` with the same
+    uid), bitwise against the uninterrupted run, every kernel launched exactly
+    17 / 16 times an update; one ff-ISAC resume on MaSwarm (the item buffer's
+    save and restore on the card); one ff-IPPO update on RWARE after the
+    staggered-reset burn-in, with the spread of the envs' step counts."""
+    import os
+    import tempfile
+
+    from mava_tpu_torch.systems.ppo import rec_ippo
+    from mava_tpu_torch.utils.checkpointing import Checkpointer
+    from mava_tpu_torch.utils.config import load_config
+
+    here = os.getcwd()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            gru.reset_launch_counts()
+            start = time.perf_counter()
+            _, straight = rec_ippo.run_experiment(load_config("default_rec_ippo", RESUME + [
+                "system.num_updates=4", "arch.num_evaluation=2"]))
+            saving = ["system.num_updates=2", "arch.num_evaluation=1",
+                      "logger.checkpointing.save_model=True",
+                      "logger.checkpointing.save_full_state=True",
+                      "logger.checkpointing.save_args.checkpoint_uid=resume"]
+            rec_ippo.run_experiment(load_config("default_rec_ippo", RESUME + saving))
+            _, resumed = rec_ippo.run_experiment(load_config("default_rec_ippo", RESUME + [
+                "system.num_updates=2", "arch.num_evaluation=1",
+                "logger.checkpointing.load_full_state=True",
+                "logger.checkpointing.load_args.checkpoint_uid=resume"]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            launches = dict(gru.kernel_launches)
+            (saved,) = [int(d) for d in os.listdir("checkpoints/rec_ippo/resume") if d.isdigit()]
+            size = sum(os.path.getsize(os.path.join("checkpoints/rec_ippo/resume", str(saved), f))
+                       for f in ("model.pt", "state.pt"))
+            for _, counter, _, per_update in KERNELS:
+                check(launches[counter] == per_update * 8,
+                      f"resume: {counter} launched {launches[counter]} times in 8 updates, "
+                      f"not {per_update} an update")
+            check(resumed.learner_state.params.actor_params.rnn.wh.device.type == "cuda",
+                  "resume: the restored parameters are not on the card")
+            check_bitwise("rec-IPPO SMAX 3s5z resume", resumed.learner_state,
+                          straight.learner_state)
+            print(f"  rec-IPPO on SMAX 3s5z, 64 envs: 2 + 2 updates resumed from the full state "
+                  f"saved at env-step {saved} ({size / 1e6:.1f} MB) bitwise equal to 4 "
+                  f"uninterrupted updates; 3 runs {wall:.1f} s wall; launches {launches}")
+            out["launches"] = launches
+
+            # ff-ISAC on MaSwarm, cut: the explore phase and an update, saved; one
+            # more against a fresh learner restored.
+            start = time.perf_counter()
+            _, explore, learn, state = sac_learner("default_ff_isac", False, RESUME_SAC)
+            state = learn(explore(state)[0]).learner_state
+            ckpt = Checkpointer(model_name="ff_isac", checkpoint_uid="sac")
+            check(ckpt.save(1, state, full_state=True), "ff-ISAC: the save was skipped")
+            straight_sac = learn(state).learner_state
+            _, _, fresh_learn, fresh = sac_learner("default_ff_isac", False, RESUME_SAC)
+            restored = Checkpointer(model_name="ff_isac", checkpoint_uid="sac").restore_full_state(fresh)
+            check(restored.buffer_state.experience.reward.device.type == "cuda",
+                  "ff-ISAC: the restored buffer is not on the card")
+            check_bitwise("ff-ISAC MaSwarm resume", fresh_learn(restored).learner_state,
+                          straight_sac)
+            print(f"  ff-ISAC on MaSwarm: an update resumed with its buffer of "
+                  f"{restored.buffer_state.experience.reward.shape[0]} items and env-step count "
+                  f"{restored.t} bitwise equal to the uninterrupted update "
+                  f"({time.perf_counter() - start:.1f} s wall)")
+        finally:
+            os.chdir(here)
+
+    # ff-IPPO on RWARE tiny-2ag as shipped (16 envs, time limit 500), staggered.
+    start = time.perf_counter()
+    learn, state, steps = learner("ff_ippo", ["arch.stagger_resets=True"])
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - start
+    counts = state.env_state.env_state.step_count.cpu()
+    out_ff = learn(state)
+    check(all(torch.isfinite(v).all().item() for v in out_ff.train_metrics.values()),
+          "ff-IPPO with stagger_resets: a loss is not finite")
+    print(f"  ff-IPPO on RWARE tiny-2ag with stagger_resets: step counts after the burn-in "
+          f"min {counts.min().item()}, max {counts.max().item()}, "
+          f"{len(set(counts.tolist()))} distinct of {counts.numel()} envs; setup with the "
+          f"burn-in {setup:.1f} s on {gpu}")
+    out["stagger_counts"] = counts.tolist()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU.", file=sys.stderr)
@@ -1536,6 +1654,9 @@ def main() -> int:
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     print("articulated phase (the six articulated envs; ff-ISAC, ff-MASAC, continuous ff-IPPO):")
     articulated_phase(gru, gpu, start)
+    print(f"  ({time.perf_counter() - start:.0f} s since the start)")
+    print("resume phase (rec-IPPO SMAX 3s5z full-state resume; ff-ISAC resume; stagger):")
+    resume = resume_phase(gru, gpu)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     print("feed-forward phase (ff-IPPO, ff-MAPPO, Matrax, the bench program):")
     feedforward_phase(gru, gpu)
@@ -1595,6 +1716,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": sliced["launches"][counter],
             "launches_rec_mappo": mappo["launches"][counter],
+            "launches_resume_rec_ippo_smax": resume["launches"][counter],
             "max_abs_err": kernels["errs"][counter],
             "ms": t16[counter], "plain_ms": t16[counter + "_plain"],
             "bound_ms": bound, "bound_by": bound_by,

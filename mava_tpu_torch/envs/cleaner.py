@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from mava_tpu_torch.specs import DiscreteEnvSpecs
 from mava_tpu_torch.types import Observation, StepType, TimeStep, restart
 
 NUM_ACTIONS = 4
@@ -36,7 +37,7 @@ class CleanerState(NamedTuple):
     dirty: torch.Tensor  # (E, R, C) bool
 
 
-class Cleaner:
+class Cleaner(DiscreteEnvSpecs):
     """Batched Cleaner on one device."""
 
     def __init__(self, num_rows: int = 10, num_cols: int = 10, num_agents: int = 3,

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from mava_tpu_torch.specs import DiscreteEnvSpecs
 from mava_tpu_torch.types import Observation, StepType, TimeStep, restart
 
 NUM_ACTIONS = 5
@@ -45,7 +46,7 @@ def top_cells(uniforms: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(uniforms, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
-class MaConnector:
+class MaConnector(DiscreteEnvSpecs):
     """Batched MaConnector on one device."""
 
     def __init__(self, grid_size: int = 10, num_agents: int = 5, time_limit: int = 50,

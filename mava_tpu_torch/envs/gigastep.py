@@ -37,6 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from mava_tpu_torch.specs import DiscreteEnvSpecs
 from mava_tpu_torch.types import Observation, StepType, TimeStep, restart
 
 NUM_ACTIONS = 9
@@ -83,7 +84,7 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((x * x).sum(-1))
 
 
-class Gigastep:
+class Gigastep(DiscreteEnvSpecs):
     """Batched Gigastep on one device."""
 
     def __init__(self, scenario: str = "hide_and_seek", num_agents: int = 5,

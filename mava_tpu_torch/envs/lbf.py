@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from mava_tpu_torch.envs.connector import top_cells
+from mava_tpu_torch.specs import DiscreteEnvSpecs
 from mava_tpu_torch.types import Observation, StepType, TimeStep, restart
 
 NOOP, UP, DOWN, LEFT, RIGHT, LOAD = range(6)
@@ -55,7 +56,7 @@ class LbfResetNoise(NamedTuple):
     food_level: torch.Tensor  # (E, F) ints; read only when not force_coop
 
 
-class LevelBasedForaging:
+class LevelBasedForaging(DiscreteEnvSpecs):
     """Batched LBF on one device."""
 
     def __init__(self, grid_size: int = 8, fov: int = 8, num_agents: int = 2, num_food: int = 2,

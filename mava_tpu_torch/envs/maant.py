@@ -43,6 +43,7 @@ from mava_tpu_torch.envs._dynamics import (
     uniform_noise,
 )
 from mava_tpu_torch.envs.pointcloud3d import mass_matrix, newton_accel
+from mava_tpu_torch.specs import ContinuousEnvSpecs
 from mava_tpu_torch.types import Observation, TimeStep, restart
 
 _DT = 0.02
@@ -94,7 +95,7 @@ def base_observation(q: torch.Tensor, qd: torch.Tensor) -> torch.Tensor:
                       qd[:, 3:6] / 10.0], dim=-1)
 
 
-class MaAnt:
+class MaAnt(ContinuousEnvSpecs):
     """Batched MaAnt on one device."""
 
     def __init__(self, num_agents: int = 4, joints_per_agent: int = 2, time_limit: int = 250,

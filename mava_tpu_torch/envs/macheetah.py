@@ -41,6 +41,7 @@ from mava_tpu_torch.envs._dynamics import (
     solve,
     uniform_noise,
 )
+from mava_tpu_torch.specs import ContinuousEnvSpecs
 from mava_tpu_torch.types import Observation, TimeStep, restart
 
 _DT = 0.02
@@ -70,7 +71,7 @@ _TOPOLOGY = (
 )
 
 
-class MaCheetah:
+class MaCheetah(ContinuousEnvSpecs):
     """Batched MaCheetah on one device."""
 
     TOPOLOGY = _TOPOLOGY

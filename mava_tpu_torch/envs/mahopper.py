@@ -39,6 +39,7 @@ from mava_tpu_torch.envs._dynamics import (
     solve,
     uniform_noise,
 )
+from mava_tpu_torch.specs import ContinuousEnvSpecs
 from mava_tpu_torch.types import Observation, TimeStep, restart
 
 _DT = 0.02
@@ -58,7 +59,7 @@ _LINK_LENGTHS = (0.5, 0.45, 0.5, 0.35)  # torso, thigh, leg, foot
 _STAND_CLEARANCE = 0.005
 
 
-class MaHopper:
+class MaHopper(ContinuousEnvSpecs):
     """Batched MaHopper on one device."""
 
     def __init__(self, num_agents: int = 3, joints_per_agent: int = 1, time_limit: int = 250,

@@ -40,6 +40,7 @@ from mava_tpu_torch.envs._dynamics import (
 )
 from mava_tpu_torch.envs.maant import base_observation, rpy_matrix
 from mava_tpu_torch.envs.pointcloud3d import mass_matrix, newton_accel
+from mava_tpu_torch.specs import ContinuousEnvSpecs
 from mava_tpu_torch.types import Observation, TimeStep, restart
 
 _DT = 0.02
@@ -119,7 +120,7 @@ def _rod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack([a, 0.5 * (a + b), b])
 
 
-class MaHumanoid:
+class MaHumanoid(ContinuousEnvSpecs):
     """Batched MaHumanoid on one device (upper body 9 joints | lower body 8,
     padded to 9)."""
 

@@ -28,6 +28,7 @@ import torch
 from torch.func import grad, hessian, jacfwd, jvp
 
 from mava_tpu_torch.envs._dynamics import Integrator, solve
+from mava_tpu_torch.specs import ContinuousEnvSpecs
 from mava_tpu_torch.types import Observation, StepType, TimeStep, restart
 
 _DT = 0.05
@@ -51,7 +52,7 @@ class MaReacherResetNoise(NamedTuple):
     angle: torch.Tensor  # (E,) uniform on [-π, π)
 
 
-class MaReacher:
+class MaReacher(ContinuousEnvSpecs):
     """Batched MaReacher on one device."""
 
     def __init__(self, num_agents: int = 2, joints_per_agent: int = 1, time_limit: int = 100,

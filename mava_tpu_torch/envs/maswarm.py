@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from mava_tpu_torch.specs import ContinuousEnvSpecs
 from mava_tpu_torch.types import Observation, StepType, TimeStep, restart
 
 _DT = 0.1
@@ -46,7 +47,7 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((x * x).sum(-1))
 
 
-class MaSwarm:
+class MaSwarm(ContinuousEnvSpecs):
     """Batched MaSwarm on one device."""
 
     def __init__(self, num_agents: int = 3, num_landmarks: Optional[int] = None,

@@ -36,6 +36,7 @@ from mava_tpu_torch.envs._dynamics import (
     solve,
     uniform_noise,
 )
+from mava_tpu_torch.specs import ContinuousEnvSpecs
 from mava_tpu_torch.types import Observation, TimeStep, restart
 
 _DT = 0.04
@@ -49,7 +50,7 @@ _DRAG_TANGENT = 0.1
 _JOINT_DAMPING = 0.3
 
 
-class MaSwimmer:
+class MaSwimmer(ContinuousEnvSpecs):
     """Batched MaSwimmer on one device."""
 
     def __init__(self, num_agents: int = 2, joints_per_agent: int = 1, time_limit: int = 200,

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from mava_tpu_torch.specs import DiscreteEnvSpecs
 from mava_tpu_torch.types import Observation, StepType, TimeStep, restart
 
 _CLIMBING = np.array(
@@ -79,7 +80,7 @@ class MatraxState(NamedTuple):
     last_actions: torch.Tensor  # (E, A) int32
 
 
-class Matrax:
+class Matrax(DiscreteEnvSpecs):
     """Batched matrix game on one device."""
 
     def __init__(

@@ -26,6 +26,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from mava_tpu_torch.specs import DiscreteEnvSpecs
 from mava_tpu_torch.types import Observation, StepType, TimeStep, restart
 
 # Direction encoding: 0=up, 1=right, 2=down, 3=left (clockwise).
@@ -72,7 +73,7 @@ def _build_layout(
     return ~highway, goals, (height, width)
 
 
-class RobotWarehouse:
+class RobotWarehouse(DiscreteEnvSpecs):
     """Batched RWARE on one device."""
 
     def __init__(

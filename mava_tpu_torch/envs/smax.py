@@ -30,6 +30,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from mava_tpu_torch.specs import DiscreteEnvSpecs
 from mava_tpu_torch.types import Observation, StepType, TimeStep, restart
 
 # Unit stats: [hp, dps (per env step), attack_range, sight_range, speed]
@@ -110,7 +111,7 @@ def _norm(rel: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((rel * rel).sum(-1))
 
 
-class Smax:
+class Smax(DiscreteEnvSpecs):
     """Batched SMAX on one device."""
 
     def __init__(

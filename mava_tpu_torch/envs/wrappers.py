@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from mava_tpu_torch import specs
 from mava_tpu_torch.types import ObservationGlobalState, TimeStep
 
 OBS_IN_EXTRAS_KEY = "real_next_obs"
@@ -48,6 +49,16 @@ class Wrapper:
 
     def step(self, state: Any, action: torch.Tensor, noise: Any) -> Tuple[Any, TimeStep]:
         return self._env.step(state, action, noise)
+
+    def observation_spec(self) -> specs.TreeSpec:
+        return self._env.observation_spec()
+
+    def action_spec(self) -> specs.Array:
+        return self._env.action_spec()
+
+    @property
+    def unwrapped(self) -> Any:
+        return getattr(self._env, "unwrapped", self._env)
 
 
 def obs_shape(env: Any) -> Tuple[int, ...]:
@@ -100,6 +111,21 @@ class GlobalStateWrapper(Wrapper):
         state, timestep = self._env.step(state, action, noise)
         return state, self._add_global_state(timestep, state)
 
+    def observation_spec(self) -> specs.TreeSpec:
+        """The inner spec with the global state, one per agent (reference
+        `wrappers.py:97-117`)."""
+        inner = self._env.observation_spec()
+        return specs.TreeSpec(
+            ObservationGlobalState,
+            "ObservationSpec",
+            agents_view=inner.agents_view,
+            action_mask=inner.action_mask,
+            global_state=specs.make_float_spec(
+                (self.num_agents, *self.global_state_shape), "global_state"
+            ),
+            step_count=inner.step_count,
+        )
+
 
 class AgentIDWrapper(Wrapper):
     """Concatenates a one-hot agent id onto `agents_view`
@@ -134,6 +160,13 @@ class AgentIDWrapper(Wrapper):
     def step(self, state: Any, action: torch.Tensor, noise: Any) -> Tuple[Any, TimeStep]:
         state, timestep = self._env.step(state, action, noise)
         return state, self._add_ids(timestep)
+
+    def observation_spec(self) -> specs.TreeSpec:
+        inner = self._env.observation_spec()
+        view = inner.agents_view
+        return inner.replace(
+            agents_view=view.replace(shape=(*view.shape[:-1], view.shape[-1] + self.num_agents))
+        )
 
 
 def _select_envs(done: torch.Tensor, if_done: Any, otherwise: Any) -> Any:

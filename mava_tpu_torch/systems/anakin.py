@@ -1,6 +1,6 @@
-"""What every system's `run_experiment` shares: the device, the keys the port
-does not take yet, the schedule of updates and evaluations, and the
-learn-evaluate-log loop (reference `systems/ppo/ff_ippo.py:402-525`, which each
+"""What every system's `run_experiment` shares: the device, the schedule of
+updates and evaluations, the checkpoint restores, and the learn-evaluate-log
+loop with its checkpoint saves (reference `systems/ppo/ff_ippo.py:402-525`, which each
 reference system repeats; rec-IQL's `:458-601` is the same loop with its
 update count `scan_steps` equal to `num_updates_per_eval`; SAC's
 `ff_isac.py:631-685` runs it from the env-step count after its explore phase).
@@ -18,9 +18,10 @@ from torch.utils import _pytree as pytree
 from mava_tpu_torch.envs.wrappers import get_final_step_metrics
 from mava_tpu_torch.evaluator import EvalActFn, get_eval_fn
 from mava_tpu_torch.types import ExperimentOutput
+from mava_tpu_torch.utils.checkpointing import Checkpointer
 from mava_tpu_torch.utils.config import Config
 from mava_tpu_torch.utils.logger import LogEvent, MavaLogger
-from mava_tpu_torch.utils.profiling import PhaseTimer
+from mava_tpu_torch.utils.profiling import PhaseTimer, maybe_trace
 from mava_tpu_torch.utils.timestep_checker import check_total_timesteps
 
 
@@ -31,14 +32,8 @@ def stack_trees(trees: Sequence[Any]) -> Any:
 
 
 def start_experiment(config: Config) -> torch.device:
-    """Rejects the keys the port does not take yet and returns the device of
-    the run: `arch.device`, "cuda" unless the caller asked for another."""
-    ckpt = config.logger.checkpointing
-    for key in ("save_model", "load_model", "save_full_state", "load_full_state"):
-        if ckpt.get(key, False):
-            raise NotImplementedError(
-                f"logger.checkpointing.{key}=True is not yet ported to mava_tpu_torch."
-            )
+    """The device of the run: `arch.device`, "cuda" unless the caller asked
+    for another."""
     device = torch.device(config.arch.get("device", "cuda"))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -66,6 +61,33 @@ def schedule_updates(config: Config) -> Config:
     return config
 
 
+def restore_full_state(config: Config, learner_state: Any) -> Tuple[Any, Optional[int]]:
+    """With `logger.checkpointing.load_full_state`, the learner state saved
+    under `load_args` (its latest step) put back into `learner_state`, and
+    that step; else (learner_state, None)."""
+    ckpt = config.logger.checkpointing
+    if not ckpt.get("load_full_state", False):
+        return learner_state, None
+    loader = Checkpointer(model_name=config.logger.system_name, **ckpt.load_args)
+    step = loader.latest_step()
+    return loader.restore_full_state(learner_state, step), step
+
+
+def restore_params(config: Config, params: Any, hstates: Any = None) -> Any:
+    """With `logger.checkpointing.load_model`, the saved parameters (and
+    hidden states, when `hstates` is given) loaded into `params` (and
+    `hstates`); returns the hidden states to start from (reference
+    `rec_ippo.py:486-496`, `ff_ippo.py:381-387`)."""
+    ckpt = config.logger.checkpointing
+    if not ckpt.load_model:
+        return hstates
+    loader = Checkpointer(model_name=config.logger.system_name, **ckpt.load_args)
+    _, restored = loader.restore_params(
+        input_params=params, restore_hstates=hstates is not None, input_hstates=hstates
+    )
+    return restored if restored is not None else hstates
+
+
 def train_and_evaluate(
     config: Config,
     device: torch.device,
@@ -78,6 +100,7 @@ def train_and_evaluate(
     misc_metrics: Optional[Callable[[int], Dict[str, float]]] = None,
     rounds: Optional[range] = None,
     logger: Optional[MavaLogger] = None,
+    start_step: int = 0,
 ) -> Tuple[float, ExperimentOutput]:
     """Rounds of learn, log, evaluate, then the absolute metric on the best
     actor; returns (evaluation performance, last learner output).
@@ -86,24 +109,33 @@ def train_and_evaluate(
     `misc_metrics(t)` adds a system's own entries to the MISC log line
     (rec-IQL's epsilon). `rounds` holds the env-step count at which each round
     starts, a round being `rounds.step` env-steps; by default
-    `arch.num_evaluation` rounds of `num_updates_per_eval` updates from 0 (SAC
-    starts after its explore phase). `logger` is the run's logger, if the
-    caller has already logged with it."""
+    `arch.num_evaluation` rounds of `num_updates_per_eval` updates from
+    `start_step` (the step of a resumed checkpoint, else 0; SAC starts after
+    its explore phase). `logger` is the run's logger, if the caller has already
+    logged with it. With `logger.checkpointing.save_model` each round ends
+    with a checkpoint of the learner state."""
     evaluator = get_eval_fn(eval_env, eval_act_fn, config, absolute_metric=False)
     eval_generator = torch.Generator(device=device).manual_seed(config.system.seed + 1)
     if rounds is None:
         steps_per_rollout = (
             config.system.num_updates_per_eval * config.system.rollout_length * config.arch.num_envs
         )
-        rounds = range(0, steps_per_rollout * config.arch.num_evaluation, steps_per_rollout)
+        rounds = range(start_step, start_step + steps_per_rollout * config.arch.num_evaluation,
+                       steps_per_rollout)
     steps_per_rollout = rounds.step
     logger = logger or MavaLogger(config)
+    ckpt = config.logger.checkpointing
+    checkpointer = (
+        Checkpointer(metadata=config.to_dict(), model_name=config.logger.system_name,
+                     **ckpt.save_args)
+        if ckpt.save_model else None
+    )
 
     max_episode_return = -np.inf
     best_actor = None
     for eval_step, start in enumerate(rounds):
         timer = PhaseTimer(device)
-        with timer.phase("learn"):
+        with maybe_trace(config, eval_step), timer.phase("learn"):
             learner_output = learn(learner_state)
         elapsed = timer.phases["learn"]
         t = int(start + steps_per_rollout)
@@ -121,6 +153,13 @@ def train_and_evaluate(
         misc = misc_metrics(t) if misc_metrics else {}
         logger.log({"timestep": t, **misc, **timer.metrics()}, t, eval_step, LogEvent.MISC)
         episode_return = float(np.mean(eval_metrics["episode_return"]))
+        if checkpointer is not None:
+            checkpointer.save(
+                timestep=t,
+                unreplicated_learner_state=learner_output.learner_state,
+                episode_return=episode_return,
+                full_state=ckpt.get("save_full_state", False),
+            )
         if config.arch.absolute_metric and max_episode_return <= episode_return:
             best_actor = copy.deepcopy(actor)
             max_episode_return = episode_return

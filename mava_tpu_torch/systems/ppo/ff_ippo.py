@@ -27,6 +27,7 @@ from torch.profiler import record_function
 from torch.utils import _pytree as pytree
 
 from mava_tpu_torch import envs as environments
+from mava_tpu_torch.envs.stagger import stagger_env_states, stagger_generator
 from mava_tpu_torch.envs.wrappers import obs_shape
 from mava_tpu_torch.evaluator import make_ff_eval_act_fn
 from mava_tpu_torch.networks import FeedForwardActor, FeedForwardValueNet
@@ -39,6 +40,8 @@ from mava_tpu_torch.networks.factory import (
 from mava_tpu_torch.ops import clipped_ppo_policy_loss, clipped_value_loss
 from mava_tpu_torch.ops.gae import calculate_gae
 from mava_tpu_torch.systems.anakin import (
+    restore_full_state,
+    restore_params,
     schedule_updates,
     stack_trees,
     start_experiment,
@@ -49,6 +52,7 @@ from mava_tpu_torch.types import ExperimentOutput
 from mava_tpu_torch.utils.config import Config, load_config
 from mava_tpu_torch.utils.training import (
     entropy_coefficient,
+    epoch_permutations,
     make_learning_rate,
     make_optimizer,
 )
@@ -118,10 +122,7 @@ def get_learner_fn(
                 lambda x: x.flatten(0, 1), (traj._replace(info={}), advantages, targets)
             )
             if epoch_perms is None:
-                epoch_perms = torch.stack([
-                    torch.randperm(batch_size, generator=gen, device=device)
-                    for _ in range(sys_cfg.ppo_epochs)
-                ])
+                epoch_perms = epoch_permutations(sys_cfg.ppo_epochs, batch_size, gen, device)
 
         actor_params = list(actor.parameters())
         critic_params = list(critic.parameters())
@@ -230,11 +231,6 @@ def learner_setup(
     entropy_noise: Optional[torch.Tensor] = None,
 ) -> Tuple[Callable, torch.nn.Module, LearnerState]:
     """Networks, optimizers, env reset and the learner function."""
-    if config.arch.get("stagger_resets", False):
-        raise NotImplementedError(
-            "arch.stagger_resets=True is not yet ported to mava_tpu_torch "
-            "(envs/stagger.py; see ROADMAP.md, Queue 1)."
-        )
     config.system.num_agents = env.num_agents
     actor, critic = make_networks(env, config, device, config.system.seed, centralised_critic)
 
@@ -248,6 +244,12 @@ def learner_setup(
     )
 
     env_state, timestep = env.reset(env.reset_noise(config.arch.num_envs, generator))
+    if config.arch.get("stagger_resets", False):
+        # Desynchronise the episode boundaries across the batch (envs/stagger.py).
+        env_state, timestep = stagger_env_states(
+            env, env_state, timestep, stagger_generator(config.system.seed, device)
+        )
+    restore_params(config, Params(actor, critic))
     state = LearnerState(
         params=Params(actor, critic),
         opt_states=OptStates(actor_opt, critic_opt),
@@ -275,10 +277,12 @@ def run_experiment(
     learn, actor, learner_state = learner_setup(
         env, generator, config, device, centralised_critic
     )
+    # A PPO resume trains a fresh budget on top of the saved state.
+    learner_state, start = restore_full_state(config, learner_state)
     # A feed-forward actor carries no state through an episode.
     return train_and_evaluate(
         config, device, learn, actor, learner_state, eval_env,
-        make_ff_eval_act_fn(config), lambda absolute_metric: {},
+        make_ff_eval_act_fn(config), lambda absolute_metric: {}, start_step=start or 0,
     )
 
 

@@ -21,13 +21,14 @@ from __future__ import annotations
 
 import copy
 import sys
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
 from torch.utils import _pytree as pytree
 
 from mava_tpu_torch import envs as environments
+from mava_tpu_torch.envs.stagger import reject_stagger
 from mava_tpu_torch.envs.wrappers import obs_shape
 from mava_tpu_torch.evaluator import get_num_eval_envs, make_rec_eval_act_fn
 from mava_tpu_torch.networks import RecurrentActor, RecurrentValueNet, ScannedRNN
@@ -40,6 +41,8 @@ from mava_tpu_torch.networks.factory import (
 from mava_tpu_torch.ops import clipped_ppo_policy_loss, clipped_value_loss
 from mava_tpu_torch.ops.gae import calculate_gae_with_next_done
 from mava_tpu_torch.systems.anakin import (
+    restore_full_state,
+    restore_params,
     schedule_updates,
     stack_trees,
     start_experiment,
@@ -56,6 +59,7 @@ from mava_tpu_torch.types import ExperimentOutput
 from mava_tpu_torch.utils.config import Config, load_config
 from mava_tpu_torch.utils.training import (
     entropy_coefficient,
+    epoch_permutations,
     make_learning_rate,
     make_optimizer,
 )
@@ -79,15 +83,18 @@ def get_learner_fn(
     noise: Optional[torch.Tensor] = None,
     permutations: Optional[torch.Tensor] = None,
     entropy_noise: Optional[torch.Tensor] = None,
+    env_noise: Optional[Sequence[Sequence[Any]]] = None,
 ) -> Callable[[RNNLearnerState], ExperimentOutput]:
     """Build `learner_fn(state)`, which runs `num_updates_per_eval` updates.
 
     `noise` (updates, T, E, A, actions) and `permutations` (updates, epochs,
     sequences) replace the rollout's sampling noise (Gumbel or normal) and the epoch
-    shuffles, and `entropy_noise` (updates, epochs, minibatches, *loc) the
-    standard normals of a tanh-Normal's entropy estimate, so a test can hand in
-    the reference's draws; by default all come from the learner state's
-    generator (a discrete head's entropy draws nothing).
+    shuffles, `entropy_noise` (updates, epochs, minibatches, *loc) the
+    standard normals of a tanh-Normal's entropy estimate, and `env_noise[u][t]`
+    what `env.step_noise` would draw at step t of update u (the auto-reset's
+    draws included), so a test can hand in the reference's draws; by default
+    all come from the learner state's generator (a discrete head's entropy
+    draws nothing).
     """
     noise_fn = make_rollout_noise_fn(config.network.action_head)
     log_prob_from_params = make_log_prob_from_params(config.network.action_head)
@@ -99,7 +106,7 @@ def get_learner_fn(
     layout = sys_cfg.get("chunk_layout", "contiguous")
     mb_size = num_sequences // sys_cfg.num_minibatches
 
-    def _update_step(state: RNNLearnerState, sample_noise, epoch_perms, ent_noise):
+    def _update_step(state: RNNLearnerState, sample_noise, epoch_perms, ent_noise, step_noise):
         actor, critic = state.params
         actor_opt, critic_opt = state.opt_states
         gen = state.key
@@ -124,7 +131,8 @@ def get_learner_fn(
                 # A tuple (loc, scale) for a continuous head.
                 logits = pytree.tree_map(lambda x: x.squeeze(0), pi.raw_params())
                 env_state, timestep = env.step(
-                    env_state, action, env.step_noise(num_envs, gen)
+                    env_state, action,
+                    env.step_noise(num_envs, gen) if step_noise is None else step_noise[t],
                 )
                 done = timestep.last()[:, None].expand(-1, sys_cfg.num_agents)
                 info = timestep.extras["episode_metrics"]
@@ -165,10 +173,7 @@ def get_learner_fn(
             )
             seq_major = pytree.tree_map(lambda x: x.swapaxes(0, 1), batch)
             if epoch_perms is None:
-                epoch_perms = torch.stack([
-                    torch.randperm(num_sequences, generator=gen, device=device)
-                    for _ in range(sys_cfg.ppo_epochs)
-                ])
+                epoch_perms = epoch_permutations(sys_cfg.ppo_epochs, num_sequences, gen, device)
 
         actor_params = list(actor.parameters())
         critic_params = list(critic.parameters())
@@ -234,6 +239,7 @@ def get_learner_fn(
                 None if noise is None else noise[u],
                 None if permutations is None else permutations[u],
                 None if entropy_noise is None else entropy_noise[u],
+                None if env_noise is None else env_noise[u],
             )
             episode_info.append(info)
             train_info.append(losses)
@@ -289,13 +295,10 @@ def learner_setup(
     noise: Optional[torch.Tensor] = None,
     permutations: Optional[torch.Tensor] = None,
     entropy_noise: Optional[torch.Tensor] = None,
+    env_noise: Optional[Sequence[Sequence[Any]]] = None,
 ) -> Tuple[Callable, torch.nn.Module, RNNLearnerState]:
     """Networks, optimizers, env reset and the learner function."""
-    if config.arch.get("stagger_resets", False):
-        raise ValueError(
-            "arch.stagger_resets=True is not supported by rec-IPPO/rec-MAPPO "
-            "(feedforward PPO systems only)."
-        )
+    reject_stagger(config, "rec-IPPO/rec-MAPPO")
     num_agents = env.num_agents
     config.system.num_agents = num_agents
     actor, critic = make_networks(env, config, device, config.system.seed, centralised_critic)
@@ -316,6 +319,7 @@ def learner_setup(
         ScannedRNN.initialize_carry((num_envs, num_agents), hidden, device),
         ScannedRNN.initialize_carry((num_envs, num_agents), hidden, device),
     )
+    hstates = restore_params(config, Params(actor, critic), hstates)
     state = RNNLearnerState(
         params=Params(actor, critic),
         opt_states=OptStates(actor_opt, critic_opt),
@@ -326,7 +330,8 @@ def learner_setup(
         hstates=hstates,
     )
     learner = get_learner_fn(
-        env, config, noise=noise, permutations=permutations, entropy_noise=entropy_noise
+        env, config, noise=noise, permutations=permutations, entropy_noise=entropy_noise,
+        env_noise=env_noise,
     )
     return learner, actor, state
 
@@ -350,6 +355,8 @@ def run_experiment(
     learn, actor, learner_state = learner_setup(
         env, generator, config, device, centralised_critic
     )
+    # A PPO resume trains a fresh budget on top of the saved state.
+    learner_state, start = restore_full_state(config, learner_state)
 
     def eval_hidden(absolute_metric: bool) -> Dict[str, torch.Tensor]:
         return {
@@ -362,7 +369,7 @@ def run_experiment(
 
     return train_and_evaluate(
         config, device, learn, actor, learner_state, eval_env,
-        make_rec_eval_act_fn(config), eval_hidden,
+        make_rec_eval_act_fn(config), eval_hidden, start_step=start or 0,
     )
 
 

@@ -36,12 +36,14 @@ from torch.utils import _pytree as pytree
 
 from mava_tpu_torch import envs as environments
 from mava_tpu_torch.distributions import gumbel, masked_greedy
+from mava_tpu_torch.envs.stagger import reject_stagger
 from mava_tpu_torch.envs.wrappers import obs_shape
 from mava_tpu_torch.evaluator import get_num_eval_envs
 from mava_tpu_torch.networks import RecQNetwork, ScannedRNN
 from mava_tpu_torch.networks.factory import make_torso
 from mava_tpu_torch.replay import TrajectoryBuffer
 from mava_tpu_torch.systems.anakin import (
+    restore_full_state,
     schedule_updates,
     stack_trees,
     start_experiment,
@@ -246,11 +248,7 @@ def learner_setup(
     draws: Optional[Sequence[Draws]] = None,
 ) -> Tuple[Callable, RecQNetwork, LearnerState]:
     """Networks, optimizer, buffer, env reset and the learner function."""
-    if config.arch.get("stagger_resets", False):
-        raise ValueError(
-            "arch.stagger_resets=True is not supported by rec-IQL "
-            "(feedforward PPO systems only)."
-        )
+    reject_stagger(config, "rec-IQL")
     num_agents = env.num_agents
     config.system.num_agents = num_agents
     online = make_q_network(env, config, device, config.system.seed)
@@ -308,6 +306,19 @@ def run_experiment(_config: Config) -> Tuple[float, ExperimentOutput]:
     config = schedule_updates(config)
     generator = torch.Generator(device=device).manual_seed(config.system.seed)
     learner, q_net, learner_state = learner_setup(env, generator, config, device)
+    # A resume trains what is left of total_timesteps from the saved step
+    # (reference :465-479, :521-530).
+    learner_state, resumed = restore_full_state(config, learner_state)
+    rounds = None
+    if resumed is not None:
+        step = config.system.num_updates_per_eval * config.system.rollout_length \
+            * config.arch.num_envs
+        rounds = range(resumed, int(config.system.total_timesteps) - step + 1, step)
+        if not len(rounds):
+            raise ValueError(
+                f"Resumed at env-step {resumed} with total_timesteps="
+                f"{int(config.system.total_timesteps)}: nothing is left to train; raise "
+                "system.total_timesteps to extend the run.")
     bound = float(config.system.get("q_divergence_warn_bound", 1e3))
 
     def learn(state: LearnerState) -> ExperimentOutput:
@@ -326,7 +337,7 @@ def run_experiment(_config: Config) -> Tuple[float, ExperimentOutput]:
 
     return train_and_evaluate(
         config, device, learn, q_net, learner_state, eval_env, make_eval_act_fn(), eval_hidden,
-        misc_metrics=lambda t: {"epsilon": float(epsilon_schedule(config, t))},
+        misc_metrics=lambda t: {"epsilon": float(epsilon_schedule(config, t))}, rounds=rounds,
     )
 
 

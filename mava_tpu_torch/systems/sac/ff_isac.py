@@ -45,12 +45,18 @@ from torch.utils import _pytree as pytree
 
 from mava_tpu_torch import envs as environments
 from mava_tpu_torch.distributions import normal
+from mava_tpu_torch.envs.stagger import reject_stagger
 from mava_tpu_torch.envs.wrappers import get_final_step_metrics
 from mava_tpu_torch.evaluator import make_ff_eval_act_fn
 from mava_tpu_torch.networks import FeedForwardActor, FeedForwardQNet
 from mava_tpu_torch.networks.factory import make_action_head, make_torso
 from mava_tpu_torch.replay import ItemBuffer
-from mava_tpu_torch.systems.anakin import stack_trees, start_experiment, train_and_evaluate
+from mava_tpu_torch.systems.anakin import (
+    restore_full_state,
+    stack_trees,
+    start_experiment,
+    train_and_evaluate,
+)
 from mava_tpu_torch.systems.sac.types import (
     Draws,
     LearnerState,
@@ -327,11 +333,7 @@ def learner_setup(
     """Networks (targets as copies of the online critics), temperature, the
     three optimizers, the buffer, the env reset; returns (explore_fn,
     learner_fn, actor, state)."""
-    if config.arch.get("stagger_resets", False):
-        raise ValueError(
-            "arch.stagger_resets=True is not supported by ff-ISAC/ff-MASAC "
-            "(feedforward PPO systems only)."
-        )
+    reject_stagger(config, "ff-ISAC/ff-MASAC")
     sys_cfg = config.system
     num_agents, act = env.num_agents, env.action_dim
     sys_cfg.num_agents = num_agents
@@ -385,23 +387,32 @@ def run_experiment(_config: Config, centralised_critic: bool = False) -> Tuple[f
     generator = torch.Generator(device=device).manual_seed(config.system.seed)
     explore, learner, actor, state = learner_setup(env, generator, config, device,
                                                    centralised_critic)
+    # A resume restores the whole state, the env-step count included: it
+    # trains what is left of total_timesteps and skips the explore phase
+    # (reference :574-625).
+    state, resumed = restore_full_state(config, state)
     logger = MavaLogger(config)
 
-    start_time = time.perf_counter()
-    state, metrics = explore(state)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    t = state.t
-    logger.log({"step": t}, t, 0, LogEvent.MISC)
-    final_metrics, ep_completed = get_final_step_metrics(metrics)
-    final_metrics["steps_per_second"] = t / (time.perf_counter() - start_time)
-    if ep_completed:  # a long time limit may end no episode while exploring
-        logger.log(final_metrics, t, 0, LogEvent.ACT)
+    if resumed is None:
+        start_time = time.perf_counter()
+        state, metrics = explore(state)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t = state.t
+        logger.log({"step": t}, t, 0, LogEvent.MISC)
+        final_metrics, ep_completed = get_final_step_metrics(metrics)
+        final_metrics["steps_per_second"] = t / (time.perf_counter() - start_time)
+        if ep_completed:  # a long time limit may end no episode while exploring
+            logger.log(final_metrics, t, 0, LogEvent.ACT)
+    else:
+        t = state.t
+        logger.log({"step": t}, t, 0, LogEvent.MISC)
 
     rounds = range(t, int(config.system.total_timesteps) + 1, steps_per_rollout)
     if not len(rounds):
-        raise ValueError(f"The explore phase took {t} env-steps: nothing is left of "
-                         f"total_timesteps={config.system.total_timesteps}.")
+        raise ValueError(f"Training starts at env-step {t}: nothing is left of "
+                         f"total_timesteps={config.system.total_timesteps}; raise "
+                         "system.total_timesteps to extend the run.")
     bound = float(config.system.get("q_divergence_warn_bound", 1e3))
 
     def learn(learner_state: LearnerState) -> ExperimentOutput:

@@ -1,10 +1,13 @@
 """Metric logging facade (port of `mava_tpu/utils/logger.py`).
 
-Console and marl-eval JSON backends, with the reference's file layout:
+Console, TensorBoard, marl-eval JSON and neptune.ai backends, as the
+reference's. The JSON file is
 `<base_exp_path>/json/<system_name>/<timestamp>/metrics.json` holding
 {env_name: {task_name: {algorithm: {run_<seed>: {step_<i>: {...},
-absolute_metrics: {...}}}}}}. The TensorBoard and Neptune backends are not yet
-ported and raise when enabled.
+absolute_metrics: {...}}}}}}; the tfevents files go to
+`<base_exp_path>/tensorboard/<system_name>/<timestamp>/` (`utils/tbwriter.py`,
+no TensorBoard package needed). The neptune package is imported only when
+`logger.use_neptune` is set, and its absence is then a clear error.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ import abc
 import json
 import logging
 import os
+import shutil
+import tempfile
 from datetime import datetime
 from enum import Enum
 from typing import Any, Dict, List, Union
@@ -43,6 +48,12 @@ def describe(x: Any) -> Union[Dict[str, Any], Any]:
 
 def _to_host(x: Any) -> Any:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _sorted_keys(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _sorted_keys(tree[k]) for k in sorted(tree)}
+    return tree
 
 
 def _flatten(d: Dict, parent: str = "", sep: str = "/") -> Dict[str, Any]:
@@ -126,6 +137,81 @@ class ConsoleLogger(BaseLogger):
         )
 
 
+class TensorboardLogger(BaseLogger):
+    """Scalars to a tfevents file (reference `logger.py:128-144`); an
+    evaluation is logged at its evaluation index, every other event at its
+    env-step."""
+
+    def __init__(self, cfg, unique_token: str):
+        from mava_tpu_torch.utils.tbwriter import TensorboardWriter
+
+        path = os.path.join(
+            cfg.logger.base_exp_path, "tensorboard", cfg.logger.system_name, unique_token
+        )
+        self.writer = TensorboardWriter(path)
+
+    def log_stat(self, key, value, step, eval_step, event) -> None:
+        t = step if event != LogEvent.EVAL else eval_step
+        value = value.item() if isinstance(value, (np.ndarray, np.generic)) else value
+        if isinstance(value, (int, float)):
+            self.writer.scalar(f"{event.value}/{key}", value, t)
+
+    def stop(self) -> None:
+        self.writer.close()
+
+
+class NeptuneLogger(BaseLogger):
+    """neptune.ai backend (reference `logger.py:147-210`): tags and the config
+    at start, only the main metrics unless `detailed_neptune_logging`, and with
+    `upload_json_data` this run's marl-eval JSON zipped and uploaded on stop.
+    The neptune package is imported here, so that the port runs without it."""
+
+    # Metrics logged even when detailed logging is off.
+    _MAIN_METRICS = ("episode_return", "win_rate", "steps_per_second")
+
+    def __init__(self, cfg, unique_token: str):
+        try:
+            import neptune  # type: ignore
+        except ImportError as e:
+            raise RuntimeError(
+                "logger.use_neptune=True but the neptune package is not installed."
+            ) from e
+        kwargs = cfg.logger.kwargs
+        # The reference key is `neptune_tag`; the plural alias is honoured too.
+        tags = kwargs.get("neptune_tag") or kwargs.get("neptune_tags") or []
+        self.run = neptune.init_run(project=kwargs.get("neptune_project"), tags=list(tags))
+        self.run["config"] = cfg.to_dict() if hasattr(cfg, "to_dict") else dict(cfg)
+        self.detailed = bool(
+            kwargs.get("detailed_neptune_logging", False) or kwargs.get("detailed_logging", False)
+        )
+        self.upload_json_data = bool(kwargs.get("upload_json_data", False))
+        # This run's marl-eval JSON directory only (JsonLogger's layout).
+        self._json_base = os.path.join(
+            cfg.logger.base_exp_path, "json", cfg.logger.system_name, unique_token
+        )
+        self.unique_token = unique_token
+
+    def log_stat(self, key, value, step, eval_step, event) -> None:
+        value = value.item() if isinstance(value, (np.ndarray, np.generic)) else value
+        if not (self.detailed or any(key.startswith(m) for m in self._MAIN_METRICS)):
+            return
+        handler = self.run[f"{event.value}/{key}"]
+        if hasattr(handler, "append"):  # neptune >= 1.0
+            handler.append(value, step=step)
+        else:  # older clients
+            handler.log(value, step=step)
+
+    def stop(self) -> None:
+        if self.upload_json_data and os.path.isdir(self._json_base):
+            zip_path = shutil.make_archive(
+                os.path.join(tempfile.gettempdir(), f"metrics_{self.unique_token}"),
+                "zip",
+                self._json_base,
+            )
+            self.run["metrics_json"].upload(zip_path)
+        self.run.stop()
+
+
 class JsonLogger(BaseLogger):
     """marl-eval-format JSON (reference `logger.py:215-313`)."""
 
@@ -194,13 +280,12 @@ class MavaLogger:
 
     def __init__(self, config):
         self.cfg = config
-        for key in ("use_tb", "use_neptune"):
-            if config.logger.get(key):
-                raise NotImplementedError(
-                    f"logger.{key}=True is not yet ported to mava_tpu_torch."
-                )
         loggers: List[BaseLogger] = []
         unique_token = datetime.now().strftime("%Y%m%d%H%M%S")
+        if config.logger.get("use_neptune"):
+            loggers.append(NeptuneLogger(config, unique_token))
+        if config.logger.get("use_tb"):
+            loggers.append(TensorboardLogger(config, unique_token))
         if config.logger.get("use_json"):
             loggers.append(JsonLogger(config, unique_token))
         if config.logger.get("use_console", True):
@@ -210,7 +295,9 @@ class MavaLogger:
     def log(self, metrics: Dict, t: int, t_eval: int, event: LogEvent) -> None:
         if "won_episode" in metrics:
             metrics = self.calc_winrate(metrics, event)
-        metrics = pytree.tree_map(_to_host, metrics)
+        # Keys in sorted order at every level, as the reference's `jax.tree.map`
+        # leaves them: the console line and the TensorBoard records follow it.
+        metrics = _sorted_keys(pytree.tree_map(_to_host, metrics))
         if event == LogEvent.TRAIN:
             metrics = pytree.tree_map(np.mean, metrics)
         else:

@@ -94,6 +94,14 @@ def entropy_coefficient(config, actor_optimizer: ClippedAdam) -> float:
     return init + (final - init) * frac
 
 
+def epoch_permutations(epochs: int, n: int, generator: torch.Generator,
+                       device: torch.device) -> torch.Tensor:
+    """(epochs, n): one uniform permutation of n per epoch, the PPO systems'
+    minibatch shuffles (the reference argsorts random bits, :262-270)."""
+    return torch.stack([torch.randperm(n, generator=generator, device=device)
+                        for _ in range(epochs)])
+
+
 def select_along_last(values: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """values[..., index] over the last axis; out-of-range indices clamp, as the
     reference's one-hot select does."""

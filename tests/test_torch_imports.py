@@ -32,5 +32,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for name in ("mava_tpu_torch.systems.sac.ff_isac", "mava_tpu_torch.envs.mareacher",
                  "mava_tpu_torch.replay.item_buffer", "mava_tpu_torch.ops.gru",
                  "mava_tpu_torch.envs._dynamics", "mava_tpu_torch.envs.pointcloud3d",
-                 "mava_tpu_torch.envs.mahumanoid", "mava_tpu_torch.envs.mawalker"):
+                 "mava_tpu_torch.envs.mahumanoid", "mava_tpu_torch.envs.mawalker",
+                 "mava_tpu_torch.specs", "mava_tpu_torch.envs.stagger",
+                 "mava_tpu_torch.utils.checkpointing", "mava_tpu_torch.utils.tbwriter",
+                 "mava_tpu_torch.utils.profiling", "mava_tpu_torch.envs.render",
+                 "mava_tpu_torch.examples.render_episode"):
         assert name in report["modules"]

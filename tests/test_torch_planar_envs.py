@@ -82,6 +82,7 @@ class Pair:
         self.tenv, _ = tenvs.make(load_config("default_ff_isac", overrides), "cpu")
         self.ju, self.tu = self.jenv.unwrapped, inner(self.tenv)
         self.jstep = jax.jit(jax.vmap(self.jenv.step))
+        self.jreset = jax.jit(jax.vmap(self.jenv.reset))  # eager, MaHumanoid's takes seconds
         self.jaccel = jax.jit(jax.vmap(self.ju._accel))
 
     def states(self, seed: int):
@@ -90,7 +91,7 @@ class Pair:
         base, up, _, _, _ = BODIES[self.name]
         rng = np.random.default_rng(seed)
         keys = jax.random.split(jax.random.PRNGKey(seed), NUM_ENVS)
-        q = np.array(jax.vmap(self.jenv.reset)(keys)[0].env_state.q)
+        q = np.array(self.jreset(keys)[0].env_state.q)
         n = q.shape[1]
         q[0, up] -= 0.01
         q[1, up] += 1.0
@@ -105,7 +106,7 @@ class Pair:
 
     def jax_state(self, q, qd, steps=4):
         keys = jax.random.split(jax.random.PRNGKey(0), NUM_ENVS)
-        jstate, _ = jax.vmap(self.jenv.reset)(keys)
+        jstate, _ = self.jreset(keys)
         env_state = jstate.env_state.replace(
             q=jnp.asarray(q), qd=jnp.asarray(qd), step_count=jnp.full((NUM_ENVS,), steps, jnp.int32))
         return jstate.replace(env_state=env_state)
@@ -197,7 +198,7 @@ def run_rollout(pair, steps: int, seed: int, tol=ROLLOUT_TOL):
     terminations (discount 0) and auto-resets."""
     base, _, _, _, push = BODIES[pair.name]
     keys = jax.random.split(jax.random.PRNGKey(seed), NUM_ENVS)
-    jstate, jts = jax.vmap(pair.jenv.reset)(keys)
+    jstate, jts = pair.jreset(keys)
     pitch = 2 if base == 3 else 4  # th, or the pitch of (roll, pitch, yaw)
     env_state = jstate.env_state.replace(qd=jstate.env_state.qd.at[:, pitch].set(push))
     jstate = jstate.replace(env_state=env_state)

@@ -162,11 +162,22 @@ def test_cuda_device_without_cuda_raises(fast_config_overrides):
 
 
 @pytest.mark.parametrize("key", ["save_model", "load_model"])
-def test_checkpointing_is_not_yet_ported(fast_config_overrides, key):
+def test_checkpointing_is_not_yet_ported(fast_config_overrides, key, tmp_path, monkeypatch):
+    """Checkpointing is ported (`utils/checkpointing.py`): `save_model` writes
+    the params and hidden states of each round, and `load_model` reads them,
+    failing loudly where there is no checkpoint to read."""
+    monkeypatch.chdir(tmp_path)
     cfg = load_config("default_rec_ippo", fast_config_overrides + [
-        "+arch.device=cpu", f"logger.checkpointing.{key}=True"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        rec_ippo.run_experiment(cfg)
+        "+arch.device=cpu", f"logger.checkpointing.{key}=True", "env.kwargs.time_limit=16",
+        "logger.checkpointing.save_args.checkpoint_uid=u",
+        "logger.checkpointing.load_args.checkpoint_uid=u"])
+    if key == "load_model":
+        with pytest.raises(FileNotFoundError, match="No checkpoint"):
+            rec_ippo.run_experiment(cfg)
+        return
+    rec_ippo.run_experiment(cfg)
+    (saved,) = tmp_path.glob("checkpoints/rec_ippo/u/*/model.pt")
+    assert set(torch.load(saved, weights_only=True)) == {"params", "hstates"}
 
 
 @pytest.mark.parametrize("overrides", [

@@ -384,8 +384,10 @@ def check_one_update(system: str, centralised: bool, overrides=(),
     explore, update, jstate = jff_isac.build_bench_learners(cfg, mesh, centralised)
     jstate, _ = explore(jstate)
     jstate, _ = update(jstate)  # warm-up: the buffer wraps
-    jstate = jax.device_get(jstate)
+    # The update called on the arrays it made, so its compiled program is reused
+    # (host copies in would compile it again).
     jout = jax.device_get(update(jstate))
+    jstate = jax.device_get(jstate)
 
     tcfg = _prepare(load_config(system, overrides + ["+arch.device=cpu"]))
     tenv, _ = tenvs.make(tcfg, "cpu", add_global_state=centralised)
