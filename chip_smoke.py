@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py [--profile | --dynamics]
+    python3 chip_smoke.py [--profile | --seeds | --dynamics]
 
 Run from the root of the repository. It
   1. prints the torch and CUDA versions and the card's name and power limit;
@@ -96,15 +96,29 @@ Run from the root of the repository. It
      4,096-item buffer, bitwise; ff-IPPO on RWARE tiny-2ag with
      `arch.stagger_resets=True`: the spread of the envs' step counts after the
      burn-in, the setup's seconds, one update;
-  12. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
+  12. seed phase: the stacked GRU kernels of the seed programs (the stacked K1
+     with a keep per entry, K2p, K2a and K2b with the stack entry as one more
+     grid dimension) against their plain versions at S = 4 and 8 on the SMAX
+     3s5z path shapes (T = 128, B = 128 and 64), gradients bitwise repeatable,
+     timed beside S unstacked calls, their bounds and S cuDNN backward calls;
+     `rec_ippo_vmap_seeds.run_experiment` at S = 4 on SMAX 3s5z at the shipped
+     width, 2 updates with exactly 17 stacked K1 and 16 of each stacked
+     backward kernel an update (and no unstacked launch); one stacked update
+     against 4 stock updates from the same draws (parameters within 1e-4); an
+     ff-IPPO sweep of 4 lrs and a rec-IPPO PBT of 4 members with one exploit
+     step, cut in depth; the launches of a whole stacked update at S = 8
+     against S = 1 (at most 1.5x) and env-steps/s at S = 1, 4, 8 beside one
+     stock update;
+  13. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
      updates each through their `run_experiment` with the same health checks
      (they reach no hand-written kernel), three timed ff-IPPO updates, ff-IPPO on
      Matrax Penalty-25 for 30 updates with its eval return, and a short run of
      the bench program (`bench_torch.run` at 512 envs);
-  13. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
+  14. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
      512 envs under `torch.profiler`: host ms, launches and kernel ms per span,
      launches per rollout step, per-kernel totals and the device's idle share.
-`--dynamics` runs only two measurements of `envs/_dynamics.py` and exits:
+`--seeds` builds the kernels and runs only the seed phase. `--dynamics` runs
+only two measurements of `envs/_dynamics.py` and exits:
 MaReacher with the checked solve of the parent against the unchecked one, and
 tracing a whole RK4 substep against tracing q̈ alone (`dynamics_ab`).
 It prints one JSON line with the kernels' records, then, as its last line,
@@ -265,19 +279,22 @@ def gru_inputs(t_len: int, b: int, h: int, seed: int, resets: float = 0.1, devic
 
 
 # ------------------------------------------------------------------ bounds
-def kernel_work(kernel: str, t_len: int, b: int, h: int, slices: int = 1, stack: int = 1):
+def kernel_work(kernel: str, t_len: int, b: int, h: int, slices: int = 1, stack: int = 1,
+                shared_keep: bool = True):
     """(FLOP, bytes) one call of `kernel` needs: the matrix product's multiply-adds
     counted as 2, every input read once and every output written once, fp32.
     `bwd_reduce` is the whole function (both of K2b's kernels, no scratch) and
     does not depend on `slices`; `bwd_reduce_sum` is the second kernel alone,
-    whose input is the `slices` partial sums. `fwd_stacked` is K1 for each of
-    `stack` entries, which share one `keep`."""
+    whose input is the `slices` partial sums. A `*_stacked` kernel is the
+    unstacked one for each of `stack` entries; `fwd_stacked`'s entries share
+    one `keep` unless `shared_keep` is False (the seed programs)."""
     n, w = t_len * b, h * 3 * h
     if kernel == "bwd_reduce_sum":
         return (slices - 1) * (w + h), 4 * (slices + 1) * (w + h)
-    if kernel == "fwd_stacked":
-        flop, nbytes = kernel_work("fwd", t_len, b, h)
-        return stack * flop, stack * nbytes - (stack - 1) * 4 * n * h
+    if kernel.endswith("_stacked"):
+        flop, nbytes = kernel_work(kernel[: -len("_stacked")], t_len, b, h, slices)
+        shared = 4 * n * h if kernel == "fwd_stacked" and shared_keep else 0
+        return stack * flop, stack * nbytes - (stack - 1) * shared
     product = 2 * n * h * 3 * h
     floats = {
         # gates_i, keep, h0, Wh, b_hn -> hs
@@ -293,9 +310,10 @@ def kernel_work(kernel: str, t_len: int, b: int, h: int, slices: int = 1, stack:
     return flop, 4 * floats
 
 
-def bound_ms(kernel: str, t_len: int, b: int, h: int, slices: int = 1, stack: int = 1):
+def bound_ms(kernel: str, t_len: int, b: int, h: int, slices: int = 1, stack: int = 1,
+             shared_keep: bool = True):
     """(least ms the card could take, which resource sets it)."""
-    flop, nbytes = kernel_work(kernel, t_len, b, h, slices, stack)
+    flop, nbytes = kernel_work(kernel, t_len, b, h, slices, stack, shared_keep)
     by_flop, by_bytes = flop / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return (by_flop, "operations") if by_flop >= by_bytes else (by_bytes, "bytes")
 
@@ -997,8 +1015,9 @@ def iql_against_plain(gru, rec_iql, params, data, gamma: float) -> None:
             rnn.gru_impl = impl
     (k_loss, k_target, k_grads, k_counts), (p_loss, p_target, p_grads, p_counts) = (
         runs["pallas"], runs["hoisted"])
-    check(k_counts == {"fwd": 1, "bwd_gates": 1, "bwd_recurrence": 1, "bwd_reduce": 1,
-                       "bwd_reduce_sum": 1, "fwd_stacked": 1},
+    check(k_counts == {**dict.fromkeys(gru.KERNELS, 0), "fwd": 1, "bwd_gates": 1,
+                       "bwd_recurrence": 1, "bwd_reduce": 1, "bwd_reduce_sum": 1,
+                       "fwd_stacked": 1},
           f"rec_iql's loss pass on the kernels launched {k_counts}")
     check(not any(p_counts.values()), f"rec_iql's loss pass on the plain GRU launched {p_counts}")
     # Each gradient's error relative to its largest entry.
@@ -1604,6 +1623,304 @@ def resume_phase(gru, gpu: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ seed phase
+# The stacked GRU kernels of the seed programs (`advanced_usage/*_vmap_seeds.py`)
+# at the SMAX 3s5z path shapes of the shipped rec-IPPO config (16 envs x 8
+# agents: B = 128 on the critic pass, 64 in the losses), S entries each with its
+# own keep: (S, T, B, H).
+SEED_SHAPES = [(4, 128, 128, 128), (4, 128, 64, 128), (8, 128, 128, 128), (8, 128, 64, 128)]
+# name in the record, counter, launches per stacked rec-IPPO update
+SEED_KERNELS = [
+    ("gru_sequence_fwd, stacked over seeds (K1, per-entry keep)", "fwd_stacked", 17),
+    ("gru_sequence_bwd_gates_stacked (K2p over a stack axis)", "bwd_gates_stacked", 16),
+    ("gru_sequence_bwd_recurrence_stacked (K2a over a stack axis)", "bwd_recurrence_stacked", 16),
+    ("gru_sequence_bwd_reduce_stacked (K2b over a stack axis)", "bwd_reduce_stacked", 16),
+    ("gru_sequence_bwd_reduce_sum_stacked (K2b's sum over a stack axis)",
+     "bwd_reduce_sum_stacked", 16),
+]
+SEED_REPLACES = "mava_tpu/ops/pallas_gru.py:{} under jax.vmap " \
+                "(mava_tpu/advanced_usage/rec_ippo_vmap_seeds.py:181)"
+SEED_RUN = SMAX + ["arch.num_eval_episodes=16", "arch.absolute_metric=False",
+                   "+arch.device=cuda", "logger.use_console=False"]
+
+
+def seed_inputs(stack: int, t_len: int, b: int, h: int, seed: int, shared_keep: bool = False):
+    """Per-entry gates_i, keep, h0, Wh, b_hn stacked on a leading axis (keep
+    shared where `shared_keep`), and g_hs."""
+    entries = [gru_inputs(t_len, b, h, seed=seed + s) for s in range(stack)]
+    args = [torch.stack([e[0][i] for e in entries]).contiguous() for i in range(5)]
+    if shared_keep:
+        args[1] = entries[0][0][1]
+    return args, torch.stack([e[1] for e in entries]).contiguous()
+
+
+def check_seed_shape(gru, shape, errs: dict, shared_keep: bool = False) -> None:
+    """Every stacked kernel against its plain version (the unstacked plain
+    versions entry by entry) on the same inputs; the whole stacked backward
+    bitwise equal across two calls."""
+    stack, t_len, b, h = shape
+    args, g_hs = seed_inputs(*shape, seed=stack * 1000 + b, shared_keep=shared_keep)
+    tag = " shared keep" if shared_keep else ""
+    where = (t_len, b, h)
+    hs_ref = gru.gru_sequence_stacked_reference(*args)
+    compare(f"S={stack} stacked hs{tag}", gru.gru_sequence_stacked_forward(*args), hs_ref, where,
+            errs, "fwd_stacked")
+    gates_ref = gru.gru_backward_gates_stacked_reference(*args, hs_ref)
+    compare(f"S={stack} stacked gates{tag}", gru.gru_backward_gates_stacked(*args, hs_ref),
+            gates_ref, where, errs, "bwd_gates_stacked")
+    got = gru.gru_backward_recurrence_stacked(*args, hs_ref, g_hs, gates_ref)
+    want = gru.gru_backward_recurrence_stacked_reference(gates_ref, args[1], args[2], args[3],
+                                                         hs_ref, g_hs)
+    for name, g, w in zip(("dgates_i", "dgh", "dh0"), got, want):
+        compare(f"S={stack} stacked K2a {name}{tag}", g, w, where, errs, "bwd_recurrence_stacked")
+    split = gru.reduce_split(t_len, b, h)
+    partials = gru.gru_backward_reduce_partials_stacked(args[1], args[2], hs_ref, want[1])
+    partials_ref = gru.gru_backward_reduce_partials_stacked_reference(
+        args[1], args[2], hs_ref, want[1], split)
+    compare(f"S={stack} stacked K2b partials{tag}", partials, partials_ref, where, errs,
+            "bwd_reduce_stacked")
+    for name, g, w in zip(("dWh", "db_hn"), gru.gru_backward_reduce_sum_stacked(partials_ref, h),
+                          gru.gru_backward_reduce_sum_stacked_reference(partials_ref, h)):
+        compare(f"S={stack} stacked K2b sum {name}{tag}", g, w, where, errs,
+                "bwd_reduce_sum_stacked")
+    grads = gru.gru_sequence_stacked_backward(*args, hs_ref, g_hs)
+    grads_ref = gru.gru_sequence_stacked_backward_reference(*args, hs_ref, g_hs)
+    for name, g, w in zip(("dgates_i", "dh0", "dWh", "db_hn"), grads, grads_ref):
+        compare(f"S={stack} stacked backward {name}{tag}", g, w, where, errs, "bwd_stacked")
+    again = gru.gru_sequence_stacked_backward(*args, hs_ref, g_hs)
+    check(all(torch.equal(a, g) for a, g in zip(again, grads)),
+          f"stacked gradients not bitwise equal across runs at {shape}")
+    torch.cuda.synchronize()
+
+
+def time_seed_shape(gru, shape, plain: bool = True) -> dict:
+    """Each stacked kernel at one seed-path shape, device-only and host-inclusive,
+    beside S calls of the unstacked kernel, its plain version (where `plain`),
+    its bound (`bound_ms(..., stack=S)`) and, for the backward, S cuDNN backward
+    calls (keep == 1) as the library's yardstick; the clusters of the resident
+    launches and their waves."""
+    stack, t_len, b, h = shape
+    args, g_hs = seed_inputs(*shape, seed=stack * 1000 + b)
+    hs = gru.gru_sequence_stacked_forward(*args)
+    gates = gru.gru_backward_gates_stacked(*args, hs)
+    dgh = gru.gru_backward_recurrence_stacked(*args, hs, g_hs, gates)[1]
+    partials = gru.gru_backward_reduce_partials_stacked(args[1], args[2], hs, dgh)
+    entries = [[a[s] for a in args] for s in range(stack)]
+    per = [(e, hs[s], g_hs[s], gates[s], dgh[s], partials[s]) for s, e in enumerate(entries)]
+    out = {}
+
+    def both(name, fn, iters=20):
+        out[name] = device_ms(fn, iters=iters)
+        out[name + "_host"] = time_ms(fn, iters=iters)
+
+    both("fwd_stacked", lambda: gru.gru_sequence_stacked_forward(*args))
+    both("bwd_gates_stacked", lambda: gru.gru_backward_gates_stacked(*args, hs))
+    both("bwd_recurrence_stacked",
+         lambda: gru.gru_backward_recurrence_stacked(*args, hs, g_hs, gates))
+    both("bwd_reduce_stacked",
+         lambda: gru.gru_backward_reduce_partials_stacked(args[1], args[2], hs, dgh))
+    both("bwd_reduce_sum_stacked", lambda: gru.gru_backward_reduce_sum_stacked(partials, h))
+    both("fwd_unstacked", lambda: [gru.gru_sequence_forward(*e) for e, *_ in per])
+    both("bwd_gates_unstacked", lambda: [gru.gru_backward_gates(*e, x) for e, x, *_ in per])
+    both("bwd_recurrence_unstacked",
+         lambda: [gru.gru_backward_recurrence(*e, x, g, q) for e, x, g, q, *_ in per])
+    both("bwd_reduce_unstacked",
+         lambda: [gru.gru_backward_reduce_partials(e[1], e[2], x, d) for e, x, _, _, d, _ in per])
+    both("bwd_reduce_sum_unstacked",
+         lambda: [gru.gru_backward_reduce_sum(p, h) for *_, p in per])
+    split = gru.reduce_split(t_len, b, h)
+    plain_fns = {
+        "fwd_stacked_plain": lambda: gru.gru_sequence_stacked_reference(*args),
+        "bwd_gates_stacked_plain": lambda: gru.gru_backward_gates_stacked_reference(*args, hs),
+        "bwd_recurrence_stacked_plain": lambda: gru.gru_backward_recurrence_stacked_reference(
+            gates, args[1], args[2], args[3], hs, g_hs),
+        "bwd_reduce_stacked_plain": lambda: gru.gru_backward_reduce_partials_stacked_reference(
+            args[1], args[2], hs, dgh, split),
+        "bwd_reduce_sum_stacked_plain":
+            lambda: gru.gru_backward_reduce_sum_stacked_reference(partials, h),
+    }
+    for name, fn in plain_fns.items():
+        if plain:
+            both(name, fn, iters=2)
+        else:
+            out[name] = out[name + "_host"] = None
+    # The library's yardstick: S cuDNN GRU backward calls at keep == 1 (it cannot
+    # reset), against the whole stacked backward.
+    keep1 = [gru_inputs(t_len, b, h, seed=stack * 1000 + b + s, resets=0.0)[0]
+             for s in range(stack)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        backwards = [cudnn_gru_backward(cudnn_gru(k[3], k[4]), k[0], k[2], g_hs[s])[2]
+                     for s, k in enumerate(keep1)]
+    torch.cuda.synchronize()
+    run_all = lambda: [bw() for bw in backwards]  # noqa: E731
+    out["cudnn_bwd_x_stack"] = device_ms(run_all, stream=side)
+    with torch.cuda.stream(side):
+        out["cudnn_bwd_x_stack_host"] = time_ms(run_all)
+    hk = (torch.cat([args[2][:, None], hs[:, :-1]], dim=1) * args[1]).reshape(stack, -1, h)
+    flat = dgh.reshape(stack, -1, 3 * h)
+    both("bmm", lambda: torch.bmm(hk.transpose(1, 2), flat))
+    both("sum", lambda: partials.sum(1))
+    out["bwd_stacked_total"] = sum(out[k] for k in ("bwd_gates_stacked", "bwd_recurrence_stacked",
+                                                    "bwd_reduce_stacked", "bwd_reduce_sum_stacked"))
+    for _, counter, _ in SEED_KERNELS:
+        out[counter + "_bound"], out[counter + "_bound_by"] = bound_ms(
+            counter, t_len, b, h, split.slices, stack, shared_keep=False)
+    for kernel in ("fwd", "bwd_recurrence"):
+        c = clusters(gru, kernel, b, h, stack)
+        out.update({f"{kernel}_clusters": c["clusters"], f"{kernel}_max_active": c["max_active"],
+                    f"{kernel}_waves": c["waves"]})
+    print(f"  S={stack} T={t_len} B={b} H={h} (seed path): "
+          + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                      for k, v in out.items()))
+    return out
+
+
+def seed_learner(stack: int, overrides=(), draws: bool = False, device: str = "cuda"):
+    """(config, env, learn, state, draws) of a stacked rec-IPPO learner of
+    `stack` seeds on SMAX 3s5z at the shipped width, one update a call; with
+    `draws`, every draw of the update made here and handed in (for the stock
+    comparison)."""
+    from mava_tpu_torch import envs as environments
+    from mava_tpu_torch.advanced_usage import common, rec_ippo_vmap_seeds
+    from mava_tpu_torch.distributions import gumbel
+    from mava_tpu_torch.utils.config import load_config
+
+    cfg = rec_ippo_vmap_seeds.prepare(load_config("default_rec_ippo", SEED_RUN + list(overrides)))
+    cfg.arch.n_devices = 1
+    cfg.system.num_updates_per_eval = 1
+    device = torch.device(device)
+    env, _ = environments.make(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(cfg.system.seed)
+    inject = {}
+    if draws:
+        cfg.system.num_agents = env.num_agents
+        d = common.Draws(stack, False, torch.Generator(device=device).manual_seed(7), device)
+        e, t_len = cfg.arch.num_envs, cfg.system.rollout_length
+        inject = dict(
+            noise=d(gumbel, (t_len, e, env.num_agents, env.action_dim))[None],
+            permutations=d.permutations(cfg.system.ppo_epochs,
+                                        e * t_len // cfg.system.recurrent_chunk_size)[None],
+            env_noise=[[d.env(env, e) for _ in range(t_len)]],
+        )
+    learn, _, state = rec_ippo_vmap_seeds.learner_setup(env, gen, cfg, device, stack, **inject)
+    return cfg, env, learn, state, inject
+
+
+def stacked_against_stock(stack: int, overrides=(), device: str = "cuda") -> float:
+    """One stacked update of `stack` seeds against `stack` stock rec-IPPO updates,
+    each from its entry's slice of the parameters and envs and its slice of the
+    draws; returns the largest parameter difference."""
+    from mava_tpu_torch.systems.ppo import rec_ippo
+
+    cfg, env, learn, state, inject = seed_learner(stack, overrides, draws=True, device=device)
+    e = cfg.arch.num_envs
+    initial = [[p[s].detach().clone() for p in net.parameters()] for net in state.params
+               for s in range(stack)]
+    rows = lambda tree, s: pytree.tree_map(  # noqa: E731
+        lambda x: x[s * e:(s + 1) * e].clone() if isinstance(x, torch.Tensor) and x.dim() else x,
+        tree)
+    slices = [(rows(state.env_state, s), rows(state.timestep, s)) for s in range(stack)]
+    out = learn(state)
+    worst = 0.0
+    for s in range(stack):
+        stock_learn, _, stock = rec_ippo.learner_setup(
+            env, torch.Generator(device=device).manual_seed(0), cfg, torch.device(device),
+            noise=inject["noise"][:, s], permutations=inject["permutations"][:, s],
+            env_noise=[[rows(x, s) for x in inject["env_noise"][0]]])
+        with torch.no_grad():
+            for net, start in zip(stock.params, initial[s::stack]):
+                for p, q in zip(net.parameters(), start):
+                    p.copy_(q)
+        stock = stock._replace(env_state=slices[s][0], timestep=slices[s][1])
+        got = stock_learn(stock)
+        for net, stacked in zip(got.learner_state.params, out.learner_state.params):
+            for p, q in zip(net.parameters(), stacked.parameters()):
+                worst = max(worst, (p.detach() - q[s].detach()).abs().max().item())
+    check(worst <= 1e-4, f"the stacked update of {stack} seeds disagrees with the stock "
+                         f"updates: max |param diff| {worst:.3e}")
+    return worst
+
+
+def seed_phase(gru, gpu: str) -> dict:
+    """The seed axis: the stacked kernels against their plain versions at the
+    seed path's shapes and timed; rec_ippo_vmap_seeds through run_experiment at
+    S = 4 with the exact launch counts; one stacked update against 4 stock ones;
+    an ff-IPPO lr sweep and a rec-IPPO PBT, cut in depth; the launches of a
+    whole update at S = 8 against S = 1; env-steps/s beside one stock update."""
+    from mava_tpu_torch.advanced_usage import ff_ippo_vmap_sweep, rec_ippo_pbt, rec_ippo_vmap_seeds
+    from mava_tpu_torch.utils.config import load_config
+
+    start = time.perf_counter()
+    errs: dict = {}
+    for shape in SEED_SHAPES:
+        check_seed_shape(gru, shape, errs)
+    check_seed_shape(gru, SEED_SHAPES[0], errs, shared_keep=True)
+    # The plain versions are timed at S = 4; at S = 8 they take twice as long.
+    times = {shape: time_seed_shape(gru, shape, plain=shape[0] == 4) for shape in SEED_SHAPES}
+    print(f"  ({time.perf_counter() - start:.1f} s into the seed phase)")
+
+    # The main path: two updates of 4 seeds through run_experiment.
+    gru.reset_launch_counts()
+    performance = rec_ippo_vmap_seeds.run_experiment(load_config("default_rec_ippo", SEED_RUN + [
+        "system.num_updates=2", "arch.num_evaluation=1", "+system.num_seeds=4"]))
+    torch.cuda.synchronize()
+    launches = dict(gru.kernel_launches)
+    check(performance == performance, "rec_ippo_vmap_seeds: the eval return is not a number")
+    for _, counter, per_update in SEED_KERNELS:
+        check(launches[counter] == 2 * per_update,
+              f"rec_ippo_vmap_seeds: {counter} launched {launches[counter]} times in 2 updates, "
+              f"not {per_update} an update")
+    for _, counter, _, _ in KERNELS:
+        check(counter == "fwd_stacked" or launches[counter] == 0,
+              f"rec_ippo_vmap_seeds launched the unstacked {counter}")
+    print(f"  rec_ippo_vmap_seeds run_experiment, S = 4, 2 updates on SMAX 3s5z: eval return "
+          f"{performance:.3f}, launches {launches}")
+
+    print(f"  ({time.perf_counter() - start:.1f} s into the seed phase)")
+    worst = stacked_against_stock(4)
+    print(f"  one stacked update of 4 seeds against 4 stock updates from the same draws: "
+          f"max |param diff| {worst:.3e} ({time.perf_counter() - start:.1f} s into the phase)")
+
+    sweep = ff_ippo_vmap_sweep.run_experiment(load_config("default_ff_ippo", [
+        "system.num_updates=2", "arch.num_evaluation=1", "arch.num_eval_episodes=16",
+        "arch.absolute_metric=False", "+arch.device=cuda", "logger.use_console=False",
+        "+system.sweep_lrs=[1e-4, 2.5e-4, 5e-4, 1e-3]"]))
+    check(sweep == sweep, "ff_ippo_vmap_sweep: the eval return is not a number")
+    gru.reset_launch_counts()
+    pbt = rec_ippo_pbt.run_experiment(load_config("default_rec_ippo", SEED_RUN + [
+        "system.num_updates=2", "arch.num_evaluation=2", "+system.pbt_population=4"]))
+    check(pbt == pbt, "rec_ippo_pbt: the best member's win rate is not a number")
+    check(gru.kernel_launches["fwd_stacked"] == 2 * 17, "rec_ippo_pbt: stacked K1 launches")
+    print(f"  ff_ippo_vmap_sweep, 4 lrs, 2 updates: mean eval return {sweep:.3f}; rec_ippo_pbt, "
+          f"4 members, 2 rounds with one exploit step: best win rate {pbt:.3f} "
+          f"({time.perf_counter() - start:.1f} s into the phase)")
+
+    # Launches of a whole update (the profiler's launch calls) and env-steps/s.
+    rates, counts = {}, {}
+    for stack in (1, 4, 8):
+        cfg, _, learn, state, _ = seed_learner(stack)
+        state = learn(state).learner_state  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = learn(state).learner_state
+        torch.cuda.synchronize()
+        steps = stack * cfg.system.rollout_length * cfg.arch.num_envs
+        rates[stack] = steps / (time.perf_counter() - t0)
+        if stack in (1, 8):
+            counts[stack] = launches_and_syncs(lambda: learn(state))["launches"]
+    stock_s, _, _, steps = one_update("rec_ippo", SMAX, repeats=2)
+    ratio = counts[8] / counts[1]
+    check(ratio <= 1.5, f"a stacked update launches {ratio:.2f}x at S = 8 what it does at S = 1")
+    print(f"  a stacked rec-IPPO update: {counts[1]} launches at S = 1, {counts[8]} at S = 8 "
+          f"({ratio:.3f}x); env-steps/s S = 1 {rates[1]:.1f}, S = 4 {rates[4]:.1f}, S = 8 "
+          f"{rates[8]:.1f}; one stock update {steps / stock_s[-1]:.1f} on {gpu}")
+    print(f"  seed phase: {time.perf_counter() - start:.1f} s")
+    return {"errs": errs, "times": times, "launches": launches, "launch_counts": counts,
+            "rates": rates, "stacked_vs_stock": worst}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU.", file=sys.stderr)
@@ -1632,6 +1949,11 @@ def main() -> int:
     print(f"build: {time.perf_counter() - start:.1f} s")
     if gru.build_log:
         print(gru.build_log.strip())
+    if "--seeds" in sys.argv[1:]:
+        print("seed phase (stacked kernels; rec-IPPO vmap seeds, ff-IPPO sweep, rec-IPPO PBT):")
+        seed_phase(gru, gpu)
+        print(gpu)
+        return 0
 
     print("kernel phase:")
     kernels = kernel_phase(gru)
@@ -1657,6 +1979,9 @@ def main() -> int:
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     print("resume phase (rec-IPPO SMAX 3s5z full-state resume; ff-ISAC resume; stagger):")
     resume = resume_phase(gru, gpu)
+    print(f"  ({time.perf_counter() - start:.0f} s since the start)")
+    print("seed phase (stacked kernels; rec-IPPO vmap seeds, ff-IPPO sweep, rec-IPPO PBT):")
+    seeds = seed_phase(gru, gpu)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     print("feed-forward phase (ff-IPPO, ff-MAPPO, Matrax, the bench program):")
     feedforward_phase(gru, gpu)
@@ -1738,6 +2063,39 @@ def main() -> int:
                 "form_operand_ms_b32": t32["form_hk"], "library_with_operand_ms_b32": t32["mm_with_hk"],
             })
         record["kernels"].append(entry)
+    seed_library = {"bwd_recurrence_stacked": ("cudnn_bwd_x_stack", "S torch.nn.GRU backward "
+                                               "calls (cuDNN), keep == 1: the whole of K2p + K2a "
+                                               "+ K2b over the stack"),
+                    "bwd_reduce_stacked": ("bmm", "torch.bmm on hprev*keep formed beforehand"),
+                    "bwd_reduce_sum_stacked": ("sum", "torch.sum over the slices")}
+    main_shape = SEED_SHAPES[1]  # S = 4, the losses' B = 64: 16 of an update's 17 K1 launches
+    for name, counter, _ in SEED_KERNELS:
+        t = seeds["times"][main_shape]
+        lib_key, lib_what = seed_library.get(counter, (None, "none: no one library call runs S "
+                                                             "GRU passes of different weights"))
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": SEED_REPLACES.format(69 if counter == "fwd_stacked" else 88),
+            "launches": seeds["launches"][counter],
+            "launches_path": "rec_ippo_vmap_seeds.run_experiment, S = 4, 2 updates, SMAX 3s5z",
+            "max_abs_err": seeds["errs"][counter],
+            "ms": t[counter], "plain_ms": t[counter + "_plain"],
+            "bound_ms": t[counter + "_bound"], "bound_by": t[counter + "_bound_by"],
+            "library_ms": t[lib_key] if lib_key else None, "library": lib_what,
+            "timed": "device-only: CUDA graph replays; *host_ms: eager calls",
+            "host_ms": t[counter + "_host"], "unstacked_x_stack_ms":
+                t[counter.replace("_stacked", "_unstacked")],
+            "shape": list(main_shape),
+            "path_shapes": {f"S={st} T={tl} B={b} H={h}": {
+                "ms": x[counter], "host_ms": x[counter + "_host"],
+                "plain_ms": x[counter + "_plain"],
+                "unstacked_x_stack_ms": x[counter.replace("_stacked", "_unstacked")],
+                "bound_ms": x[counter + "_bound"],
+                "library_ms": x[lib_key] if lib_key else None,
+                "waves": {"fwd_stacked": x["fwd_waves"],
+                          "bwd_recurrence_stacked": x["bwd_recurrence_waves"]}.get(counter)}
+                for (st, tl, b, h), x in seeds["times"].items()},
+        })
     print(f"total: {time.perf_counter() - start:.0f} s")
     print(gpu)
     print(json.dumps(record))

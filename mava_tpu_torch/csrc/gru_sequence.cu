@@ -78,13 +78,20 @@
 //    K2p and K2b share the loader of hprev*keep and the register-tile product.
 // No atomics anywhere: every output is bitwise the same from run to run.
 //
-// The stacked forward (rec-IQL's fused double-DQN target pass, which the JAX
-// package gets from `jax.vmap` of `gru_sequence` over two parameter stacks,
-// mava_tpu/systems/q_learning/rec_iql.py:173-192) is K1 with the stack index as
-// the grid's y dimension on both routes: entry s has its own gates_i, h0, Wh,
-// b_hn and hs, offset by s, and shares keep. The weights differ per entry, so
-// the stack cannot be folded into B. On the resident route a cluster stays 8
-// blocks along x and each loads its own entry's slice of Wh into registers.
+// The stacked kernels are what `jax.vmap` of `gru_sequence` and of its VJP over
+// stacked parameters computes: `_fwd_kernel` and `_bwd_kernel` with the vmapped
+// axis as one more grid dimension (rec-IQL's fused double-DQN target pass,
+// mava_tpu/systems/q_learning/rec_iql.py:173-192, forward only; every recurrent
+// learner vmapped over seeds, mava_tpu/advanced_usage/rec_ippo_vmap_seeds.py:181,
+// forward and backward). Each kernel takes S stack entries: entry s has its own
+// inputs, weights, outputs and scratch, offset by s, and its own keep (a keep
+// stride of T*B*H floats) or one keep shared by all (a stride of 0). The
+// weights differ per entry, so the stack cannot be folded into B. K1 and K2a
+// take the entry as grid y (on the resident route a cluster stays 8 blocks
+// along x and each loads its own entry's slice of Wh into registers), K2p as
+// grid z, K2b's first kernel as grid z with the slices (z = entry * slices +
+// slice) and its second kernel as grid y. A stack of one is the plain call:
+// every offset is 0, so the unstacked kernels are the same code.
 //
 // Streaming route (every other H up to 1024, where a slice of Wh does not fit
 // a block's registers): gru_fwd_kernel and gru_bwd_recurrence_kernel. One block
@@ -137,15 +144,16 @@ __global__ void __launch_bounds__(kMaxThreads)
 gru_fwd_kernel(const float* __restrict__ gates_i, const float* __restrict__ keep,
                const float* __restrict__ h0, const float* __restrict__ w_h,
                const float* __restrict__ b_hn, float* __restrict__ hs, int T, int B,
-               int H) {
+               int H, size_t keep_stride) {
   extern __shared__ float smem[];
   float* h_s = smem;            // (kRows, H): the carry, then carry * keep
   float* gh_s = smem + kRows * H; // (kRows, 3H): h @ Wh
   const int H3 = 3 * H;
   const int row0 = blockIdx.x * kRows;
   const int nrows = min(kRows, B - row0);
-  const size_t entry = blockIdx.y;  // stack entry: its own inputs and weights, keep shared
+  const size_t entry = blockIdx.y;  // stack entry: its own inputs, weights and keep
   gates_i += entry * T * B * H3;
+  keep += entry * keep_stride;
   h0 += entry * B * H;
   w_h += entry * H * H3;
   b_hn += entry * H;
@@ -183,8 +191,8 @@ gru_fwd_kernel(const float* __restrict__ gates_i, const float* __restrict__ keep
   }
 }
 
-// K2a, streaming route. Grid: ceil(B / kRows) blocks. Shared memory: kRows * 5H
-// floats.
+// K2a, streaming route. Grid: ceil(B / kRows) x S blocks (y: the stack entry).
+// Shared memory: kRows * 5H floats.
 __global__ void __launch_bounds__(kMaxThreads)
 gru_bwd_recurrence_kernel(const float* __restrict__ gates_i,
                           const float* __restrict__ keep, const float* __restrict__ h0,
@@ -192,7 +200,7 @@ gru_bwd_recurrence_kernel(const float* __restrict__ gates_i,
                           const float* __restrict__ b_hn, const float* __restrict__ hs,
                           const float* __restrict__ g_hs, float* __restrict__ dgates,
                           float* __restrict__ dgh, float* __restrict__ dh0, int T, int B,
-                          int H) {
+                          int H, size_t keep_stride) {
   extern __shared__ float smem[];
   float* hk_s = smem;              // (kRows, H): hprev * keep
   float* dh_s = smem + kRows * H;  // (kRows, H): dL/dh carried back in time
@@ -200,6 +208,18 @@ gru_bwd_recurrence_kernel(const float* __restrict__ gates_i,
   const int H3 = 3 * H;
   const int row0 = blockIdx.x * kRows;
   const int nrows = min(kRows, B - row0);
+  const size_t entry = blockIdx.y;  // stack entry: its own inputs, weights and keep
+  gates_i += entry * T * B * H3;
+  keep += entry * keep_stride;
+  h0 += entry * B * H;
+  w_h += entry * H * H3;
+  w_h_t += entry * H3 * H;
+  b_hn += entry * H;
+  hs += entry * T * B * H;
+  g_hs += entry * T * B * H;
+  dgates += entry * T * B * H3;
+  dgh += entry * T * B * H3;
+  dh0 += entry * B * H;
 
   for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) {
     dh_s[i] = 0.0f;
@@ -432,7 +452,8 @@ template <int H>
 __global__ void __launch_bounds__(kClusterRows * (H / kCluster), 1)
 gru_fwd_resident_kernel(const float* __restrict__ gates_i, const float* __restrict__ keep,
                         const float* __restrict__ h0, const float* __restrict__ w_h,
-                        const float* __restrict__ b_hn, float* __restrict__ hs, int T, int B) {
+                        const float* __restrict__ b_hn, float* __restrict__ hs, int T, int B,
+                        size_t keep_stride) {
   constexpr int U = H / kCluster;  // hidden units per block
   constexpr int KPT = H / 16;      // depth of the product per thread
   constexpr int PIECE = kClusterRows * U;  // floats in one block's piece of the carry
@@ -455,8 +476,9 @@ gru_fwd_resident_kernel(const float* __restrict__ gates_i, const float* __restri
   const int ul = threadIdx.x / 16;
   const int u = rank * U + ul;
   const bool valid = s < nrows;
-  const size_t entry = blockIdx.y;  // stack entry: its own inputs and weights, keep shared
+  const size_t entry = blockIdx.y;  // stack entry: its own inputs, weights and keep
   gates_i += entry * T * B * H3;
+  keep += entry * keep_stride;
   h0 += entry * B * H;
   w_h += entry * H * H3;
   b_hn += entry * H;
@@ -657,7 +679,7 @@ __device__ __forceinline__ void tile_fma(const float (&a)[M], const float (&b)[N
   }
 }
 
-// K2p. Grid: (ceil(T*B / 64), ceil(H / 32)), 256 threads. Thread (tx, ty) =
+// K2p. Grid: (ceil(T*B / 64), ceil(H / 32), S), 256 threads (z: the stack entry). Thread (tx, ty) =
 // (tid % 16, tid / 16) owns rows n0 + 4 ty + {0..3} and units u0 + 2 tx + {0, 1}
 // with the three gates' sums: 24 accumulators, and per step of the depth one
 // float4 of the left operand and three float2 of Wh from shared memory. The
@@ -672,7 +694,7 @@ __global__ void __launch_bounds__(kTileThreads)
 gru_bwd_gates_kernel(const float* __restrict__ gates_i, const float* __restrict__ keep,
                      const float* __restrict__ h0, const float* __restrict__ w_h,
                      const float* __restrict__ b_hn, const float* __restrict__ hs,
-                     float* __restrict__ gates, int T, int B, int H) {
+                     float* __restrict__ gates, int T, int B, int H, size_t keep_stride) {
   __shared__ __align__(16) float a_s[2][kGateDepth][kGateRows];       // (hprev * keep)^T
   __shared__ __align__(16) float b_s[2][kGateDepth][3 * kGateUnits];  // Wh[k][gate][unit]
   static_assert(kGateRows * kGateDepth / 4 == 2 * kTileThreads, "two pieces of A a thread");
@@ -682,6 +704,14 @@ gru_bwd_gates_kernel(const float* __restrict__ gates_i, const float* __restrict_
   const bool vec = H % 4 == 0;
   const int n0 = blockIdx.x * kGateRows, u0 = blockIdx.y * kGateUnits;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const size_t entry = blockIdx.z;  // stack entry: its own inputs, weights and keep
+  gates_i += entry * N * H3;
+  keep += entry * keep_stride;
+  h0 += entry * B * H;
+  w_h += entry * H * H3;
+  b_hn += entry * H;
+  hs += entry * N * H;
+  gates += entry * N * 4 * H;
   // Loader: piece (row a_row + 32 i, depth 4 a_q ..) of A, piece (depth b_kk,
   // gate g, units 4 a_q ..) of Wh. A warp loads 4 whole rows of 128 bytes.
   const int a_q = threadIdx.x % 8, a_row = threadIdx.x / 8;
@@ -765,16 +795,17 @@ gru_bwd_gates_kernel(const float* __restrict__ gates_i, const float* __restrict_
   }
 }
 
-// K2b, first kernel. Grid: (ceil(3H / 64), ceil(H / 64), S), 256 threads. The
-// block owns the tile (units k0 .., columns j0 ..) of dWh for the rows of slice
-// blockIdx.z, [z * rows_per_slice, (z + 1) * rows_per_slice); thread (tx, ty) =
+// K2b, first kernel. Grid: (ceil(3H / 64), ceil(H / 64), stack * slices), 256
+// threads; z = entry * slices + slice. The block owns the tile (units k0 ..,
+// columns j0 ..) of dWh of one stack entry for the rows of one slice,
+// [slice * rows_per_slice, (slice + 1) * rows_per_slice); thread (tx, ty) =
 // (tid % 16, tid / 16) owns units k0 + 4 ty + {0..3} x columns j0 + 4 tx + {0..3}.
 // Rows go by in chunks of 32, double-buffered as in K2p; both operands arrive
 // row-major, which is how the product reads them, so a piece goes to shared
 // memory as the float4 it came as. The blocks of the first tile row also add up
 // the columns of dgh that belong to db_hn, from the values their threads of
-// ty == 0 read for the product anyway. The partial tile goes to slice z of
-// `partial` (S, H*3H + H): dWh row-major, then db_hn.
+// ty == 0 read for the product anyway. The partial tile goes to row z of
+// `partial` (stack, slices, H*3H + H): dWh row-major, then db_hn.
 // PROBE is 0 in the kernel the port runs. The build with -DGRU_STEP_CLOCKS also
 // has two variants that compute nothing of use and tell what bounds the kernel:
 // 1 keeps every load and every shared-memory read and puts 8 adds in the place
@@ -783,7 +814,8 @@ template <int PROBE>
 __global__ void __launch_bounds__(kTileThreads)
 gru_bwd_reduce_kernel(const float* __restrict__ keep, const float* __restrict__ h0,
                       const float* __restrict__ hs, const float* __restrict__ dgh,
-                      float* __restrict__ partial, int T, int B, int H, int rows_per_slice) {
+                      float* __restrict__ partial, int T, int B, int H, int rows_per_slice,
+                      int slices, size_t keep_stride) {
   __shared__ __align__(16) float a_s[2][kReduceChunk][kReduceTile];  // (hprev * keep)[n][k0 ..]
   __shared__ __align__(16) float b_s[2][kReduceChunk][kReduceTile];  // dgh[n][j0 ..]
   static_assert(kReduceChunk * kReduceTile / 4 == 2 * kTileThreads, "two pieces a thread");
@@ -792,7 +824,12 @@ gru_bwd_reduce_kernel(const float* __restrict__ keep, const float* __restrict__ 
   const bool vec = H % 4 == 0;
   const int j0 = blockIdx.x * kReduceTile, k0 = blockIdx.y * kReduceTile;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const long long first = (long long)blockIdx.z * rows_per_slice;
+  const size_t entry = blockIdx.z / slices;  // stack entry: its own inputs and keep
+  keep += entry * keep_stride;
+  h0 += entry * B * H;
+  hs += entry * N * H;
+  dgh += entry * N * H3;
+  const long long first = (long long)(blockIdx.z % slices) * rows_per_slice;
   const int n_begin = (int)(first < N ? first : N);
   const int n_end = (int)(first + rows_per_slice < N ? first + rows_per_slice : N);
   // Loader: pieces (row ty + 16 i, columns 4 tx ..) of both operands; half a
@@ -870,8 +907,9 @@ gru_bwd_reduce_kernel(const float* __restrict__ keep, const float* __restrict__ 
   }
 }
 
-// K2b, second kernel. One thread an element of [dWh, db_hn]: the S partials are
-// added in slice order, so the sum does not depend on which block ran when.
+// K2b, second kernel. One thread an element of [dWh, db_hn] of stack entry
+// blockIdx.y: its S partials are added in slice order, so the sum does not
+// depend on which block ran when.
 __global__ void __launch_bounds__(kTileThreads)
 gru_bwd_reduce_sum_kernel(const float* __restrict__ partial, float* __restrict__ dwh,
                           float* __restrict__ dbhn, int H, int S) {
@@ -879,6 +917,10 @@ gru_bwd_reduce_sum_kernel(const float* __restrict__ partial, float* __restrict__
   const int M = W + H;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M) return;
+  const size_t entry = blockIdx.y;
+  partial += entry * S * M;
+  dwh += entry * W;
+  dbhn += entry * H;
   float sum = partial[i];
 #pragma unroll 8
   for (int s = 1; s < S; ++s) sum += partial[(size_t)s * M + i];
@@ -889,7 +931,7 @@ gru_bwd_reduce_sum_kernel(const float* __restrict__ partial, float* __restrict__
   }
 }
 
-// K2a, resident route. Grid as K1; H * RH threads. In the product thread
+// K2a, resident route. Grid as K1 (y: the stack entry); H * RH threads. In the product thread
 // (k, rh) = (tid % H, tid / H) owns dh[rows of half rh][k] and keeps
 // Wh[k, own 3U columns] in registers. The product is bound by its reads of dgh
 // from shared memory: each lane gets its own copy of a value the whole warp
@@ -909,7 +951,7 @@ gru_bwd_recurrence_resident_kernel(const float* __restrict__ gates,
                                    const float* __restrict__ hs,
                                    const float* __restrict__ g_hs, float* __restrict__ dgates,
                                    float* __restrict__ dgh, float* __restrict__ dh0, int T,
-                                   int B) {
+                                   int B, size_t keep_stride) {
   constexpr int U = H / kCluster;
   constexpr int C3 = 3 * U;                      // this block's columns of Wh
   constexpr int NT = H * RH;                     // threads
@@ -933,6 +975,16 @@ gru_bwd_recurrence_resident_kernel(const float* __restrict__ gates,
   const int nrows = min(kClusterRows, B - row0);
   const int k = threadIdx.x % H;
   const int rh = threadIdx.x / H;
+  const size_t entry = blockIdx.y;  // stack entry: its own inputs, weights and keep
+  gates += entry * T * B * 4 * H;
+  keep += entry * keep_stride;
+  h0 += entry * B * H;
+  w_h += entry * H * H3;
+  hs += entry * T * B * H;
+  g_hs += entry * T * B * H;
+  dgates += entry * T * B * H3;
+  dgh += entry * T * B * H3;
+  dh0 += entry * B * H;
 
   float w[C3];
 #pragma unroll
@@ -1188,24 +1240,30 @@ cudaError_t resident_max_active_clusters(int kernel, int B, int S, int* clusters
 template <int H>
 cudaError_t launch_fwd_resident(const float* gates_i, const float* keep, const float* h0,
                                 const float* w_h, const float* b_hn, float* hs, int T, int B,
-                                int S, cudaStream_t stream) {
+                                int S, size_t keep_stride, cudaStream_t stream) {
   static bool checked = false;
   return launch_clusters(gru_fwd_resident_kernel<H>, checked, B, S,
                          kClusterRows * (H / kCluster),
                          sizeof(float) * fwd_resident_floats(H / kCluster), stream, gates_i,
-                         keep, h0, w_h, b_hn, hs, T, B);
+                         keep, h0, w_h, b_hn, hs, T, B, keep_stride);
 }
 
 template <int H>
 cudaError_t launch_bwd_resident(const float* gates, const float* keep, const float* h0,
                                 const float* w_h, const float* hs, const float* g_hs,
-                                float* dgates, float* dgh, float* dh0, int T, int B,
-                                cudaStream_t stream) {
+                                float* dgates, float* dgh, float* dh0, int T, int B, int S,
+                                size_t keep_stride, cudaStream_t stream) {
   static bool checked = false;
   constexpr int RH = bwd_row_halves(H);
-  return launch_clusters(gru_bwd_recurrence_resident_kernel<H, RH>, checked, B, 1, H * RH,
+  return launch_clusters(gru_bwd_recurrence_resident_kernel<H, RH>, checked, B, S, H * RH,
                          sizeof(float) * bwd_resident_floats(H / kCluster), stream, gates, keep,
-                         h0, w_h, hs, g_hs, dgates, dgh, dh0, T, B);
+                         h0, w_h, hs, g_hs, dgates, dgh, dh0, T, B, keep_stride);
+}
+
+// Floats between two stack entries' keep: T*B*H where each entry has its own,
+// 0 where all share one.
+size_t keep_stride_of(int keep_stacked, int T, int B, int H) {
+  return keep_stacked ? (size_t)T * B * H : 0;
 }
 
 }  // namespace
@@ -1245,22 +1303,28 @@ int gru_sequence_max_active_clusters(int H, int kernel, int B, int S, int* out) 
   }
 }
 
-// K1 over S stack entries (S = 1: the plain sequence): gates_i (S,T,B,3H),
-// h0 (S,B,H), Wh (S,H,3H), b_hn (S,H) -> hs (S,T,B,H), keep (T,B,H) shared.
+// Every entry below takes S stack entries (S = 1: the plain call), each with
+// its own inputs, weights and outputs laid out one after the other, and
+// `keep_stacked`: 1 where keep is (S,T,B,H), one per entry, 0 where one
+// (T,B,H) keep is shared by all.
+
+// K1: gates_i (S,T,B,3H), keep, h0 (S,B,H), Wh (S,H,3H), b_hn (S,H) -> hs (S,T,B,H).
 int gru_sequence_fwd(const float* gates_i, const float* keep, const float* h0,
                      const float* w_h, const float* b_hn, float* hs, int T, int B, int H,
-                     int S, int cluster, void* stream) {
+                     int S, int keep_stacked, int cluster, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (S < 1 || S > 65535) return (int)cudaErrorInvalidValue;
+  const size_t ks = keep_stride_of(keep_stacked, T, B, H);
   if (cluster == kCluster) {
     switch (H) {
-      case 64: return (int)launch_fwd_resident<64>(gates_i, keep, h0, w_h, b_hn, hs, T, B, S, st);
+      case 64:
+        return (int)launch_fwd_resident<64>(gates_i, keep, h0, w_h, b_hn, hs, T, B, S, ks, st);
       case 128:
-        return (int)launch_fwd_resident<128>(gates_i, keep, h0, w_h, b_hn, hs, T, B, S, st);
+        return (int)launch_fwd_resident<128>(gates_i, keep, h0, w_h, b_hn, hs, T, B, S, ks, st);
       case 192:
-        return (int)launch_fwd_resident<192>(gates_i, keep, h0, w_h, b_hn, hs, T, B, S, st);
+        return (int)launch_fwd_resident<192>(gates_i, keep, h0, w_h, b_hn, hs, T, B, S, ks, st);
       case 256:
-        return (int)launch_fwd_resident<256>(gates_i, keep, h0, w_h, b_hn, hs, T, B, S, st);
+        return (int)launch_fwd_resident<256>(gates_i, keep, h0, w_h, b_hn, hs, T, B, S, ks, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -1270,42 +1334,46 @@ int gru_sequence_fwd(const float* gates_i, const float* keep, const float* h0,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + kRows - 1) / kRows, S);
   gru_fwd_kernel<<<grid, block_threads(H), smem, st>>>(gates_i, keep, h0, w_h, b_hn, hs, T, B,
-                                                       H);
+                                                       H, ks);
   return (int)cudaGetLastError();
 }
 
-// K2p: gates (T,B,H,4) = r, z, n, hnb of each unit, recomputed from hprev = [h0, hs[:-1]].
+// K2p: gates (S,T,B,H,4) = r, z, n, hnb of each unit, recomputed from hprev = [h0, hs[:-1]].
 int gru_sequence_bwd_gates(const float* gates_i, const float* keep, const float* h0,
                            const float* w_h, const float* b_hn, const float* hs, float* gates,
-                           int T, int B, int H, void* stream) {
-  const dim3 grid((T * B + kGateRows - 1) / kGateRows, (H + kGateUnits - 1) / kGateUnits);
+                           int T, int B, int H, int S, int keep_stacked, void* stream) {
+  if (S < 1 || S > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((T * B + kGateRows - 1) / kGateRows, (H + kGateUnits - 1) / kGateUnits, S);
   gru_bwd_gates_kernel<<<grid, kTileThreads, 0, (cudaStream_t)stream>>>(
-      gates_i, keep, h0, w_h, b_hn, hs, gates, T, B, H);
+      gates_i, keep, h0, w_h, b_hn, hs, gates, T, B, H, keep_stride_of(keep_stacked, T, B, H));
   return (int)cudaGetLastError();
 }
 
 // K2a. The resident route reads `gates` (K2p's output); the streaming route
-// reads gates_i, b_hn and the transposed copy w_h_t and recomputes in its loop.
+// reads gates_i, b_hn and the transposed copies w_h_t (S,3H,H) and recomputes
+// in its loop.
 int gru_sequence_bwd_recurrence(const float* gates_i, const float* keep, const float* h0,
                                 const float* w_h, const float* w_h_t, const float* b_hn,
                                 const float* hs, const float* g_hs, const float* gates,
                                 float* dgates, float* dgh, float* dh0, int T, int B, int H,
-                                int cluster, void* stream) {
+                                int S, int keep_stacked, int cluster, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (S < 1 || S > 65535) return (int)cudaErrorInvalidValue;
+  const size_t ks = keep_stride_of(keep_stacked, T, B, H);
   if (cluster == kCluster) {
     switch (H) {
       case 64:
         return (int)launch_bwd_resident<64>(gates, keep, h0, w_h, hs, g_hs, dgates, dgh, dh0, T,
-                                            B, st);
+                                            B, S, ks, st);
       case 128:
         return (int)launch_bwd_resident<128>(gates, keep, h0, w_h, hs, g_hs, dgates, dgh, dh0,
-                                             T, B, st);
+                                             T, B, S, ks, st);
       case 192:
         return (int)launch_bwd_resident<192>(gates, keep, h0, w_h, hs, g_hs, dgates, dgh, dh0,
-                                             T, B, st);
+                                             T, B, S, ks, st);
       case 256:
         return (int)launch_bwd_resident<256>(gates, keep, h0, w_h, hs, g_hs, dgates, dgh, dh0,
-                                             T, B, st);
+                                             T, B, S, ks, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -1313,35 +1381,39 @@ int gru_sequence_bwd_recurrence(const float* gates_i, const float* keep, const f
   const size_t smem = sizeof(float) * kRows * 5 * H;
   cudaError_t err = set_smem((const void*)gru_bwd_recurrence_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + kRows - 1) / kRows);
+  const dim3 grid((B + kRows - 1) / kRows, S);
   gru_bwd_recurrence_kernel<<<grid, block_threads(H), smem, st>>>(
-      gates_i, keep, h0, w_h, w_h_t, b_hn, hs, g_hs, dgates, dgh, dh0, T, B, H);
+      gates_i, keep, h0, w_h, w_h_t, b_hn, hs, g_hs, dgates, dgh, dh0, T, B, H, ks);
   return (int)cudaGetLastError();
 }
 
-// K2b, first kernel: partial (slices, H*3H + H), slice s being the sums over rows
-// [s * rows_per_slice, (s + 1) * rows_per_slice) of dWh, then of db_hn.
+// K2b, first kernel: partial (S, slices, H*3H + H), slice s of entry e being the
+// sums over that entry's rows [s * rows_per_slice, (s + 1) * rows_per_slice) of
+// dWh, then of db_hn.
 int gru_sequence_bwd_reduce(const float* keep, const float* h0, const float* hs,
                             const float* dgh, float* partial, int T, int B, int H, int slices,
-                            int rows_per_slice, void* stream) {
-  if (slices < 1 || slices > 65535 || rows_per_slice < 1 ||
+                            int rows_per_slice, int S, int keep_stacked, void* stream) {
+  if (slices < 1 || S < 1 || (long long)slices * S > 65535 || rows_per_slice < 1 ||
       (long long)slices * rows_per_slice < (long long)T * B) {
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((3 * H + kReduceTile - 1) / kReduceTile, (H + kReduceTile - 1) / kReduceTile,
-                  slices);
+                  slices * S);
   gru_bwd_reduce_kernel<0><<<grid, kTileThreads, 0, (cudaStream_t)stream>>>(
-      keep, h0, hs, dgh, partial, T, B, H, rows_per_slice);
+      keep, h0, hs, dgh, partial, T, B, H, rows_per_slice, slices,
+      keep_stride_of(keep_stacked, T, B, H));
   return (int)cudaGetLastError();
 }
 
-// K2b, second kernel: dWh and db_hn as the sum of the partials in slice order.
+// K2b, second kernel: dWh (S,H,3H) and db_hn (S,H) as the sums of each entry's
+// partials in slice order.
 int gru_sequence_bwd_reduce_sum(const float* partial, float* dwh, float* dbhn, int H, int slices,
-                                void* stream) {
-  if (slices < 1) return (int)cudaErrorInvalidValue;
+                                int S, void* stream) {
+  if (slices < 1 || S < 1 || S > 65535) return (int)cudaErrorInvalidValue;
   const int M = H * 3 * H + H;
-  gru_bwd_reduce_sum_kernel<<<(M + kTileThreads - 1) / kTileThreads, kTileThreads, 0,
-                              (cudaStream_t)stream>>>(partial, dwh, dbhn, H, slices);
+  const dim3 grid((M + kTileThreads - 1) / kTileThreads, S);
+  gru_bwd_reduce_sum_kernel<<<grid, kTileThreads, 0, (cudaStream_t)stream>>>(partial, dwh, dbhn,
+                                                                            H, slices);
   return (int)cudaGetLastError();
 }
 
@@ -1365,10 +1437,10 @@ int gru_sequence_bwd_reduce_probe(const float* keep, const float* h0, const floa
   cudaStream_t st = (cudaStream_t)stream;
   if (probe == 1) {
     gru_bwd_reduce_kernel<1><<<grid, kTileThreads, 0, st>>>(keep, h0, hs, dgh, partial, T, B, H,
-                                                            rows_per_slice);
+                                                            rows_per_slice, slices, 0);
   } else {
     gru_bwd_reduce_kernel<2><<<grid, kTileThreads, 0, st>>>(keep, h0, hs, dgh, partial, T, B, H,
-                                                            rows_per_slice);
+                                                            rows_per_slice, slices, 0);
   }
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,9 @@ from mava_tpu_torch.networks.actor_critic import (
     RecurrentActor,
     RecurrentValueNet,
     ScannedRNN,
+    StackedNetwork,
     resolve_gru_impl,
+    stack_observation,
 )
 from mava_tpu_torch.networks.heads import ContinuousActionHead, DiscreteActionHead
 from mava_tpu_torch.networks.torsos import CNNTorso, MLPTorso
@@ -23,5 +25,7 @@ __all__ = [
     "RecurrentActor",
     "RecurrentValueNet",
     "ScannedRNN",
+    "StackedNetwork",
     "resolve_gru_impl",
+    "stack_observation",
 ]

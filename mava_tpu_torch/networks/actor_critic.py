@@ -16,16 +16,26 @@ the target network over the same inputs as one pass over a stack of two, the
 torsos and heads vmapped over their stacked parameters (batched products) and
 the recurrence as one launch of the stacked GRU kernel (the reference vmaps
 `get_q_values` over stacked params).
+
+`StackedNetwork` is S networks of one structure as one, for the programs that
+`jax.vmap` a whole learner over seeds, learning rates or a PBT population
+(`mava_tpu/advanced_usage/`): their parameters stacked on a leading axis as
+leaf tensors, the torsos and heads vmapped over them (batched products) and a
+recurrence as one launch of the stacked GRU kernel, forward and backward, each
+entry with its own resets. One call serves all S entries, so the launches of a
+pass do not grow with S.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import copy
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils import _pytree as pytree
 
-from mava_tpu_torch.distributions import MaskedEpsGreedy
+from mava_tpu_torch.distributions import Categorical, MaskedEpsGreedy, TanhNormal
 from mava_tpu_torch.networks.torsos import MLPTorso, lecun_normal_, orthogonal_linear
 from mava_tpu_torch.ops.gru import gru_sequence, gru_sequence_stacked
 from mava_tpu_torch.types import ObservationGlobalState
@@ -156,7 +166,7 @@ class ScannedRNN(nn.Module):
                 return final_h, (carries.reshape(t_len, *lead, hidden), ys)
             return final_h, ys
 
-        return self.plain_recurrence(carry, gates_i, resets, collect_carries)
+        return plain_gru(carry, gates_i, resets, self.wh, self.bhn, collect_carries)
 
     def uses_kernel(self, device: torch.device, t_len: int) -> bool:
         """Whether a sequence of `t_len` steps goes to the GRU kernel: with
@@ -166,25 +176,32 @@ class ScannedRNN(nn.Module):
 
     def plain_recurrence(self, carry, gates_i, resets, collect_carries: bool = False):
         """The plain loop over time on precomputed input gates."""
-        h = carry
-        carries, ys = [], []
-        for t in range(gates_i.shape[0]):
-            carries.append(h)
-            h_in = torch.where(resets[t][..., None], 0.0, h)
-            xr, xz, xn = gates_i[t].chunk(3, dim=-1)
-            hr, hz, hn = (h_in @ self.wh).chunk(3, dim=-1)
-            r = torch.sigmoid(xr + hr)
-            z = torch.sigmoid(xz + hz)
-            n = torch.tanh(xn + r * (hn + self.bhn))
-            h = (1.0 - z) * n + z * h_in
-            ys.append(h)
-        if collect_carries:
-            return h, (torch.stack(carries), torch.stack(ys))
-        return h, torch.stack(ys)
+        return plain_gru(carry, gates_i, resets, self.wh, self.bhn, collect_carries)
 
     @staticmethod
     def initialize_carry(batch_shape, hidden_size: int, device=None) -> torch.Tensor:
         return torch.zeros((*batch_shape, hidden_size), dtype=torch.float32, device=device)
+
+
+def plain_gru(carry, gates_i, resets, wh, bhn, collect_carries: bool = False):
+    """The plain GRU loop over time on precomputed input gates (the body of
+    `ScannedRNN.plain_recurrence`, a function of the weights so that it can be
+    vmapped over stacked ones)."""
+    h = carry
+    carries, ys = [], []
+    for t in range(gates_i.shape[0]):
+        carries.append(h)
+        h_in = torch.where(resets[t][..., None], 0.0, h)
+        xr, xz, xn = gates_i[t].chunk(3, dim=-1)
+        hr, hz, hn = (h_in @ wh).chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * (hn + bhn))
+        h = (1.0 - z) * n + z * h_in
+        ys.append(h)
+    if collect_carries:
+        return h, (torch.stack(carries), torch.stack(ys))
+    return h, torch.stack(ys)
 
 
 class RecurrentActor(nn.Module):
@@ -305,3 +322,122 @@ def _stacked_call(modules, x: torch.Tensor, shared_input: bool = False) -> torch
         return torch.func.functional_call(modules[0], (p, b), (x,))
 
     return torch.func.vmap(call, in_dims=(0, 0, None if shared_input else 0))(params, buffers, x)
+
+
+class StackedNetwork:
+    """S networks of one structure as one (`FeedForwardActor`,
+    `FeedForwardValueNet`, `RecurrentActor` or `RecurrentValueNet`, centralised
+    critics included).
+
+    `params` maps each parameter name of the structure to the S entries'
+    values stacked on a leading axis, leaf tensors that an optimizer steps in
+    place (`parameters()`, in the structure's order). A call takes every input
+    with the stack axis in front and returns every output so:
+      * feed-forward actor: obs (S, ...) -> a distribution over (S, ...);
+      * feed-forward critic: obs (S, ...) -> values (S, ...);
+      * recurrent actor: (h (S, B.., H), (obs, done) (S, T, B.., ...)) ->
+        (final h, distribution); the recurrent critic likewise with values and
+        `collect_carries`, as `RecurrentValueNet`.
+    The gradient of a loss that sums the entries' losses is each entry's own.
+    A recurrence of T > 1 steps with `gru_impl` "pallas" is one call of
+    `gru_sequence_stacked` with per-entry resets; otherwise the plain loop,
+    vmapped. `entry(s)` is entry s as a module of the structure (a copy).
+    """
+
+    def __init__(self, modules: Sequence[nn.Module]):
+        self.module = modules[0]
+        params, buffers = torch.func.stack_module_state(list(modules))
+        self.params: Dict[str, torch.Tensor] = params
+        self.buffers: Dict[str, torch.Tensor] = buffers
+        self.size = len(modules)
+        self.recurrent = isinstance(self.module, (RecurrentActor, RecurrentValueNet))
+        self.is_actor = isinstance(self.module, (FeedForwardActor, RecurrentActor))
+
+    def parameters(self):
+        return list(self.params.values())
+
+    def entry(self, s: int) -> nn.Module:
+        """A copy of the structure holding entry s's parameters."""
+        module = copy.deepcopy(self.module)
+        with torch.no_grad():
+            module.load_state_dict(
+                {k: v[s] for k, v in {**self.params, **self.buffers}.items()}, strict=True)
+        return module
+
+    def _sub(self, prefix: str):
+        pick = lambda d: {k[len(prefix):]: v for k, v in d.items() if k.startswith(prefix)}  # noqa: E731
+        return pick(self.params), pick(self.buffers)
+
+    def _vcall(self, name: str, *args, in_dims=None, post=None):
+        """Submodule `name` of every entry on its inputs, vmapped over the stack;
+        `post` maps the submodule's output inside the vmap (to tensors)."""
+        module = getattr(self.module, name)
+        params, buffers = self._sub(name + ".")
+
+        def call(p, b, *a):
+            out = torch.func.functional_call(module, (p, b), a)
+            return post(out) if post else out
+
+        dims = in_dims if in_dims is not None else (0,) * len(args)
+        return torch.func.vmap(call, in_dims=(0, 0, *dims))(params, buffers, *args)
+
+    def _distribution(self, raw):
+        if isinstance(raw, tuple):
+            return TanhNormal(*raw)
+        return Categorical(raw)
+
+    def _head(self, embedding, observation):
+        if self.is_actor:
+            raw = self._vcall("action_head", embedding, observation,
+                              post=lambda pi: pi.raw_params())
+            return self._distribution(raw)
+        return self._vcall("value_head", embedding).squeeze(-1)
+
+    def __call__(self, *args, collect_carries: bool = False):
+        if not self.recurrent:
+            (observation,) = args
+            x = observation.agents_view if self.is_actor else _critic_input(
+                observation, self.module.centralised_critic)
+            return self._head(self._vcall("torso", x), observation)
+        hidden, (observation, done) = args
+        x = observation.agents_view if self.is_actor else _critic_input(
+            observation, self.module.centralised_critic)
+        embedding = self._vcall("pre_torso", x)
+        hidden, out = self._recurrence(hidden, embedding, done, collect_carries)
+        carries, embedding = out if collect_carries else (None, out)
+        embedding = self._vcall("post_torso", embedding)
+        result = self._head(embedding, observation)
+        if collect_carries:
+            return hidden, (carries, result)
+        return hidden, result
+
+    def _recurrence(self, carry, ins, resets, collect_carries: bool):
+        """`ScannedRNN.forward` of every entry: carry (S, B.., H), ins (S, T, B..,
+        F), resets (S, T, B..)."""
+        rnn = self.module.rnn
+        wi, bi, wh, bhn = (self.params[f"rnn.{k}"] for k in ("wi", "bi", "wh", "bhn"))
+        hidden = rnn.hidden_state_dim
+        gates_i = torch.func.vmap(lambda x, w, b: x @ w + b)(ins, wi, bi)
+        stack, t_len, lead = ins.shape[0], ins.shape[1], ins.shape[2:-1]
+        resets = torch.broadcast_to(resets, ins.shape[:-1])
+        if rnn.uses_kernel(ins.device, t_len):
+            gi = gates_i.reshape(stack, t_len, -1, 3 * hidden).contiguous()
+            keep = (1.0 - resets.to(torch.float32)).reshape(stack, t_len, -1, 1)
+            keep = keep.expand(*gi.shape[:3], hidden).contiguous()
+            h0 = carry.reshape(stack, -1, hidden).contiguous()
+            hs = gru_sequence_stacked(gi, keep, h0, wh, bhn)
+            final_h = hs[:, -1].reshape(stack, *lead, hidden)
+            ys = hs.reshape(stack, t_len, *lead, hidden)
+            if collect_carries:
+                carries = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
+                return final_h, (carries.reshape(stack, t_len, *lead, hidden), ys)
+            return final_h, ys
+        return torch.func.vmap(
+            lambda c, g, r, w, b: plain_gru(c, g, r, w, b, collect_carries)
+        )(carry, gates_i, resets, wh, bhn)
+
+
+def stack_observation(observation: Any, stack: int) -> Any:
+    """Every leaf of a batched observation (or any pytree) from (S * E, ...) to
+    (S, E, ...): the envs of a stacked program, entry by entry."""
+    return pytree.tree_map(lambda x: x.reshape(stack, -1, *x.shape[1:]), observation)

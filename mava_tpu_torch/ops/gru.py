@@ -33,14 +33,22 @@ slices of the T*B rows into partial tiles, a second adds the partials in slice
 order. How the rows are split is `reduce_split(T, B, H)`, again a pure function
 of the shape.
 
-`gru_sequence_stacked(gates_i, keep, h0, w_h, b_hn)` is the forward over a
-leading stack axis S of inputs and weights with `keep` shared: what `jax.vmap`
-of `gru_sequence` over stacked parameters computes (rec-IQL's fused double-DQN
-target pass). It is K1 with the stack entry as a grid dimension, forward only.
+`gru_sequence_stacked(gates_i, keep, h0, w_h, b_hn)` is the recurrence over a
+leading stack axis S of inputs and weights, with `keep` shared (T,B,H) or one
+per entry (S,T,B,H): what `jax.vmap` of `gru_sequence` and of its VJP over
+stacked parameters computes (rec-IQL's fused double-DQN target pass, forward
+only; the recurrent learners vmapped over seeds, learning rates or a PBT
+population, forward and backward). It differentiates through
+`GRUSequenceStackedFn`: the stacked K1, then the stacked K2p, K2a and K2b, each
+one launch for the whole stack with the stack entry as one more grid
+dimension. Its plain versions are the unstacked ones entry by entry
+(`gru_sequence_stacked_reference`, `gru_sequence_stacked_backward_reference`).
 
-`fwd_launches` and `bwd_launches` count calls that launched kernels (one per
-forward call, one per backward call); `kernel_launches` counts each kernel by
-name, the stacked forward as `fwd_stacked`. The plain versions leave them alone.
+`fwd_launches` and `bwd_launches` count calls of the unstacked op that launched
+kernels (one per forward call, one per backward call); `kernel_launches` counts
+each kernel by name, the stacked ones as `fwd_stacked`, `bwd_gates_stacked`,
+`bwd_recurrence_stacked`, `bwd_reduce_stacked` and `bwd_reduce_sum_stacked`.
+The plain versions leave them alone.
 """
 
 from __future__ import annotations
@@ -82,7 +90,9 @@ forced_route: Optional[str] = None
 
 fwd_launches = 0
 bwd_launches = 0
-KERNELS = ("fwd", "bwd_gates", "bwd_recurrence", "bwd_reduce", "bwd_reduce_sum", "fwd_stacked")
+KERNELS = ("fwd", "bwd_gates", "bwd_recurrence", "bwd_reduce", "bwd_reduce_sum", "fwd_stacked",
+           "bwd_gates_stacked", "bwd_recurrence_stacked", "bwd_reduce_stacked",
+           "bwd_reduce_sum_stacked")
 kernel_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -226,13 +236,29 @@ def gru_sequence_reference(
     return torch.stack(hs)
 
 
+def _entry_keep(keep: torch.Tensor, stacked_dim: int, s: int) -> torch.Tensor:
+    """Entry s's keep: its own where `keep` has the stack axis, else the shared one."""
+    return keep[s] if keep.dim() == stacked_dim else keep
+
+
 def gru_sequence_stacked_reference(gates_i, keep, h0, w_h, b_hn) -> torch.Tensor:
     """Plain stacked forward: `gru_sequence_reference` for each stack entry, keep
-    shared. Returns hs (S,T,B,H)."""
+    shared (T,B,H) or per entry (S,T,B,H). Returns hs (S,T,B,H)."""
     return torch.stack([
-        gru_sequence_reference(gates_i[s], keep, h0[s], w_h[s], b_hn[s])
+        gru_sequence_reference(gates_i[s], _entry_keep(keep, 4, s), h0[s], w_h[s], b_hn[s])
         for s in range(gates_i.shape[0])
     ])
+
+
+def gru_sequence_stacked_backward_reference(gates_i, keep, h0, w_h, b_hn, hs, g_hs):
+    """Plain stacked backward: `gru_sequence_backward_reference` for each stack
+    entry. Returns (dgates_i, dh0, dWh, db_hn), each with the stack axis."""
+    outs = [
+        gru_sequence_backward_reference(gates_i[s], _entry_keep(keep, 4, s), h0[s], w_h[s],
+                                        b_hn[s], hs[s], g_hs[s])
+        for s in range(gates_i.shape[0])
+    ]
+    return tuple(torch.stack(x) for x in zip(*outs))
 
 
 def gru_sequence_backward_reference(
@@ -341,6 +367,44 @@ def gru_backward_reduce_sum_reference(partials: torch.Tensor, h: int):
     return total[: h * 3 * h].reshape(h, 3 * h), total[h * 3 * h :]
 
 
+def _stack_outputs(fn, count: int):
+    """fn(s) for each stack entry s, each of its outputs stacked on a new axis 0."""
+    outs = [fn(s) for s in range(count)]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.stack(outs)
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def gru_backward_gates_stacked_reference(gates_i, keep, h0, w_h, b_hn, hs) -> torch.Tensor:
+    """Plain stacked K2p: (S,T,B,4H)."""
+    return _stack_outputs(lambda s: gru_backward_gates_reference(
+        gates_i[s], _entry_keep(keep, 4, s), h0[s], w_h[s], b_hn[s], hs[s]), gates_i.shape[0])
+
+
+def gru_backward_recurrence_stacked_reference(gates, keep, h0, w_h, hs, g_hs):
+    """Plain stacked K2a: (dgates_i, dgh, dh0), each with the stack axis."""
+    return _stack_outputs(lambda s: gru_backward_recurrence_reference(
+        gates[s], _entry_keep(keep, 4, s), h0[s], w_h[s], hs[s], g_hs[s]), gates.shape[0])
+
+
+def gru_backward_reduce_stacked_reference(keep, h0, hs, dgh):
+    """Plain stacked K2b: (dWh (S,H,3H), db_hn (S,H))."""
+    return _stack_outputs(lambda s: gru_backward_reduce_reference(
+        _entry_keep(keep, 4, s), h0[s], hs[s], dgh[s]), hs.shape[0])
+
+
+def gru_backward_reduce_partials_stacked_reference(keep, h0, hs, dgh, split: ReduceSplit):
+    """Plain stacked first kernel of K2b: (S, slices, H*3H + H)."""
+    return _stack_outputs(lambda s: gru_backward_reduce_partials_reference(
+        _entry_keep(keep, 4, s), h0[s], hs[s], dgh[s], split), hs.shape[0])
+
+
+def gru_backward_reduce_sum_stacked_reference(partials: torch.Tensor, h: int):
+    """Plain stacked second kernel of K2b: each entry's partials in slice order."""
+    return _stack_outputs(lambda s: gru_backward_reduce_sum_reference(partials[s], h),
+                          partials.shape[0])
+
+
 # --------------------------------------------------------------------------- build and bind
 def _nvcc() -> str:
     found = shutil.which("nvcc")
@@ -377,11 +441,11 @@ def build_kernels(step_clocks: bool = False) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, pointers, ints in (
-        ("gru_sequence_fwd", 6, 5),
-        ("gru_sequence_bwd_gates", 7, 3),
-        ("gru_sequence_bwd_recurrence", 12, 4),
-        ("gru_sequence_bwd_reduce", 5, 5),
-        ("gru_sequence_bwd_reduce_sum", 3, 2),
+        ("gru_sequence_fwd", 6, 6),
+        ("gru_sequence_bwd_gates", 7, 5),
+        ("gru_sequence_bwd_recurrence", 12, 6),
+        ("gru_sequence_bwd_reduce", 5, 7),
+        ("gru_sequence_bwd_reduce_sum", 3, 3),
     ):
         fn = getattr(lib, name)
         fn.argtypes = [ptr] * pointers + [i32] * ints + [ptr]
@@ -416,7 +480,8 @@ def _check(name: str, x: torch.Tensor, shape: Tuple[int, ...], device: torch.dev
 
 def _check_inputs(gates_i, keep, h0, w_h, b_hn, stacked: bool = False) -> Tuple[int, ...]:
     """(T, B, H), or (S, T, B, H) where `stacked`: gates_i, h0, w_h and b_hn then
-    lead with the stack axis S and keep is shared."""
+    lead with the stack axis S, and keep is shared (T, B, H) or per entry
+    (S, T, B, H)."""
     lead = 1 if stacked else 0
     if gates_i.dim() != 3 + lead or gates_i.shape[-1] % 3 != 0:
         want = "(S, T, B, 3H)" if stacked else "(T, B, 3H)"
@@ -429,7 +494,7 @@ def _check_inputs(gates_i, keep, h0, w_h, b_hn, stacked: bool = False) -> Tuple[
         raise ValueError(f"gru_sequence: need 1 <= S <= 65535, got S={stack[0]}")
     dev = gates_i.device
     _check("gates_i", gates_i, (*stack, t_len, b, h3), dev)
-    _check("keep", keep, (t_len, b, h), dev)
+    _check("keep", keep, (*stack[: keep.dim() - 3], t_len, b, h), dev)
     _check("h0", h0, (*stack, b, h), dev)
     _check("w_h", w_h, (*stack, h, h3), dev)
     _check("b_hn", b_hn, (*stack, h), dev)
@@ -510,7 +575,7 @@ def gru_sequence_forward(gates_i, keep, h0, w_h, b_hn, step_clocks: bool = False
     dev = gates_i.device
     cluster = CLUSTER if _resident(t_len, b, h) else 0
     hs = _empty(dev, t_len, b, h)
-    _launch("fwd", lib.gru_sequence_fwd, dev, gates_i, keep, h0, w_h, b_hn, hs, t_len, b, h, 1,
+    _launch("fwd", lib.gru_sequence_fwd, dev, gates_i, keep, h0, w_h, b_hn, hs, t_len, b, h, 1, 0,
             cluster)
     fwd_launches += 1
     return hs
@@ -518,7 +583,7 @@ def gru_sequence_forward(gates_i, keep, h0, w_h, b_hn, step_clocks: bool = False
 
 def gru_sequence_stacked_forward(gates_i, keep, h0, w_h, b_hn) -> torch.Tensor:
     """hs (S,T,B,H): one launch of K1 over every stack entry on CUDA tensors, the
-    plain loop over S on CPU tensors."""
+    plain loop over S on CPU tensors. `keep` is (T,B,H) shared or (S,T,B,H)."""
     stack, t_len, b, h = _check_inputs(gates_i, keep, h0, w_h, b_hn, stacked=True)
     if gates_i.device.type == "cpu":
         return gru_sequence_stacked_reference(gates_i, keep, h0, w_h, b_hn)
@@ -529,7 +594,7 @@ def gru_sequence_stacked_forward(gates_i, keep, h0, w_h, b_hn) -> torch.Tensor:
     # The same kernel function as K1: the span tells its launches apart in a profile.
     with record_function("gru/fwd_stacked"):
         _launch("fwd_stacked", lib.gru_sequence_fwd, dev, gates_i, keep, h0, w_h, b_hn, hs, t_len,
-                b, h, stack, cluster)
+                b, h, stack, int(keep.dim() == 4), cluster)
     return hs
 
 
@@ -542,7 +607,7 @@ def gru_backward_gates(gates_i, keep, h0, w_h, b_hn, hs) -> torch.Tensor:
     lib = build_kernels()
     gates = _empty(gates_i.device, t_len, b, 4 * h)
     _launch("bwd_gates", lib.gru_sequence_bwd_gates, gates_i.device,
-            gates_i, keep, h0, w_h, b_hn, hs, gates, t_len, b, h)
+            gates_i, keep, h0, w_h, b_hn, hs, gates, t_len, b, h, 1, 0)
     return gates
 
 
@@ -570,7 +635,7 @@ def gru_backward_recurrence(gates_i, keep, h0, w_h, b_hn, hs, g_hs, gates=None,
     dgates, dgh, dh0 = _empty(dev, t_len, b, 3 * h), _empty(dev, t_len, b, 3 * h), _empty(dev, b, h)
     _launch("bwd_recurrence", lib.gru_sequence_bwd_recurrence, dev,
             gates_i, keep, h0, w_h, w_h_t, b_hn, hs, g_hs, gates if resident else None,
-            dgates, dgh, dh0, t_len, b, h, CLUSTER if resident else 0)
+            dgates, dgh, dh0, t_len, b, h, 1, 0, CLUSTER if resident else 0)
     return dgates, dgh, dh0
 
 
@@ -593,7 +658,7 @@ def gru_backward_reduce_partials(keep, h0, hs, dgh, slices: Optional[int] = None
     lib = build_kernels()
     partials = _empty(dev, split.slices, h * 3 * h + h)
     _launch("bwd_reduce", lib.gru_sequence_bwd_reduce, dev, keep, h0, hs, dgh, partials,
-            t_len, b, h, split.slices, split.rows_per_slice)
+            t_len, b, h, split.slices, split.rows_per_slice, 1, 0)
     return partials
 
 
@@ -623,7 +688,7 @@ def gru_backward_reduce_sum(partials: torch.Tensor, h: int):
     dev = partials.device
     dwh, dbhn = _empty(dev, h, 3 * h), _empty(dev, h)
     _launch("bwd_reduce_sum", lib.gru_sequence_bwd_reduce_sum, dev, partials, dwh, dbhn,
-            h, partials.shape[0])
+            h, partials.shape[0], 1)
     return dwh, dbhn
 
 
@@ -652,6 +717,118 @@ def gru_sequence_backward(gates_i, keep, h0, w_h, b_hn, hs, g_hs):
     dgates, dgh, dh0 = gru_backward_recurrence(gates_i, keep, h0, w_h, b_hn, hs, g_hs, gates)
     dwh, dbhn = gru_backward_reduce(keep, h0, hs, dgh)
     bwd_launches += 1
+    return dgates, dh0, dwh, dbhn
+
+
+def _check_stacked_extra(stack: int, t_len: int, b: int, h: int, device, **tensors) -> None:
+    widths = {"hs": h, "g_hs": h, "gates": 4 * h, "dgh": 3 * h}
+    for name, x in tensors.items():
+        _check(name, x, (stack, t_len, b, widths[name]), device)
+
+
+def gru_backward_gates_stacked(gates_i, keep, h0, w_h, b_hn, hs) -> torch.Tensor:
+    """Stacked K2p: (S,T,B,4H), one launch with the stack entry as grid z."""
+    stack, t_len, b, h = _check_inputs(gates_i, keep, h0, w_h, b_hn, stacked=True)
+    _check_stacked_extra(stack, t_len, b, h, gates_i.device, hs=hs)
+    if gates_i.device.type == "cpu":
+        return gru_backward_gates_stacked_reference(gates_i, keep, h0, w_h, b_hn, hs)
+    gates = _empty(gates_i.device, stack, t_len, b, 4 * h)
+    _launch("bwd_gates_stacked", build_kernels().gru_sequence_bwd_gates, gates_i.device,
+            gates_i, keep, h0, w_h, b_hn, hs, gates, t_len, b, h, stack, int(keep.dim() == 4))
+    return gates
+
+
+def gru_backward_recurrence_stacked(gates_i, keep, h0, w_h, b_hn, hs, g_hs, gates=None):
+    """Stacked K2a: (dgates_i, dgh, dh0), each with the stack axis, one launch with
+    the stack entry as grid y. As `gru_backward_recurrence`, the resident route
+    reads `gates` and the streaming route recomputes them from transposed copies
+    of each entry's Wh made here."""
+    stack, t_len, b, h = _check_inputs(gates_i, keep, h0, w_h, b_hn, stacked=True)
+    dev = gates_i.device
+    _check_stacked_extra(stack, t_len, b, h, dev, hs=hs, g_hs=g_hs)
+    resident = _resident(t_len, b, h)
+    if dev.type == "cpu" or resident:
+        if gates is None:
+            raise ValueError("gru_backward_recurrence_stacked: this route needs the recomputed gates")
+        _check_stacked_extra(stack, t_len, b, h, dev, gates=gates)
+    if dev.type == "cpu":
+        return gru_backward_recurrence_stacked_reference(gates, keep, h0, w_h, hs, g_hs)
+    w_h_t = None
+    if not resident:
+        w_h_t = _empty(dev, stack, 3 * h, h)
+        w_h_t.copy_(w_h.transpose(1, 2))
+    dgates, dgh = _empty(dev, stack, t_len, b, 3 * h), _empty(dev, stack, t_len, b, 3 * h)
+    dh0 = _empty(dev, stack, b, h)
+    _launch("bwd_recurrence_stacked", build_kernels().gru_sequence_bwd_recurrence, dev,
+            gates_i, keep, h0, w_h, w_h_t, b_hn, hs, g_hs, gates if resident else None,
+            dgates, dgh, dh0, t_len, b, h, stack, int(keep.dim() == 4),
+            CLUSTER if resident else 0)
+    return dgates, dgh, dh0
+
+
+def _check_reduce_stacked(keep, h0, hs, dgh) -> Tuple[int, int, int, int]:
+    stack, t_len, b, h = hs.shape
+    _check("keep", keep, (*(stack,)[: keep.dim() - 3], t_len, b, h), hs.device)
+    _check("h0", h0, (stack, b, h), hs.device)
+    _check_stacked_extra(stack, t_len, b, h, hs.device, hs=hs, dgh=dgh)
+    return stack, t_len, b, h
+
+
+def gru_backward_reduce_partials_stacked(keep, h0, hs, dgh, slices: Optional[int] = None):
+    """Stacked K2b, first kernel: (S, slices, H*3H + H), every entry's slices in one
+    launch (grid z = entry * slices + slice)."""
+    stack, t_len, b, h = _check_reduce_stacked(keep, h0, hs, dgh)
+    split = reduce_split(t_len, b, h, slices)
+    if hs.device.type == "cpu":
+        return gru_backward_reduce_partials_stacked_reference(keep, h0, hs, dgh, split)
+    if split.slices * stack > 65535:
+        raise ValueError(f"gru_backward_reduce_partials_stacked: {stack} entries x "
+                         f"{split.slices} slices exceed the grid")
+    partials = _empty(hs.device, stack, split.slices, h * 3 * h + h)
+    _launch("bwd_reduce_stacked", build_kernels().gru_sequence_bwd_reduce, hs.device,
+            keep, h0, hs, dgh, partials, t_len, b, h, split.slices, split.rows_per_slice,
+            stack, int(keep.dim() == 4))
+    return partials
+
+
+def gru_backward_reduce_sum_stacked(partials: torch.Tensor, h: int):
+    """Stacked K2b, second kernel: (dWh (S,H,3H), db_hn (S,H)), each entry's
+    partials added in slice order, one launch with the entry as grid y."""
+    stack, slices = partials.shape[:2]
+    _check("partials", partials, (stack, slices, h * 3 * h + h), partials.device)
+    if partials.device.type == "cpu":
+        return gru_backward_reduce_sum_stacked_reference(partials, h)
+    dev = partials.device
+    dwh, dbhn = _empty(dev, stack, h, 3 * h), _empty(dev, stack, h)
+    _launch("bwd_reduce_sum_stacked", build_kernels().gru_sequence_bwd_reduce_sum, dev,
+            partials, dwh, dbhn, h, slices, stack)
+    return dwh, dbhn
+
+
+def gru_backward_reduce_stacked(keep, h0, hs, dgh, slices: Optional[int] = None):
+    """Stacked K2b: (dWh, db_hn) of every entry, bitwise the same from run to run.
+    On CUDA tensors the two kernels in turn; on CPU tensors the plain product."""
+    if hs.device.type == "cpu":
+        _check_reduce_stacked(keep, h0, hs, dgh)
+        return gru_backward_reduce_stacked_reference(keep, h0, hs, dgh)
+    return gru_backward_reduce_sum_stacked(
+        gru_backward_reduce_partials_stacked(keep, h0, hs, dgh, slices), hs.shape[-1])
+
+
+def gru_sequence_stacked_backward(gates_i, keep, h0, w_h, b_hn, hs, g_hs):
+    """(dgates_i, dh0, dWh, db_hn) of every stack entry. On CUDA tensors the
+    stacked K2p (resident route only), K2a and K2b, one launch each for the
+    whole stack; on CPU tensors the plain loop entry by entry."""
+    stack, t_len, b, h = _check_inputs(gates_i, keep, h0, w_h, b_hn, stacked=True)
+    _check_stacked_extra(stack, t_len, b, h, gates_i.device, hs=hs, g_hs=g_hs)
+    if gates_i.device.type == "cpu":
+        return gru_sequence_stacked_backward_reference(gates_i, keep, h0, w_h, b_hn, hs, g_hs)
+    gates = None
+    if _resident(t_len, b, h):
+        gates = gru_backward_gates_stacked(gates_i, keep, h0, w_h, b_hn, hs)
+    dgates, dgh, dh0 = gru_backward_recurrence_stacked(
+        gates_i, keep, h0, w_h, b_hn, hs, g_hs, gates)
+    dwh, dbhn = gru_backward_reduce_stacked(keep, h0, hs, dgh)
     return dgates, dh0, dwh, dbhn
 
 
@@ -697,23 +874,26 @@ def gru_sequence(gates_i, keep, h0, w_h, b_hn) -> torch.Tensor:
 
 
 class GRUSequenceStackedFn(torch.autograd.Function):
-    """forward = the stacked K1 (the plain loop on CPU tensors); no backward."""
+    """forward = the stacked K1, backward = the stacked K2p + K2a + K2b (the plain
+    versions entry by entry on CPU tensors)."""
 
     @staticmethod
     def forward(ctx, gates_i, keep, h0, w_h, b_hn):
-        return gru_sequence_stacked_forward(gates_i, keep, h0, w_h, b_hn)
+        hs = gru_sequence_stacked_forward(gates_i, keep, h0, w_h, b_hn)
+        ctx.save_for_backward(gates_i, keep, h0, w_h, b_hn, hs)
+        return hs
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g_hs):
-        raise RuntimeError(
-            "gru_sequence_stacked is forward-only: it has no backward kernel. Run it "
-            "under torch.no_grad(), or use gru_sequence per stack entry for gradients."
+        dgates, dh0, dwh, dbhn = gru_sequence_stacked_backward(
+            *ctx.saved_tensors, g_hs.contiguous()
         )
+        return dgates, None, dh0, dwh, dbhn
 
 
 def gru_sequence_stacked(gates_i, keep, h0, w_h, b_hn) -> torch.Tensor:
     """The GRU recurrence over a leading stack axis: gates_i (S,T,B,3H), keep
-    (T,B,H) shared, h0 (S,B,H), w_h (S,H,3H), b_hn (S,H) -> hs (S,T,B,H). Forward
-    only: asking it for a gradient raises."""
+    (T,B,H) shared or (S,T,B,H) per entry, h0 (S,B,H), w_h (S,H,3H), b_hn (S,H)
+    -> hs (S,T,B,H). Differentiable with respect to all but keep."""
     return GRUSequenceStackedFn.apply(gates_i, keep, h0, w_h, b_hn)

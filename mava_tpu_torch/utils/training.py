@@ -1,17 +1,23 @@
 """Optimizer, schedules and the off-policy helpers (port of
-`mava_tpu/utils/training.py:13-75, 166-214`, of optax's target updates and of
+`mava_tpu/utils/training.py:13-170, 166-214`, of optax's target updates and of
 `mava_tpu/utils/jax_utils.py`'s `select_along_last` and `switch_leading_axes`).
 
 `ClippedAdam` is optax's `chain(clip_by_global_norm(max_norm), adam(lr,
 eps=1e-5))` step for step: clip by the global norm with optax's rule (no 1e-6
 added to the norm, unlike `torch.nn.utils.clip_grad_norm_`), Adam moments with
 bias correction, eps outside the sqrt, then the (scheduled) learning rate.
+
+`SweptClippedAdam` is the same step over parameters stacked on a leading axis
+of S entries, each entry an optimizer of its own with its peak learning rate
+held in the optimizer's state (the reference's `scale_by_swept_lr`,
+`make_swept_optimizer` and `set_peak_lr`, `utils/training.py:90-144`, under
+`jax.vmap`): what the seed, sweep and PBT programs of `advanced_usage/` step.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Any, Callable, Dict, Iterable, Sequence, Union
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Union
 
 import torch
 from torch.utils import _pytree as pytree
@@ -79,6 +85,84 @@ class ClippedAdam:
 def make_optimizer(params, lr, max_grad_norm: float) -> ClippedAdam:
     """Global-norm-clipped Adam with eps=1e-5 (the reference's optimizer)."""
     return ClippedAdam(params, lr, max_grad_norm, eps=1e-5)
+
+
+def _per_entry(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(S,) -> (S, 1, ..., 1), to broadcast over an entry of `like`."""
+    return x.reshape(-1, *([1] * (like.dim() - 1)))
+
+
+class SweptClippedAdam(ClippedAdam):
+    """`ClippedAdam` over parameters stacked on a leading axis of S entries, each
+    entry stepped as `ClippedAdam` would step it alone: clipped by its own global
+    norm (a norm over the whole stack would mix the entries), its own Adam
+    moments, and its own learning rate, `peak_lr[s]` (a float64 tensor of the
+    state, set with `set_peak_lr`) decayed as `make_learning_rate_schedule`
+    decays it when `decay_updates` is given.
+
+    `count` is one for the stack: every entry takes every step. The learning
+    rate of an entry is formed as the stock schedule forms it (in float64, then
+    taken to float32 where it multiplies the update), so that entry s is
+    bitwise the stock optimizer at `peak_lr[s]` wherever its squared norm sums
+    in the same order (one CPU thread); elsewhere the two differ by rounding.
+    """
+
+    def __init__(self, params: Iterable[torch.Tensor], peak_lr, max_grad_norm: float,
+                 decay_updates: Optional[int] = None, eps: float = 1e-5,
+                 b1: float = 0.9, b2: float = 0.999):
+        super().__init__(params, 0.0, max_grad_norm, eps, b1, b2)
+        self.decay_updates = decay_updates
+        set_peak_lr(self, peak_lr)
+
+    @property
+    def entries(self) -> int:
+        return self.params[0].shape[0]
+
+    def learning_rates(self) -> torch.Tensor:
+        """(S,) float32: each entry's learning rate for the next step."""
+        frac = 1.0
+        if self.decay_updates is not None:
+            frac = max(0.0, 1.0 - self.count / self.decay_updates)
+        return (self.peak_lr * frac).to(self.params[0].dtype)
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        g_norm = torch.sqrt(sum(torch.sum(g * g, dim=tuple(range(1, g.dim()))) for g in grads))
+        keep = g_norm < self.max_grad_norm
+        grads = [
+            torch.where(_per_entry(keep, g), g, (g / _per_entry(g_norm, g)) * self.max_grad_norm)
+            for g in grads
+        ]
+
+        lr = self.learning_rates()
+        self.count += 1
+        dtype, dev = self.params[0].dtype, self.params[0].device
+        bc1 = 1 - torch.tensor(self.b1, dtype=dtype, device=dev) ** self.count
+        bc2 = 1 - torch.tensor(self.b2, dtype=dtype, device=dev) ** self.count
+        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+            mu.copy_((1 - self.b1) * g + self.b1 * mu)
+            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            p.add_(-_per_entry(lr, p) * update)
+
+
+def set_peak_lr(optimizer: SweptClippedAdam, peak_lr) -> SweptClippedAdam:
+    """Write each entry's peak learning rate into the optimizer's state: a float
+    for every entry, or one value an entry (reference `set_peak_lr`)."""
+    lrs = torch.as_tensor(peak_lr, dtype=torch.float64, device=optimizer.params[0].device)
+    optimizer.peak_lr = lrs.expand(optimizer.entries).clone()
+    return optimizer
+
+
+def make_swept_optimizer(params, config, max_grad_norm: float, peak_lr) -> SweptClippedAdam:
+    """`make_optimizer` over stacked parameters with the learning rate in the
+    optimizer's state: decayed over every minibatch update of the run with
+    `system.decay_learning_rates`, as the stock schedule (reference
+    `make_swept_optimizer`, :123-141)."""
+    decay = None
+    if config.system.get("decay_learning_rates", False):
+        decay = config.system.ppo_epochs * config.system.num_minibatches * config.system.num_updates
+    return SweptClippedAdam(params, peak_lr, max_grad_norm, decay, eps=1e-5)
 
 
 def entropy_coefficient(config, actor_optimizer: ClippedAdam) -> float:

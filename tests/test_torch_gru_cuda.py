@@ -204,18 +204,82 @@ def test_stack_of_one_is_the_unstacked_kernel_bitwise(cuda, monkeypatch, route, 
     assert torch.equal(gru.gru_sequence_stacked(*two)[0], stacked[0])
 
 
-def test_stacked_forward_has_no_gradient_and_checks_inputs(cuda):
+def test_stacked_op_has_a_gradient_and_checks_inputs(cuda):
+    """The stacked op differentiates through the stacked backward kernels (it was
+    forward-only before the seed programs), and checks its inputs' shapes."""
     args = [a.clone().requires_grad_(i != 1)
             for i, a in enumerate(_stacked_inputs(2, 5, 3, 64, seed=1, device=cuda))]
+    counts = dict(gru.kernel_launches)
     hs = gru.gru_sequence_stacked(*args)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        hs.sum().backward()
+    hs.sum().backward()
+    want = gru.gru_sequence_stacked_backward_reference(
+        *[a.detach() for a in args], hs.detach(), torch.ones_like(hs))
+    for got, w in zip([args[i].grad for i in (0, 2, 3, 4)], want):
+        torch.testing.assert_close(got, w, **TOL)
+    for name in ("bwd_gates_stacked", "bwd_recurrence_stacked", "bwd_reduce_stacked",
+                 "bwd_reduce_sum_stacked"):
+        assert gru.kernel_launches[name] == counts[name] + 1, name
     with torch.no_grad():
         assert not gru.gru_sequence_stacked(*args).requires_grad
     with pytest.raises(ValueError):
         gru.gru_sequence_stacked(args[0], args[1], args[2][:1], args[3], args[4])
     with pytest.raises(ValueError):
         gru.gru_sequence_stacked(args[0][0], args[1], args[2][0], args[3][0], args[4][0])
+
+
+def _seed_inputs(stack, t_len, b, h, seed, device, shared_keep=False):
+    """Stacked inputs with a keep per entry (the seed programs) or one shared, and g_hs."""
+    entries = [_inputs(t_len, b, h, seed=seed + s, device=device) for s in range(stack)]
+    args = [torch.stack([e[0][i] for e in entries]).contiguous() for i in range(5)]
+    if shared_keep:
+        args[1] = entries[0][0][1]
+    return args, torch.stack([e[1] for e in entries]).contiguous()
+
+
+# The seed programs' SMAX 3s5z shapes (16 envs x 8 agents: B = 128 critic, 64
+# losses), ragged and streaming shapes.
+SEED_SHAPES = [(4, 128, 128, 128), (8, 128, 64, 128), (3, 7, 5, 128), (2, 9, 3, 256),
+               (3, 6, 4, 72), (2, 5, 40, 64)]
+
+
+@pytest.mark.parametrize("route", ["resident", "streaming"])
+@pytest.mark.parametrize("shared_keep", [False, True], ids=["per-entry-keep", "shared-keep"])
+@pytest.mark.parametrize("stack,t_len,b,h", SEED_SHAPES)
+def test_stacked_backward_kernels_match_plain_versions(cuda, monkeypatch, stack, t_len, b, h,
+                                                       shared_keep, route):
+    if route == "streaming":
+        monkeypatch.setattr(gru, "forced_route", gru.STREAMING)
+    args, g_hs = _seed_inputs(stack, t_len, b, h, seed=b, device=cuda, shared_keep=shared_keep)
+    counts = dict(gru.kernel_launches)
+    hs = gru.gru_sequence_stacked_forward(*args)
+    torch.testing.assert_close(hs, gru.gru_sequence_stacked_reference(*args), **TOL)
+    got = gru.gru_sequence_stacked_backward(*args, hs, g_hs)
+    want = gru.gru_sequence_stacked_backward_reference(*args, hs, g_hs)
+    for name, g, w in zip(("dgates_i", "dh0", "dWh", "db_hn"), got, want):
+        torch.testing.assert_close(g, w, **TOL, msg=name)
+    again = gru.gru_sequence_stacked_backward(*args, hs, g_hs)
+    for name, g, a in zip(("dgates_i", "dh0", "dWh", "db_hn"), got, again):
+        assert torch.equal(a, g), name
+    resident = route == "resident" and gru.kernel_route(t_len, b, h).route == "resident"
+    assert gru.kernel_launches["bwd_gates_stacked"] == counts["bwd_gates_stacked"] + 2 * resident
+    for name in ("bwd_recurrence_stacked", "bwd_reduce_stacked", "bwd_reduce_sum_stacked"):
+        assert gru.kernel_launches[name] == counts[name] + 2, name
+    for name in ("fwd", "bwd_gates", "bwd_recurrence", "bwd_reduce", "bwd_reduce_sum"):
+        assert gru.kernel_launches[name] == counts[name], name
+
+
+@pytest.mark.parametrize("stack,t_len,b,h", SEED_SHAPES[2:])
+def test_stacked_entry_is_the_unstacked_kernels_bitwise(cuda, stack, t_len, b, h):
+    """Entry s of each stacked kernel is the unstacked kernel on entry s's inputs,
+    bitwise: the stacked kernels are the unstacked code with the entry's offsets."""
+    args, g_hs = _seed_inputs(stack, t_len, b, h, seed=t_len, device=cuda)
+    hs = gru.gru_sequence_stacked_forward(*args)
+    grads = gru.gru_sequence_stacked_backward(*args, hs, g_hs)
+    for s in range(stack):
+        entry = [a[s] for a in args]
+        assert torch.equal(hs[s], gru.gru_sequence_forward(*entry))
+        for g, w in zip(grads, gru.gru_sequence_backward(*entry, hs[s], g_hs[s])):
+            assert torch.equal(g[s], w)
 
 
 def test_max_active_clusters_of_the_resident_kernels(cuda):

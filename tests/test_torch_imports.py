@@ -36,5 +36,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "mava_tpu_torch.specs", "mava_tpu_torch.envs.stagger",
                  "mava_tpu_torch.utils.checkpointing", "mava_tpu_torch.utils.tbwriter",
                  "mava_tpu_torch.utils.profiling", "mava_tpu_torch.envs.render",
-                 "mava_tpu_torch.examples.render_episode"):
+                 "mava_tpu_torch.examples.render_episode",
+                 # the seed axis: the stacked programs and the seed band
+                 "mava_tpu_torch.advanced_usage.common",
+                 "mava_tpu_torch.advanced_usage.ff_ippo_vmap_seeds",
+                 "mava_tpu_torch.advanced_usage.ff_mappo_vmap_seeds",
+                 "mava_tpu_torch.advanced_usage.rec_ippo_vmap_seeds",
+                 "mava_tpu_torch.advanced_usage.rec_mappo_vmap_seeds",
+                 "mava_tpu_torch.advanced_usage.ff_ippo_vmap_sweep",
+                 "mava_tpu_torch.advanced_usage.ff_mappo_vmap_sweep",
+                 "mava_tpu_torch.advanced_usage.rec_ippo_vmap_sweep",
+                 "mava_tpu_torch.advanced_usage.rec_mappo_vmap_sweep",
+                 "mava_tpu_torch.advanced_usage.ff_ippo_pbt",
+                 "mava_tpu_torch.advanced_usage.rec_ippo_pbt",
+                 "mava_tpu_torch.examples.seed_band"):
         assert name in report["modules"]
