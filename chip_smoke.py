@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py [--profile | --seeds | --dynamics]
+    python3 chip_smoke.py [--profile | --seeds | --offpolicy | --dynamics]
 
 Run from the root of the repository. It
   1. prints the torch and CUDA versions and the card's name and power limit;
@@ -58,10 +58,10 @@ Run from the root of the repository. It
      `torch.profiler`;
   8. grid phase: rec-MAPPO with `network=rcnn` (CNN [32, 32] 3x3 -> GRU H =
      128 -> MLP [128]) on MaConnector con-10x10x10a at the shipped system
-     config, 4 updates through `rec_mappo.run_experiment` with exactly 17
+     config, 2 updates through `rec_mappo.run_experiment` with exactly 17
      forward and 16 of each backward kernel an update (B = 160 on the critic
      pass, 80 in the losses), one update on the kernels against one on the
-     plain GRU; then 4 updates each of ff-IPPO `network=cnn` on Cleaner
+     plain GRU; then 2 updates each of ff-IPPO `network=cnn` on Cleaner
      clean-10x10x10a, ff-MAPPO on LBF 8x8-2p-2f-coop and ff-IPPO on Gigastep
      hide_and_seek_5_vs_5_fobs (no GRU kernel). Each: env-steps/s, launches per
      rollout step and idle share of one profiled update, peak memory on the card;
@@ -81,7 +81,7 @@ Run from the root of the repository. It
      syncs (none allowed) and the trace time of its q̈; ff-ISAC on each through
      `run_experiment` (16 envs, rollout 2, 32 epochs, delay 4, batch 32, the
      1,000,000-item buffer on the card; cut in depth: one batch explored, two
-     rounds of two updates, episodes of 2 steps) with every parameter changed and
+     rounds of one update, episodes of 2 steps) with every parameter changed and
      no GRU launch, then one timed update (env-steps/s, peak memory) and on
      MaHopper one profiled (launches per act and train step, idle share);
      ff-MASAC the same on MaHumanoid and MaHopper; continuous ff-IPPO on
@@ -109,15 +109,32 @@ Run from the root of the repository. It
      step, cut in depth; the launches of a whole stacked update at S = 8
      against S = 1 (at most 1.5x) and env-steps/s at S = 1, 4, 8 beside one
      stock update;
-  13. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
+  13. off-policy seed phase: the stacked K1 over 2S = 8 entries at rec-IQL's
+     target pass (T = 20, B = 256, H = 128; each online/target pair with its
+     seed's keep) and the stacked K1 and backward over S = 4 at its loss pass,
+     against their plain versions, bitwise repeatable, timed beside their
+     bounds, 2S (or S) unstacked calls, 2S cuDNN forwards or S cuDNN backwards,
+     with the clusters asked against those held; `rec_iql_vmap_seeds` through
+     `run_experiment` at S = 4 on SMAX 3s5z, 2 updates with exactly 4 stacked
+     K1 and 2 of each stacked backward kernel an update (no unstacked launch);
+     one stacked update against 4 stock ones from the same draws (1e-4);
+     `ff_isac_vmap_seeds` (S = 4) and `ff_masac_vmap_sweep` (4 lrs) on MaSwarm
+     through `run_experiment`, cut in depth (`SAC_VMAP_CUTS`); env-steps/s at
+     S = 1, 4, 8 and the launches of an update at S = 8 against S = 1 (at most
+     1.5x) for rec-IQL and ff-ISAC, beside one stock update; the ring
+     writes' share of a stacked act step's host ms; the ring's bytes an entry
+     and the peak memory; `ff_ippo_store_experience` writing a vault (under
+     `build/`) and `examples.bc_from_vault` cloning from it;
+  14. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
      updates each through their `run_experiment` with the same health checks
      (they reach no hand-written kernel), three timed ff-IPPO updates, ff-IPPO on
      Matrax Penalty-25 for 30 updates with its eval return, and a short run of
      the bench program (`bench_torch.run` at 512 envs);
-  14. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
+  15. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
      512 envs under `torch.profiler`: host ms, launches and kernel ms per span,
      launches per rollout step, per-kernel totals and the device's idle share.
-`--seeds` builds the kernels and runs only the seed phase. `--dynamics` runs
+`--seeds` builds the kernels and runs only the seed phase, `--offpolicy` only
+the off-policy seed phase. `--dynamics` runs
 only two measurements of `envs/_dynamics.py` and exits:
 MaReacher with the checked solve of the parent against the unchecked one, and
 tracing a whole RK4 substep against tracing q̈ alone (`dynamics_ab`).
@@ -168,6 +185,9 @@ GRID_FF = [
     ("ff-IPPO on Gigastep hide_and_seek_5_vs_5_fobs", "ff_ippo",
      ["env=gigastep", "env/scenario=hide_and_seek_5_vs_5_fobs"]),
 ]
+# Each grid run trains 2 updates through run_experiment (4 before the off-policy
+# seed phase came), then times 2 more and profiles one.
+GRID_CUT = ["system.num_updates=2"]
 IQL_UPDATES = 50  # 200 until PR 8, cut to make room for the articulated phase
 SHAPES = SLICE_SHAPES + [(7, 5, 128), (9, 3, 256), (33, 17, 128), (5, 40, 256), (6, 4, 72),
                          (3, 2, 512)]
@@ -936,7 +956,7 @@ def grid_phase(gru, gpu: str) -> dict:
     against one on the plain GRU. Then ff-IPPO cnn on Cleaner, ff-MAPPO on LBF
     and ff-IPPO on Gigastep, which reach no GRU kernel."""
     out = {"connector": grid_run(gru, gpu, "rec-MAPPO rcnn on MaConnector con-10x10x10a",
-                                 "rec_mappo", CONNECTOR)}
+                                 "rec_mappo", CONNECTOR + GRID_CUT)}
     updates = out["connector"]["updates"]
     for _, counter, _, per_update in KERNELS:
         got = out["connector"]["launches"][counter]
@@ -944,7 +964,7 @@ def grid_phase(gru, gpu: str) -> dict:
               f"rec_mappo rcnn on MaConnector: {counter} launched {got} times in {updates} "
               f"updates, not {per_update} an update")
     for label, system, overrides in GRID_FF:
-        out[label] = grid_run(gru, gpu, label, system, overrides)
+        out[label] = grid_run(gru, gpu, label, system, overrides + GRID_CUT)
     return out
 
 
@@ -1071,18 +1091,15 @@ SAC_TIMED_UPDATES = 4  # 8 until PR 8, cut to make room for the articulated phas
 
 def sac_learner(config_name: str, centralised: bool, overrides=()):
     """(config, explore, learn, state) of SAC at the shipped config plus
-    `overrides`, one update a `learn` call, from the seed's state."""
-    from mava_tpu_torch import envs as environments
+    `overrides`, one update a `learn` call, from the seed's state
+    (`ff_isac.build_bench_learners`)."""
     from mava_tpu_torch.systems.sac import ff_isac
     from mava_tpu_torch.utils.config import load_config
 
     cfg = load_config(config_name, ["+arch.device=cuda", *overrides])
     cfg.arch.n_devices = 1
     cfg.system.scan_steps = 1
-    device = torch.device("cuda")
-    env, _ = environments.make(cfg, device, add_global_state=centralised)
-    gen = torch.Generator(device=device).manual_seed(cfg.system.seed)
-    explore, learn, _, state = ff_isac.learner_setup(env, gen, cfg, device, centralised)
+    explore, learn, state = ff_isac.build_bench_learners(cfg, torch.device("cuda"), centralised)
     return cfg, explore, learn, state
 
 
@@ -1208,16 +1225,16 @@ ARTICULATED = [("maswimmer", "swimmer-2x1"), ("mahopper", "hopper-3x1"),
                ("maant", "ant-4x2"), ("mahumanoid", "humanoid-9-8")]
 # Cut in depth only (an env step costs 0.1-2.9 s of host at 16 envs): episodes
 # of 2 steps, so an evaluation of 16 episodes is 2 steps; SAC explores one batch
-# (32 items) and runs two rounds of two updates; ff-IPPO rolls out 8 steps. An
+# (32 items) and runs two rounds of one update; ff-IPPO rolls out 8 steps. An
 # update is profiled on MaHopper only, and ff-IPPO's with a rollout of 1 step:
 # processing the profile of an update takes ~0.3 ms an event, over two minutes
 # for MaHumanoid's 240,000 launches (PERF.md §5 has every env's, from a run of
 # this phase that profiled them all).
 ARTICULATED_CUT = ["env.kwargs.time_limit=2", "arch.num_eval_episodes=16",
                    "arch.absolute_metric=False"]
-ARTICULATED_SAC = ["system.explore_steps=32", "system.total_timesteps=128",
+ARTICULATED_SAC = ["system.explore_steps=32", "system.total_timesteps=64",
                    "arch.num_evaluation=2", "+arch.device=cuda"]
-ARTICULATED_SAC_UPDATES = 4
+ARTICULATED_SAC_UPDATES = 2
 ARTICULATED_MASAC = ["mahumanoid", "mahopper"]
 ARTICULATED_PROFILED = ["mahopper"]
 ARTICULATED_PPO = ["env=mawalker", "env/scenario=walker2d-2x3", "network=continuous_mlp",
@@ -1290,7 +1307,7 @@ def articulated_step(env_name: str, scenario: str, gpu: str) -> dict:
         check(torch.equal(getattr(got_ts, k).cpu(), getattr(want_ts, k)),
               f"{env_name}: the card's {k} differs from the CPU's")
     seconds = []
-    for _ in range(3):
+    for _ in range(2):
         torch.cuda.synchronize()
         start = time.perf_counter()
         card.step(got, action)
@@ -1451,7 +1468,8 @@ def profile_update(label: str, run, steps: int, rollout_length: int) -> dict:
     idle share. Returns them, with the launches of each span."""
     from torch.profiler import ProfilerActivity, profile
 
-    span_prefix = ("ff_ippo/", "rec_ippo/", "rec_iql/", "sac/", "gru/")
+    span_prefix = ("ff_ippo/", "rec_ippo/", "rec_iql/", "sac/", "gru/", "rec_iql_vmap/",
+                   "sac_vmap/")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1477,11 +1495,14 @@ def profile_update(label: str, run, steps: int, rollout_length: int) -> dict:
     # The stacked K1 is K1's kernel function; its launches sit in the wrapper's span.
     stacked_ids = {e.id for span in spans if span.name == "gru/fwd_stacked"
                    for e in launched_in(span)}
-    span_launches = {}
+    span_launches, span_ms = {}, {}
     for span in sorted(spans, key=lambda e: e.time_range.start):
         if span.name.startswith("gru/"):
             continue
         lo, hi = span.time_range.start, span.time_range.end
+        span_ms[span.name] = span_ms.get(span.name, 0.0) + (hi - lo) / 1e3
+        if span.name == "sac_vmap/ring_write":  # one a step: summed below, not printed
+            continue
         # A kernel belongs to the span whose host interval holds the launch
         # call it is correlated with (the two share an id).
         inside = launched_in(span)
@@ -1511,7 +1532,7 @@ def profile_update(label: str, run, steps: int, rollout_length: int) -> dict:
                      <= rollout[0].time_range.end]) / rollout_length) if rollout else None
     return {"wall_ms": wall_ms, "busy_ms": busy / 1e3, "idle_share": idle,
             "launches": len(launches), "launches_per_rollout_step": per_step,
-            "span_launches": span_launches}
+            "span_launches": span_launches, "span_ms": span_ms}
 
 
 # ------------------------------------------------------------------ resume phase
@@ -1921,6 +1942,308 @@ def seed_phase(gru, gpu: str) -> dict:
             "rates": rates, "stacked_vs_stock": worst}
 
 
+# ------------------------------------------------------------------ off-policy seed phase
+# rec-IQL's stacked GRU path on SMAX 3s5z (`rec_iql_vmap_seeds`: 32 sampled sequences
+# of 20 steps x 8 agents): the fused target pass is the stacked K1 over 2S entries,
+# each (online, target) pair with its seed's keep; the loss pass the stacked K1 and
+# the stacked backward over S. Timed at S = 4.
+OFF_POLICY_SEEDS = 4
+OFF_POLICY_SHAPE = (20, 256, 128)
+# launches of a stacked rec-IQL update (epochs = 2), at any S
+IQL_VMAP_PER_UPDATE = {"fwd_stacked": 4, "bwd_gates_stacked": 2, "bwd_recurrence_stacked": 2,
+                       "bwd_reduce_stacked": 2, "bwd_reduce_sum_stacked": 2}
+IQL_VMAP_RUN = SMAX + ["system.num_updates=2", "arch.num_evaluation=1",
+                       "arch.num_eval_episodes=16", "arch.absolute_metric=False",
+                       "+arch.device=cuda", "logger.use_console=False"]
+# The SAC seed programs on MaSwarm at the shipped width (16 envs, rollout 2, batch 32,
+# delay 4), cut in depth: a 64-step explore phase, a 65,536-item ring an entry, 8
+# epochs an update (the rates and the profiled update too), and 2 rounds of 1
+# update (total 96 = 3 rounds of 32 env-steps, the first of which the explore
+# phase takes).
+SAC_VMAP_CUTS = ["system.explore_steps=64", "system.buffer_size=65536", "system.epochs=8",
+                 "system.total_timesteps=96", "arch.num_evaluation=3"]
+SAC_VMAP_RUN = SAC_VMAP_CUTS + ["arch.num_eval_episodes=16", "arch.absolute_metric=False",
+                                "+arch.device=cuda", "logger.use_console=False"]
+
+
+def pair_inputs(seeds: int, t_len: int, b: int, h: int, seed: int):
+    """rec-IQL's target pass: 2S entries (the online networks, then the targets),
+    each pair with its seed's keep."""
+    args, _ = seed_inputs(2 * seeds, t_len, b, h, seed)
+    args[1] = torch.cat([args[1][:seeds]] * 2).contiguous()
+    return args
+
+
+def offpolicy_kernels(gru, errs: dict) -> dict:
+    """The stacked K1 over 2S with the per-pair keep and the stacked backward over
+    S at rec-IQL's shape: against their plain versions, bitwise repeatable,
+    timed beside their bounds, 2S (or S) unstacked calls and the library."""
+    seeds, (t_len, b, h) = OFF_POLICY_SEEDS, OFF_POLICY_SHAPE
+    args = pair_inputs(seeds, t_len, b, h, seed=4242)
+    hs = gru.gru_sequence_stacked_forward(*args)
+    compare(f"2S={2 * seeds} target pass hs", hs, gru.gru_sequence_stacked_reference(*args),
+            OFF_POLICY_SHAPE, errs, "fwd_stacked")
+    check(torch.equal(hs, gru.gru_sequence_stacked_forward(*args)),
+          "the stacked K1 over 2S is not bitwise repeatable")
+    check_seed_shape(gru, (seeds, *OFF_POLICY_SHAPE), errs)
+    pair = {}
+    entries = [[a[s] for a in args] for s in range(2 * seeds)]
+    for name, fn, iters in (
+            ("fwd_stacked_2s", lambda: gru.gru_sequence_stacked_forward(*args), 20),
+            ("fwd_unstacked_x_2s", lambda: [gru.gru_sequence_forward(*e) for e in entries], 20),
+            ("fwd_stacked_2s_plain", lambda: gru.gru_sequence_stacked_reference(*args), 2)):
+        pair[name], pair[name + "_host"] = device_ms(fn, iters=iters), time_ms(fn, iters=iters)
+    keep1 = [gru_inputs(t_len, b, h, seed=4242 + s, resets=0.0)[0] for s in range(2 * seeds)]
+    rnns = [cudnn_gru(k[3], k[4]) for k in keep1]
+    with torch.no_grad():
+        run = lambda: [rnn(k[0], k[2][None]) for rnn, k in zip(rnns, keep1)]  # noqa: E731
+        pair["cudnn_fwd_x_2s"], pair["cudnn_fwd_x_2s_host"] = device_ms(run), time_ms(run)
+    pair["bound"], pair["bound_by"] = bound_ms("fwd_stacked", t_len, b, h, stack=2 * seeds,
+                                               shared_keep=False)
+    pair.update(clusters(gru, "fwd", b, h, 2 * seeds))
+    print(f"  stacked K1 over 2S = {2 * seeds}, T={t_len} B={b} H={h}, per-pair keep: "
+          + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                      for k, v in pair.items()))
+    return {"pair": pair, "loss": time_seed_shape(gru, (seeds, *OFF_POLICY_SHAPE))}
+
+
+def iql_vmap_learner(stack: int, draws: bool = False, overrides=(), device: str = "cuda"):
+    """(config, env, learn, state, draws) of a stacked rec-IQL learner of `stack`
+    seeds on SMAX 3s5z at the shipped config, one update a call; with `draws`,
+    every draw of the update made here and handed in."""
+    from mava_tpu_torch import envs as environments
+    from mava_tpu_torch.advanced_usage import common, rec_iql_vmap_seeds
+    from mava_tpu_torch.distributions import gumbel
+    from mava_tpu_torch.systems.q_learning.types import Draws
+    from mava_tpu_torch.utils.config import load_config
+
+    cfg = load_config("default_rec_iql", IQL_VMAP_RUN + list(overrides))
+    cfg.arch.n_devices = 1
+    cfg.system.scan_steps = cfg.system.num_updates_per_eval = 1  # stacked; stock
+    device = torch.device(device)
+    env, _ = environments.make(cfg, device)
+    cfg.system.num_agents = env.num_agents
+    gen = torch.Generator(device=device).manual_seed(cfg.system.seed)
+    inject = None
+    if draws:
+        d = common.Draws(stack, False, torch.Generator(device=device).manual_seed(7), device)
+        e, sys_cfg = cfg.arch.num_envs, cfg.system
+        randint = lambda high: lambda shape, g, dev: torch.randint(  # noqa: E731
+            0, high, shape, generator=g, device=dev)
+        shape = (sys_cfg.epochs, sys_cfg.sample_batch_size)
+        inject = Draws(
+            action_noise=d(gumbel, (sys_cfg.rollout_length, e, env.num_agents, env.action_dim)),
+            env_noise=[d.env(env, e) for _ in range(sys_cfg.rollout_length)],
+            rows=d(randint(e), shape),
+            # one start: the ring holds the update's own 2 steps, fewer than a sequence
+            starts=d(randint(1), shape))
+    learn, _, state = rec_iql_vmap_seeds.learner_setup(
+        env, gen, cfg, device, stack, draws=None if inject is None else [inject])
+    return cfg, env, learn, state, inject
+
+
+def iql_vmap_against_stock(stack: int, device: str = "cuda") -> float:
+    """One stacked rec-IQL update of `stack` seeds against `stack` stock updates,
+    each from its entry's slice of the networks, envs, carries and draws; returns
+    the largest parameter difference."""
+    from mava_tpu_torch.systems.q_learning import rec_iql
+    from mava_tpu_torch.systems.q_learning.types import Draws
+
+    cfg, env, learn, state, inject = iql_vmap_learner(stack, draws=True, device=device)
+    e, device = cfg.arch.num_envs, torch.device(device)
+    rows = lambda tree, s: pytree.tree_map(  # noqa: E731
+        lambda x: x[s * e:(s + 1) * e].clone() if isinstance(x, torch.Tensor) and x.dim() else x,
+        tree)
+    stocks = []
+    for s in range(stack):
+        draws = Draws(inject.action_noise[s], [rows(x, s) for x in inject.env_noise],
+                      inject.rows[s], inject.starts[s])
+        stock_learn, _, stock = rec_iql.learner_setup(
+            env, torch.Generator(device=device).manual_seed(0), cfg, device, draws=[draws])
+        with torch.no_grad():
+            for net, stacked in zip(stock.params, state.params):
+                for name, p in net.named_parameters():
+                    p.copy_(stacked.params[name][s])
+        stocks.append((stock_learn, stock._replace(
+            obs=rows(state.obs, s), terminal=rows(state.terminal, s),
+            term_or_trunc=rows(state.term_or_trunc, s), env_state=rows(state.env_state, s))))
+    out = learn(state)
+    worst = 0.0
+    for s, (stock_learn, stock) in enumerate(stocks):
+        got = stock_learn(stock)
+        for net, stacked in zip(got.learner_state.params, out.learner_state.params):
+            for name, p in net.named_parameters():
+                worst = max(worst, (p.detach() - stacked.params[name][s]).abs().max().item())
+    check(worst <= 1e-4, f"the stacked rec-IQL update of {stack} seeds disagrees with the stock "
+                         f"updates: max |param diff| {worst:.3e}")
+    return worst
+
+
+def stacked_rates(label: str, make, steps_of, gpu: str) -> dict:
+    """env-steps/s of one stacked update at S = 1, 4, 8 (after a warm-up one) and
+    the launches of a whole update at S = 8 against S = 1 (at most 1.5x)."""
+    rates, counts = {}, {}
+    for stack in (1, 4, 8):
+        learn, state = make(stack)
+        state = learn(state).learner_state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = learn(state).learner_state
+        torch.cuda.synchronize()
+        rates[stack] = stack * steps_of / (time.perf_counter() - t0)
+        if stack in (1, 8):
+            counts[stack] = launches_and_syncs(lambda: learn(state))["launches"]
+    ratio = counts[8] / counts[1]
+    check(ratio <= 1.5, f"a stacked {label} update launches {ratio:.2f}x at S = 8 what it "
+                        "does at S = 1")
+    print(f"  a stacked {label} update: {counts[1]} launches at S = 1, {counts[8]} at S = 8 "
+          f"({ratio:.3f}x); env-steps/s S = 1 {rates[1]:.1f}, S = 4 {rates[4]:.1f}, S = 8 "
+          f"{rates[8]:.1f} on {gpu}")
+    return {"rates": rates, "launches": counts, "ratio": ratio}
+
+
+def sac_vmap_learner(stack: int, centralised: bool = False, overrides=()):
+    """(config, explore, learn, state) of a stacked SAC learner of `stack` seeds
+    on MaSwarm at the shipped config plus `overrides`, one update a call."""
+    from mava_tpu_torch import envs as environments
+    from mava_tpu_torch.advanced_usage import ff_isac_vmap_seeds
+    from mava_tpu_torch.utils.config import load_config
+
+    cfg = load_config("default_ff_masac" if centralised else "default_ff_isac",
+                      ["+arch.device=cuda", *overrides])
+    cfg.arch.n_devices = 1
+    cfg.system.scan_steps = 1
+    device = torch.device("cuda")
+    env, _ = environments.make(cfg, device, add_global_state=centralised)
+    gen = torch.Generator(device=device).manual_seed(cfg.system.seed)
+    explore, learn, _, state = ff_isac_vmap_seeds.learner_setup(env, gen, cfg, device, stack,
+                                                               centralised)
+    return cfg, explore, learn, state
+
+
+def sac_vmap_run(gru, label: str, module, config_name: str, extra) -> float:
+    """A SAC seed program through `run_experiment` at `SAC_VMAP_RUN`: no GRU
+    launch, the return a number."""
+    from mava_tpu_torch.utils.config import load_config
+
+    gru.reset_launch_counts()
+    start = time.perf_counter()
+    performance = module.run_experiment(load_config(config_name, SAC_VMAP_RUN + extra))
+    torch.cuda.synchronize()
+    check(performance == performance, f"{label}: the eval return is not a number")
+    check(not any(gru.kernel_launches.values()), f"{label} launched a GRU kernel")
+    print(f"  {label} run_experiment ({', '.join(extra)}): mean eval return {performance:.3f}, "
+          f"{time.perf_counter() - start:.1f} s")
+    return performance
+
+
+def offpolicy_phase(gru, gpu: str) -> dict:
+    """The off-policy seed axis: the stacked kernels at rec-IQL's new stack shapes;
+    rec_iql_vmap_seeds through run_experiment at S = 4 with the exact launch
+    counts; one stacked rec-IQL update against 4 stock ones; ff_isac_vmap_seeds
+    and ff_masac_vmap_sweep through run_experiment, cut in depth; env-steps/s at
+    S = 1, 4, 8 and the launch ratios; the ring write's share of the act step;
+    the vault written by the recording program and read by bc_from_vault."""
+    import os
+    import tempfile
+
+    from mava_tpu_torch.advanced_usage import (
+        ff_ippo_store_experience,
+        ff_isac_vmap_seeds,
+        ff_masac_vmap_sweep,
+        rec_iql_vmap_seeds,
+    )
+    from mava_tpu_torch.examples import bc_from_vault
+    from mava_tpu_torch.utils.config import load_config
+
+    start = time.perf_counter()
+    errs: dict = {}
+    times = offpolicy_kernels(gru, errs)
+    print(f"  ({time.perf_counter() - start:.1f} s into the off-policy phase)")
+
+    # The main path: two updates of 4 seeds through run_experiment.
+    gru.reset_launch_counts()
+    performance = rec_iql_vmap_seeds.run_experiment(load_config(
+        "default_rec_iql", IQL_VMAP_RUN + [f"+system.num_seeds={OFF_POLICY_SEEDS}"]))
+    torch.cuda.synchronize()
+    launches = dict(gru.kernel_launches)
+    check(performance == performance, "rec_iql_vmap_seeds: the eval return is not a number")
+    for counter, per_update in IQL_VMAP_PER_UPDATE.items():
+        check(launches[counter] == 2 * per_update,
+              f"rec_iql_vmap_seeds: {counter} launched {launches[counter]} times in 2 updates, "
+              f"not {per_update} an update")
+    for _, counter, _, _ in KERNELS:
+        check(counter == "fwd_stacked" or launches[counter] == 0,
+              f"rec_iql_vmap_seeds launched the unstacked {counter}")
+    print(f"  rec_iql_vmap_seeds run_experiment, S = {OFF_POLICY_SEEDS}, 2 updates on SMAX 3s5z: "
+          f"eval return {performance:.3f}, launches {launches}")
+    worst = iql_vmap_against_stock(OFF_POLICY_SEEDS)
+    print(f"  one stacked rec-IQL update of {OFF_POLICY_SEEDS} seeds against "
+          f"{OFF_POLICY_SEEDS} stock updates from the same draws: max |param diff| {worst:.3e}")
+
+    def iql(stack):
+        _, _, learn, state, _ = iql_vmap_learner(stack)
+        return learn, state
+
+    cfg, _, _, state, _ = iql_vmap_learner(8)
+    ring = sum(x.numel() * x.element_size() for x in pytree.tree_leaves(state.buffer_state.experience))
+    del state
+    iql_steps = cfg.system.rollout_length * cfg.arch.num_envs
+    torch.cuda.reset_peak_memory_stats()
+    iql_rates = stacked_rates("rec-IQL", iql, iql_steps, gpu)
+    stock_s, _, _, _ = one_update("rec_iql", SMAX, repeats=3)
+    print(f"  rec-IQL: one stock update {iql_steps / stock_s[-1]:.1f} env-steps/s; the ring "
+          f"{ring / 8 / 1e6:.3f} MB an entry ({cfg.system.buffer_size} steps x "
+          f"{cfg.arch.num_envs} envs); peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
+          f"({time.perf_counter() - start:.1f} s into the phase)")
+
+    print(f"  SAC cuts (MaSwarm, shipped width): {' '.join(SAC_VMAP_CUTS)}")
+    sac_vmap_run(gru, "ff_isac_vmap_seeds", ff_isac_vmap_seeds, "default_ff_isac",
+                 [f"+system.num_seeds={OFF_POLICY_SEEDS}"])
+    sac_vmap_run(gru, "ff_masac_vmap_sweep", ff_masac_vmap_sweep, "default_ff_masac",
+                 ["+system.sweep_lrs=[1e-4, 3e-4, 1e-3, 3e-3]"])
+
+    def isac(stack):
+        _, explore, learn, state = sac_vmap_learner(stack, overrides=SAC_VMAP_CUTS[:3])
+        return learn, explore(state)[0]
+
+    cfg, explore, learn, state = sac_vmap_learner(OFF_POLICY_SEEDS, overrides=SAC_VMAP_CUTS[:3])
+    state = learn(explore(state)[0]).learner_state
+    sac_steps = cfg.system.rollout_length * cfg.arch.num_envs
+    prof = profile_update(f"ff_isac_vmap_seeds S = {OFF_POLICY_SEEDS}", lambda: learn(state),
+                          sac_steps, cfg.system.rollout_length)
+    act_ms, ring_ms = prof["span_ms"].get("sac_vmap/act", 0.0), prof["span_ms"].get(
+        "sac_vmap/ring_write", 0.0)
+    print(f"  ff_isac_vmap_seeds S = {OFF_POLICY_SEEDS} (epochs {cfg.system.epochs}): the ring "
+          f"writes take {ring_ms:.2f} of the act steps' {act_ms:.2f} ms host "
+          f"({ring_ms / max(act_ms, 1e-9):.3f}), idle share {prof['idle_share']:.3f}")
+    del state
+    sac_rates = stacked_rates("ff-ISAC", isac, sac_steps, gpu)
+    stock_sac = sac_updates("ff_isac on MaSwarm (stock)", "default_ff_isac", False,
+                            SAC_VMAP_CUTS[:3], gpu, 1, profiled=False)
+
+    # The vault: the recording program on the card, then behaviour cloning from it.
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(dir=os.path.join(cwd, "build")) as tmp:
+        os.chdir(tmp)
+        try:
+            recorded = ff_ippo_store_experience.run_experiment(load_config("default_ff_ippo", [
+                "system.num_updates=2", "arch.num_evaluation=2", "+arch.device=cuda",
+                "logger.use_console=False", "logger.system_name=ff_ippo_store_experience"]))
+            cloned = bc_from_vault.main(["bc_epochs=2", "bc_batch_size=2048",
+                                         "arch.num_eval_episodes=16"])
+        finally:
+            os.chdir(cwd)
+    check(recorded == recorded and cloned == cloned, "the vault phase's returns are not numbers")
+    print(f"  vault: ff_ippo_store_experience 2 updates (mean return {recorded:.3f}), "
+          f"bc_from_vault 2 epochs (eval return {cloned:.3f})")
+    print(f"  off-policy phase: {time.perf_counter() - start:.1f} s")
+    return {"errs": errs, "times": times, "launches": launches, "iql": iql_rates,
+            "sac": sac_rates, "stacked_vs_stock": worst, "ring_share": ring_ms / max(act_ms, 1e-9),
+            "stock_sac": stock_sac}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU.", file=sys.stderr)
@@ -1954,6 +2277,11 @@ def main() -> int:
         seed_phase(gru, gpu)
         print(gpu)
         return 0
+    if "--offpolicy" in sys.argv[1:]:
+        print("off-policy seed phase (rec-IQL, ff-ISAC, ff-MASAC vmap seeds and sweeps; vault):")
+        offpolicy_phase(gru, gpu)
+        print(gpu)
+        return 0
 
     print("kernel phase:")
     kernels = kernel_phase(gru)
@@ -1983,6 +2311,9 @@ def main() -> int:
     print("seed phase (stacked kernels; rec-IPPO vmap seeds, ff-IPPO sweep, rec-IPPO PBT):")
     seeds = seed_phase(gru, gpu)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
+    print("off-policy seed phase (rec-IQL, ff-ISAC, ff-MASAC vmap seeds and sweeps; vault):")
+    offpolicy = offpolicy_phase(gru, gpu)
+    print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     print("feed-forward phase (ff-IPPO, ff-MAPPO, Matrax, the bench program):")
     feedforward_phase(gru, gpu)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
@@ -2009,6 +2340,7 @@ def main() -> int:
             record["kernels"].append({
                 "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                 "launches": iql["launches"][counter], **paths,
+                "launches_rec_iql_vmap_seeds": offpolicy["launches"][counter],
                 "max_abs_err": kernels["errs"][counter],
                 "ms": stacked["fwd_stacked"], "plain_ms": stacked["fwd_stacked_plain"],
                 "bound_ms": stacked["bound"], "bound_by": stacked["bound_by"],
@@ -2069,6 +2401,7 @@ def main() -> int:
                     "bwd_reduce_stacked": ("bmm", "torch.bmm on hprev*keep formed beforehand"),
                     "bwd_reduce_sum_stacked": ("sum", "torch.sum over the slices")}
     main_shape = SEED_SHAPES[1]  # S = 4, the losses' B = 64: 16 of an update's 17 K1 launches
+    pair, loss = offpolicy["times"]["pair"], offpolicy["times"]["loss"]
     for name, counter, _ in SEED_KERNELS:
         t = seeds["times"][main_shape]
         lib_key, lib_what = seed_library.get(counter, (None, "none: no one library call runs S "
@@ -2078,7 +2411,8 @@ def main() -> int:
             "replaces": SEED_REPLACES.format(69 if counter == "fwd_stacked" else 88),
             "launches": seeds["launches"][counter],
             "launches_path": "rec_ippo_vmap_seeds.run_experiment, S = 4, 2 updates, SMAX 3s5z",
-            "max_abs_err": seeds["errs"][counter],
+            "launches_rec_iql_vmap_seeds": offpolicy["launches"][counter],
+            "max_abs_err": max(seeds["errs"][counter], offpolicy["errs"].get(counter, 0.0)),
             "ms": t[counter], "plain_ms": t[counter + "_plain"],
             "bound_ms": t[counter + "_bound"], "bound_by": t[counter + "_bound_by"],
             "library_ms": t[lib_key] if lib_key else None, "library": lib_what,
@@ -2095,6 +2429,26 @@ def main() -> int:
                 "waves": {"fwd_stacked": x["fwd_waves"],
                           "bwd_recurrence_stacked": x["bwd_recurrence_waves"]}.get(counter)}
                 for (st, tl, b, h), x in seeds["times"].items()},
+            "rec_iql_vmap_shapes": {
+                f"S={OFF_POLICY_SEEDS} T={OFF_POLICY_SHAPE[0]} B={OFF_POLICY_SHAPE[1]} "
+                f"H={OFF_POLICY_SHAPE[2]} (loss pass)": {
+                    "ms": loss[counter], "host_ms": loss[counter + "_host"],
+                    "plain_ms": loss[counter + "_plain"],
+                    "unstacked_x_stack_ms": loss[counter.replace("_stacked", "_unstacked")],
+                    "bound_ms": loss[counter + "_bound"],
+                    "library_ms": loss[lib_key] if lib_key else None,
+                    "waves": {"fwd_stacked": loss["fwd_waves"],
+                              "bwd_recurrence_stacked": loss["bwd_recurrence_waves"]}.get(counter)},
+                **({f"2S={2 * OFF_POLICY_SEEDS} T={OFF_POLICY_SHAPE[0]} B={OFF_POLICY_SHAPE[1]} "
+                    f"H={OFF_POLICY_SHAPE[2]} (target pass, per-pair keep)": {
+                        "ms": pair["fwd_stacked_2s"], "host_ms": pair["fwd_stacked_2s_host"],
+                        "plain_ms": pair["fwd_stacked_2s_plain"],
+                        "unstacked_x_stack_ms": pair["fwd_unstacked_x_2s"],
+                        "bound_ms": pair["bound"], "bound_by": pair["bound_by"],
+                        "library_ms": None, "cudnn_fwd_x_stack_ms": pair["cudnn_fwd_x_2s"],
+                        "clusters": pair["clusters"], "max_active_clusters": pair["max_active"],
+                        "waves": pair["waves"]}} if counter == "fwd_stacked" else {}),
+            },
         })
     print(f"total: {time.perf_counter() - start:.0f} s")
     print(gpu)

@@ -15,7 +15,7 @@ The evaluation is the stock evaluator, entry by entry, outside the updates.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +26,7 @@ from mava_tpu_torch.evaluator import get_eval_fn
 from mava_tpu_torch.utils.config import Config
 from mava_tpu_torch.utils.logger import LogEvent, MavaLogger
 from mava_tpu_torch.utils.profiling import PhaseTimer
+from mava_tpu_torch.utils.timestep_checker import check_total_timesteps
 
 
 def refuse_seed_shards(config: Config, program: str) -> None:
@@ -100,6 +101,16 @@ def per_entry_mean(x: torch.Tensor) -> torch.Tensor:
     return x.flatten(1).mean(1)
 
 
+def schedule_rounds(config: Config) -> Tuple[Config, int]:
+    """The reference's rounds of the off-policy programs: `total_timesteps //
+    num_evaluation` env-steps, `scan_steps` updates each (at least one)."""
+    config = check_total_timesteps(config)
+    steps_per_rollout = int(config.system.total_timesteps // config.arch.num_evaluation)
+    act_steps = config.arch.n_devices * config.arch.num_envs * config.system.rollout_length
+    config.system.scan_steps = max(1, steps_per_rollout // act_steps)
+    return config, steps_per_rollout
+
+
 def train_entries(
     config: Config,
     device: torch.device,
@@ -111,31 +122,52 @@ def train_entries(
     num: int,
     rank_metric: str = "episode_return",
     after_eval: Optional[Callable[[int, Any, np.ndarray], Dict[str, float]]] = None,
+    log_wins: bool = False,
+    policy: Callable[[Any], Any] = lambda state: state.params.actor_params,
+    explore: Optional[Callable[[Any], Tuple[Any, Any, int]]] = None,
+    rounds: Optional[Sequence[int]] = None,
+    steps_per_round: Optional[int] = None,
 ):
     """Rounds of learn, log and evaluate every entry with the stock evaluator.
 
-    Per round: the ACT line (env-steps/s over all S entries) and the TRAIN line
-    as the stock loop logs them; each entry's `rank_metric` (its mean over the
-    evaluation's episodes) and return, and its win rate where the env reports
-    `won_episode`; the EVAL line. `after_eval(round, state, ranks)` may return
-    extra EVAL entries and is where PBT steps (it returns the state to go on
-    from as `state`). Returns (per-entry returns, per-entry win rates or None,
-    per-entry ranks) of the last evaluation."""
+    `explore(state)` -> (state, episode metrics, env-steps), where given, runs
+    first and is logged at ACT (SAC's explore phase). Per round: the ACT line
+    (env-steps/s over all S entries) and the TRAIN line as the stock loop logs
+    them; each entry's `rank_metric` (its mean over the evaluation's episodes)
+    and return, and, with `log_wins` (the rec PPO programs, as their
+    reference), its win rate where the env reports `won_episode`; the EVAL
+    line. `policy(state)` is the stacked network the evaluator runs entry by
+    entry. A round is `steps_per_round` env-steps (by default the PPO
+    programs' `num_updates_per_eval` updates) and `rounds` the env-step count
+    at the end of each (by default `arch.num_evaluation` rounds from 0).
+    `after_eval(round, state, ranks)` may return extra EVAL entries and is
+    where PBT steps (it returns the state to go on from as `state`). Returns
+    (per-entry returns, per-entry win rates or None, per-entry ranks) of the
+    last evaluation."""
     evaluator = get_eval_fn(eval_env, eval_act_fn, config, absolute_metric=False)
     eval_generator = torch.Generator(device=device).manual_seed(config.system.seed + 1)
-    steps_per_round = (
-        config.system.num_updates_per_eval * config.system.rollout_length * config.arch.num_envs
-    )
+    if steps_per_round is None:
+        steps_per_round = (config.system.num_updates_per_eval * config.system.rollout_length
+                           * config.arch.num_envs)
+    if rounds is None:
+        rounds = [steps_per_round * (r + 1) for r in range(config.arch.num_evaluation)]
     logger = MavaLogger(config)
+    if explore is not None:
+        timer = PhaseTimer(device)
+        with timer.phase("explore"):
+            learner_state, metrics, t = explore(learner_state)
+        episode_metrics, ep_completed = get_final_step_metrics(metrics)
+        episode_metrics["steps_per_second"] = num * t / timer.phases["explore"]
+        if ep_completed:
+            logger.log(episode_metrics, t, 0, LogEvent.ACT)
     returns = np.zeros(num)
     wins: Optional[np.ndarray] = None
     ranks = np.zeros(num)
-    for eval_step in range(config.arch.num_evaluation):
+    for eval_step, t in enumerate(rounds):
         timer = PhaseTimer(device)
         with timer.phase("learn"):
             output = learn(learner_state)
         elapsed = timer.phases["learn"]
-        t = int(steps_per_round * (eval_step + 1))
         episode_metrics, ep_completed = get_final_step_metrics(output.episode_metrics)
         episode_metrics["steps_per_second"] = num * steps_per_round / elapsed
         if ep_completed:
@@ -144,11 +176,11 @@ def train_entries(
 
         wins = None
         state = output.learner_state
-        stacked_actor = state.params.actor_params
+        stacked = policy(state)
         for s in range(num):
-            metrics = evaluator(stacked_actor.entry(s), eval_generator, init_actor_state())
+            metrics = evaluator(stacked.entry(s), eval_generator, init_actor_state())
             returns[s] = float(np.mean(metrics["episode_return"]))
-            if "won_episode" in metrics:
+            if log_wins and "won_episode" in metrics:
                 won = np.asarray(metrics["won_episode"])
                 wins = np.zeros(num) if wins is None else wins
                 wins[s] = 100.0 * won.sum() / won.size
@@ -175,7 +207,8 @@ def train_entries(
 
 def print_entries(prefix: str, returns: np.ndarray, wins: Optional[np.ndarray],
                   sweep_lrs: Optional[Sequence[float]]) -> None:
-    """The reference's final per-entry lines."""
+    """The reference's final per-entry lines: the returns, and the win rates
+    where `train_entries` logged them (`log_wins`)."""
     if sweep_lrs is not None:
         print(f"{prefix}vmap-sweep final eval returns per lr: "
               + ", ".join(f"lr={lr:g}: {r:.2f}" for lr, r in zip(sweep_lrs, returns)))
@@ -185,4 +218,3 @@ def print_entries(prefix: str, returns: np.ndarray, wins: Optional[np.ndarray],
     if wins is not None:
         print(f"{prefix}vmap-seeds final eval win rates per seed: "
               + ", ".join(f"{w:.1f}%" for w in wins))
-

@@ -294,7 +294,7 @@ def run_experiment(_config: Config, centralised_critic: bool = False,
         env, generator, config, device, num, centralised_critic, sweep_lrs=sweep_lrs)
     returns, wins, _ = train_entries(
         config, device, learn, learner_state, eval_env, make_rec_eval_act_fn(config),
-        eval_hidden(config, device), num)
+        eval_hidden(config, device), num, log_wins=True)
     print_entries("rec ", returns, wins, sweep_lrs)
     return float(returns.mean())
 

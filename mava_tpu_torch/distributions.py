@@ -155,13 +155,20 @@ class TanhNormal:
         self.loc = loc
         self.scale = scale
         self._threshold = threshold
+
+    def _tail_log_probs(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The log-probabilities of the clipped ends, left and right, made where
+        `log_prob` needs them: a sample does not, and a stacked actor's head
+        builds its distribution inside `torch.func.vmap`, where `_LogNdtr`
+        cannot run."""
         # float32 constants, as the reference's jnp calls make them.
-        f32 = dict(dtype=loc.dtype, device=loc.device)
-        inverse_threshold = torch.atanh(torch.tensor(threshold, **f32))
-        log_epsilon = torch.log(torch.tensor(1.0 - threshold, **f32))
+        f32 = dict(dtype=self.loc.dtype, device=self.loc.device)
+        inverse_threshold = torch.atanh(torch.tensor(self._threshold, **f32))
+        log_epsilon = torch.log(torch.tensor(1.0 - self._threshold, **f32))
         # norm.logcdf(x, loc, scale) = log_ndtr((x - loc) / scale).
-        self._log_prob_left = _LogNdtr.apply((-inverse_threshold - loc) / scale) - log_epsilon
-        self._log_prob_right = _LogNdtr.apply((-inverse_threshold + loc) / scale) - log_epsilon
+        left = _LogNdtr.apply((-inverse_threshold - self.loc) / self.scale) - log_epsilon
+        right = _LogNdtr.apply((-inverse_threshold + self.loc) / self.scale) - log_epsilon
+        return left, right
 
     def _noise(self, generator: Optional[torch.Generator]) -> torch.Tensor:
         return normal(self.loc.shape, generator, self.loc.device)
@@ -194,10 +201,8 @@ class TanhNormal:
         pre_tanh = torch.atanh(event)
         in_bounds = _normal_log_prob(pre_tanh, self.loc, self.scale)
         in_bounds = in_bounds - _tanh_forward_log_det_jacobian(pre_tanh)
-        per_dim = torch.where(
-            event <= -t, self._log_prob_left,
-            torch.where(event >= t, self._log_prob_right, in_bounds),
-        )
+        left, right = self._tail_log_probs()
+        per_dim = torch.where(event <= -t, left, torch.where(event >= t, right, in_bounds))
         return per_dim.sum(-1)
 
     def entropy(

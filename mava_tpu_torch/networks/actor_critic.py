@@ -12,10 +12,10 @@ is the layout the GRU kernel takes. The input projection for every step is one
 matmul ahead of the recurrence (the reference's "hoisted" scan).
 
 `RecQNetwork.stacked_q_values` is rec-IQL's fused target pass: the online and
-the target network over the same inputs as one pass over a stack of two, the
-torsos and heads vmapped over their stacked parameters (batched products) and
-the recurrence as one launch of the stacked GRU kernel (the reference vmaps
-`get_q_values` over stacked params).
+the target network over the same inputs as one pass over a stack of two
+(`StackedNetwork`), the torsos and heads vmapped over their stacked
+parameters (batched products) and the recurrence as one launch of the stacked
+GRU kernel (the reference vmaps `get_q_values` over stacked params).
 
 `StackedNetwork` is S networks of one structure as one, for the programs that
 `jax.vmap` a whole learner over seeds, learning rates or a PBT population
@@ -285,48 +285,21 @@ class RecQNetwork(nn.Module):
     def stacked_q_values(online: "RecQNetwork", target: "RecQNetwork",
                          hidden_state: torch.Tensor, observations_resets: Tuple) -> torch.Tensor:
         """`get_q_values` of `online` and of `target` on the same inputs and initial
-        hidden state, as one pass: Q-values (2, T, B..., actions). No gradient.
-        With the kernel (gru_impl "pallas", T > 1) the recurrence of both is one
-        launch of the stacked GRU kernel; otherwise each runs the plain loop."""
-        nets = (online, target)
+        hidden state, as one pass over a stack of the two (`StackedNetwork`):
+        Q-values (2, T, B..., actions). No gradient. With the kernel (gru_impl
+        "pallas", T > 1) the recurrence of both is one launch of the stacked GRU
+        kernel; otherwise the plain loop, vmapped."""
         obs, resets = observations_resets
-        x = _stacked_call([n.pre_torso for n in nets], obs.agents_view, shared_input=True)
-        rnns = [n.rnn for n in nets]
-        hidden = online.rnn.hidden_state_dim
-        gates_i = torch.func.vmap(lambda x, wi, bi: x @ wi + bi)(
-            x, torch.stack([r.wi for r in rnns]), torch.stack([r.bi for r in rnns]))  # (2, T, B..., 3H)
-        t_len, lead = x.shape[1], x.shape[2:-1]
-        resets = torch.broadcast_to(resets, x.shape[1:-1])
-        if online.rnn.uses_kernel(x.device, t_len):
-            gi = gates_i.reshape(len(nets), t_len, -1, 3 * hidden)
-            keep = (1.0 - resets.to(torch.float32)).reshape(t_len, -1, 1)
-            keep = keep.expand(*gi.shape[1:3], hidden).contiguous()
-            h0 = hidden_state.reshape(1, -1, hidden).expand(len(nets), -1, -1).contiguous()
-            hs = gru_sequence_stacked(
-                gi, keep, h0, torch.stack([r.wh for r in rnns]), torch.stack([r.bhn for r in rnns]))
-            hs = hs.reshape(len(nets), t_len, *lead, hidden)
-        else:
-            hs = torch.stack([r.plain_recurrence(hidden_state, gates_i[s], resets)[1]
-                              for s, r in enumerate(rnns)])
-        embedding = _stacked_call([n.post_torso for n in nets], hs)
-        return _stacked_call([n.q_head for n in nets], embedding)
-
-
-def _stacked_call(modules, x: torch.Tensor, shared_input: bool = False) -> torch.Tensor:
-    """Modules of one structure called as one, vmapped over their stacked
-    parameters: x (S, ..., F), or (..., F) for every entry when `shared_input`.
-    Returns (S, ..., out)."""
-    params, buffers = torch.func.stack_module_state(list(modules))
-
-    def call(p, b, x):
-        return torch.func.functional_call(modules[0], (p, b), (x,))
-
-    return torch.func.vmap(call, in_dims=(0, 0, None if shared_input else 0))(params, buffers, x)
+        twice = lambda x: torch.stack([x, x])  # noqa: E731
+        _, q_values = StackedNetwork([online, target]).get_q_values(
+            twice(hidden_state), (obs._replace(agents_view=twice(obs.agents_view)), twice(resets)))
+        return q_values
 
 
 class StackedNetwork:
-    """S networks of one structure as one (`FeedForwardActor`,
-    `FeedForwardValueNet`, `RecurrentActor` or `RecurrentValueNet`, centralised
+    """S networks of one structure as one (`FeedForwardActor` with a discrete
+    or a continuous head, `FeedForwardValueNet`, `RecurrentActor`,
+    `RecurrentValueNet`, `FeedForwardQNet` or `RecQNetwork`, centralised
     critics included).
 
     `params` maps each parameter name of the structure to the S entries'
@@ -335,13 +308,18 @@ class StackedNetwork:
     with the stack axis in front and returns every output so:
       * feed-forward actor: obs (S, ...) -> a distribution over (S, ...);
       * feed-forward critic: obs (S, ...) -> values (S, ...);
+      * Q-network: (obs, action) (S, ...) -> Q-values (S, ...);
       * recurrent actor: (h (S, B.., H), (obs, done) (S, T, B.., ...)) ->
         (final h, distribution); the recurrent critic likewise with values and
-        `collect_carries`, as `RecurrentValueNet`.
+        `collect_carries`, as `RecurrentValueNet`;
+      * recurrent Q-network: (h, (obs, resets), eps) -> (final h, the
+        epsilon-greedy distribution), and `get_q_values`, as `RecQNetwork`.
     The gradient of a loss that sums the entries' losses is each entry's own.
     A recurrence of T > 1 steps with `gru_impl` "pallas" is one call of
     `gru_sequence_stacked` with per-entry resets; otherwise the plain loop,
     vmapped. `entry(s)` is entry s as a module of the structure (a copy).
+    `concat` joins stacks of one structure into one (rec-IQL's fused target
+    pass runs its online and target stacks as one).
     """
 
     def __init__(self, modules: Sequence[nn.Module]):
@@ -350,8 +328,23 @@ class StackedNetwork:
         self.params: Dict[str, torch.Tensor] = params
         self.buffers: Dict[str, torch.Tensor] = buffers
         self.size = len(modules)
-        self.recurrent = isinstance(self.module, (RecurrentActor, RecurrentValueNet))
+        self._kinds()
+
+    def _kinds(self) -> None:
+        self.recurrent = isinstance(self.module, (RecurrentActor, RecurrentValueNet, RecQNetwork))
         self.is_actor = isinstance(self.module, (FeedForwardActor, RecurrentActor))
+
+    @classmethod
+    def concat(cls, stacks: Sequence["StackedNetwork"]) -> "StackedNetwork":
+        """The entries of `stacks` (one structure) as one stack, in order: new
+        tensors, not leaves that an optimizer steps."""
+        joined = cls.__new__(cls)
+        joined.module = stacks[0].module
+        joined.params = {k: torch.cat([s.params[k] for s in stacks]) for k in stacks[0].params}
+        joined.buffers = {k: torch.cat([s.buffers[k] for s in stacks]) for k in stacks[0].buffers}
+        joined.size = sum(s.size for s in stacks)
+        joined._kinds()
+        return joined
 
     def parameters(self):
         return list(self.params.values())
@@ -394,6 +387,16 @@ class StackedNetwork:
         return self._vcall("value_head", embedding).squeeze(-1)
 
     def __call__(self, *args, collect_carries: bool = False):
+        if isinstance(self.module, RecQNetwork):
+            hidden, observations_resets, *eps = args
+            hidden, q_values = self.get_q_values(hidden, observations_resets)
+            mask = observations_resets[0].action_mask
+            return hidden, MaskedEpsGreedy(q_values, eps[0] if eps else 0.0, mask)
+        if isinstance(self.module, FeedForwardQNet):
+            observation, action = args
+            x = torch.cat([_critic_input(observation, self.module.centralised_critic), action],
+                          dim=-1)
+            return self._vcall("q_head", self._vcall("torso", x)).squeeze(-1)
         if not self.recurrent:
             (observation,) = args
             x = observation.agents_view if self.is_actor else _critic_input(
@@ -410,6 +413,31 @@ class StackedNetwork:
         if collect_carries:
             return hidden, (carries, result)
         return hidden, result
+
+    def get_q_values(self, hidden: torch.Tensor, observations_resets: Tuple):
+        """`RecQNetwork.get_q_values` of every entry: (final hidden (S, B.., H),
+        Q-values (S, T, B.., actions))."""
+        obs, resets = observations_resets
+        embedding = self._vcall("pre_torso", obs.agents_view)
+        hidden, embedding = self._recurrence(hidden, embedding, resets, False)
+        return hidden, self._vcall("q_head", self._vcall("post_torso", embedding))
+
+    @staticmethod
+    @torch.no_grad()
+    def stacked_q_values(online: "StackedNetwork", target: "StackedNetwork",
+                         hidden_state: torch.Tensor, observations_resets: Tuple) -> torch.Tensor:
+        """`RecQNetwork.stacked_q_values` for every entry: the online and the
+        target network of each of the S entries on that entry's inputs, as one
+        pass over a stack of 2S (online entries, then target entries), each
+        pair with its entry's resets. Q-values (2, S, T, B.., actions). No
+        gradient. With the kernel the recurrence of all 2S is one launch of the
+        stacked GRU kernel, its keep (2S, T, B, H)."""
+        obs, resets = observations_resets
+        twice = lambda x: torch.cat([x, x])  # noqa: E731
+        pair = pytree.tree_map(twice, (hidden_state, obs.agents_view, resets))
+        both = StackedNetwork.concat([online, target])
+        _, q_values = both.get_q_values(pair[0], (obs._replace(agents_view=pair[1]), pair[2]))
+        return q_values.reshape(2, online.size, *q_values.shape[1:])
 
     def _recurrence(self, carry, ins, resets, collect_carries: bool):
         """`ScannedRNN.forward` of every entry: carry (S, B.., H), ins (S, T, B..,

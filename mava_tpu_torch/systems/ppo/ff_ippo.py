@@ -64,7 +64,8 @@ def get_learner_fn(
     noise: Optional[torch.Tensor] = None,
     permutations: Optional[torch.Tensor] = None,
     entropy_noise: Optional[torch.Tensor] = None,
-) -> Callable[[LearnerState], ExperimentOutput]:
+    return_trajectories: bool = False,
+) -> Callable[[LearnerState], Any]:
     """Build `learner_fn(state)`, which runs `num_updates_per_eval` updates.
 
     `noise` (updates, T, E, A, actions) and `permutations` (updates, epochs,
@@ -73,6 +74,10 @@ def get_learner_fn(
     standard normals of a tanh-Normal's entropy estimate, so a test can hand in
     the reference's draws; by default all come from the learner state's
     generator (a discrete head's entropy draws nothing).
+
+    With `return_trajectories` it returns (output, trajectories): the raw
+    `PPOTransition` batch of every update, leaves (updates, T, E, ...), as
+    the experience-recording program stores it (reference :69-75, :279-295).
     """
     noise_fn = make_rollout_noise_fn(config.network.action_head)
     log_prob_from_params = make_log_prob_from_params(config.network.action_head)
@@ -172,24 +177,27 @@ def get_learner_fn(
             for k in loss_info[0]
         }
         new_state = state._replace(env_state=env_state, timestep=timestep)
-        return new_state, (traj.info, loss_info)
+        return new_state, (traj, loss_info)
 
-    def learner_fn(state: LearnerState) -> ExperimentOutput:
-        episode_info, train_info = [], []
+    def learner_fn(state: LearnerState) -> Any:
+        trajectories, train_info = [], []
         for u in range(sys_cfg.num_updates_per_eval):
-            state, (info, losses) = _update_step(
+            state, (traj, losses) = _update_step(
                 state,
                 None if noise is None else noise[u],
                 None if permutations is None else permutations[u],
                 None if entropy_noise is None else entropy_noise[u],
             )
-            episode_info.append(info)
+            trajectories.append(traj)
             train_info.append(losses)
-        return ExperimentOutput(
+        output = ExperimentOutput(
             learner_state=state,
-            episode_metrics=stack_trees(episode_info),
+            episode_metrics=stack_trees([traj.info for traj in trajectories]),
             train_metrics=stack_trees(train_info),
         )
+        if return_trajectories:
+            return output, stack_trees(trajectories)
+        return output
 
     return learner_fn
 
@@ -229,8 +237,10 @@ def learner_setup(
     noise: Optional[torch.Tensor] = None,
     permutations: Optional[torch.Tensor] = None,
     entropy_noise: Optional[torch.Tensor] = None,
+    return_trajectories: bool = False,
 ) -> Tuple[Callable, torch.nn.Module, LearnerState]:
-    """Networks, optimizers, env reset and the learner function."""
+    """Networks, optimizers, env reset and the learner function
+    (`get_learner_fn`'s `return_trajectories` passed on)."""
     config.system.num_agents = env.num_agents
     actor, critic = make_networks(env, config, device, config.system.seed, centralised_critic)
 
@@ -258,7 +268,8 @@ def learner_setup(
         timestep=timestep,
     )
     learner = get_learner_fn(
-        env, config, noise=noise, permutations=permutations, entropy_noise=entropy_noise
+        env, config, noise=noise, permutations=permutations, entropy_noise=entropy_noise,
+        return_trajectories=return_trajectories,
     )
     return learner, actor, state
 

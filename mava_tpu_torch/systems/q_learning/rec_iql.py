@@ -27,6 +27,7 @@ nothing here (they tune the reference's compiled scans).
 from __future__ import annotations
 
 import copy
+import functools
 import sys
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -41,7 +42,7 @@ from mava_tpu_torch.envs.wrappers import obs_shape
 from mava_tpu_torch.evaluator import get_num_eval_envs
 from mava_tpu_torch.networks import RecQNetwork, ScannedRNN
 from mava_tpu_torch.networks.factory import make_torso
-from mava_tpu_torch.replay import TrajectoryBuffer
+from mava_tpu_torch.replay import StackedTrajectoryBuffer, TrajectoryBuffer
 from mava_tpu_torch.systems.anakin import (
     restore_full_state,
     schedule_updates,
@@ -228,9 +229,13 @@ def make_q_network(env: Any, config: Config, device: torch.device, seed: int) ->
     return q_net.to(device)
 
 
-def make_buffer(config: Config) -> TrajectoryBuffer:
+def make_buffer(config: Config, entries: Optional[int] = None) -> TrajectoryBuffer:
+    """The trajectory buffer; with `entries`, one ring an entry of a stacked
+    program (`StackedTrajectoryBuffer`)."""
     sys_cfg = config.system
-    return TrajectoryBuffer(
+    kind = TrajectoryBuffer if entries is None else functools.partial(
+        StackedTrajectoryBuffer, entries)
+    return kind(
         sample_sequence_length=sys_cfg.sample_sequence_length + 1,
         period=1,
         add_batch_size=config.arch.num_envs,

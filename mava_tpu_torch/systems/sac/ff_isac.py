@@ -50,7 +50,7 @@ from mava_tpu_torch.envs.wrappers import get_final_step_metrics
 from mava_tpu_torch.evaluator import make_ff_eval_act_fn
 from mava_tpu_torch.networks import FeedForwardActor, FeedForwardQNet
 from mava_tpu_torch.networks.factory import make_action_head, make_torso
-from mava_tpu_torch.replay import ItemBuffer
+from mava_tpu_torch.replay import ItemBuffer, StackedItemBuffer
 from mava_tpu_torch.systems.anakin import (
     restore_full_state,
     stack_trees,
@@ -137,13 +137,35 @@ def target_entropy(config: Config, num_agents: int, action_dim: int, device) -> 
     return torch.full((1, num_agents), value, dtype=torch.float32, device=device)
 
 
-def make_buffer(config: Config) -> ItemBuffer:
+def make_buffer(config: Config, entries: Optional[int] = None) -> ItemBuffer:
+    """The item buffer; with `entries`, one ring an entry of a stacked program
+    (`StackedItemBuffer`)."""
     sys_cfg = config.system
-    return ItemBuffer(
+    kwargs = dict(
         max_length=int(sys_cfg.buffer_size),
         min_length=int(sys_cfg.explore_steps),
         sample_batch_size=int(sys_cfg.batch_size),
         add_batch_size=config.arch.num_envs,
+    )
+    return ItemBuffer(**kwargs) if entries is None else StackedItemBuffer(entries, **kwargs)
+
+
+def initial_log_alpha(config: Config, entropy_target: torch.Tensor) -> torch.Tensor:
+    """log(alpha) at the start, shaped as the entropy target: 0 with
+    `autotune`, else log(init_alpha) (reference :112-118)."""
+    alpha0 = 0.0 if config.system.autotune else math.log(config.system.init_alpha)
+    return torch.full_like(entropy_target, alpha0).requires_grad_(True)
+
+
+def dummy_transition(obs: Any, num_agents: int, act: int, device) -> Transition:
+    """One item shaped as the buffer stores it, from a batch of observations."""
+    one = compress_stored_obs(pytree.tree_map(lambda x: x[0], obs))
+    return Transition(
+        obs=one,
+        action=torch.zeros((num_agents, act), dtype=torch.float32, device=device),
+        reward=torch.zeros(num_agents, dtype=torch.float32, device=device),
+        done=torch.zeros(num_agents, dtype=torch.bool, device=device),
+        next_obs=one,
     )
 
 
@@ -342,8 +364,7 @@ def learner_setup(
     online, targets = QVals(q1, q2), QVals(copy.deepcopy(q1), copy.deepcopy(q2))
 
     entropy_target = target_entropy(config, num_agents, act, device)
-    alpha0 = 0.0 if sys_cfg.autotune else math.log(sys_cfg.init_alpha)
-    log_alpha = torch.full_like(entropy_target, alpha0).requires_grad_(True)
+    log_alpha = initial_log_alpha(config, entropy_target)
     params = SacParams(actor, QValsAndTarget(online, targets), log_alpha)
 
     clip = sys_cfg.max_grad_norm
@@ -356,18 +377,25 @@ def learner_setup(
     num_envs = config.arch.num_envs
     env_state, timestep = env.reset(env.reset_noise(num_envs, generator))
     obs = timestep.observation
-    one = compress_stored_obs(pytree.tree_map(lambda x: x[0], obs))
     buffer = make_buffer(config)
-    buffer_state = buffer.init(Transition(
-        obs=one,
-        action=torch.zeros((num_agents, act), dtype=torch.float32, device=device),
-        reward=torch.zeros(num_agents, dtype=torch.float32, device=device),
-        done=torch.zeros(num_agents, dtype=torch.bool, device=device),
-        next_obs=one,
-    ))
+    buffer_state = buffer.init(dummy_transition(obs, num_agents, act, device))
     state = LearnerState(obs, env_state, buffer_state, params, opt_states, 0, generator)
     explore_fn, learner_fn = get_learner_fns(env, config, buffer, entropy_target, centralised_critic)
     return explore_fn, learner_fn, actor, state
+
+
+def build_bench_learners(
+    config: Config, device: torch.device, centralised_critic: bool = False,
+) -> Tuple[Callable, Callable, LearnerState]:
+    """(explore, update, initial state) of ff-ISAC (ff-MASAC when
+    `centralised_critic`) on `device`, the env made from `config` and the
+    generator seeded with `system.seed`: the programs that timing and
+    profiling tools call (reference :513-536; here `chip_smoke.py`). `update`
+    runs `system.scan_steps` updates a call (one unless set)."""
+    env, _ = environments.make(config, device, add_global_state=centralised_critic)
+    generator = torch.Generator(device=device).manual_seed(config.system.seed)
+    explore, update, _, state = learner_setup(env, generator, config, device, centralised_critic)
+    return explore, update, state
 
 
 def run_experiment(_config: Config, centralised_critic: bool = False) -> Tuple[float, ExperimentOutput]:

@@ -10,8 +10,9 @@ bias correction, eps outside the sqrt, then the (scheduled) learning rate.
 `SweptClippedAdam` is the same step over parameters stacked on a leading axis
 of S entries, each entry an optimizer of its own with its peak learning rate
 held in the optimizer's state (the reference's `scale_by_swept_lr`,
-`make_swept_optimizer` and `set_peak_lr`, `utils/training.py:90-144`, under
-`jax.vmap`): what the seed, sweep and PBT programs of `advanced_usage/` step.
+`make_swept_optimizer`, `set_peak_lr` and `make_swept_adam`,
+`utils/training.py:90-163`, under `jax.vmap`): what the seed, sweep and PBT
+programs of `advanced_usage/` step.
 """
 
 from __future__ import annotations
@@ -163,6 +164,15 @@ def make_swept_optimizer(params, config, max_grad_norm: float, peak_lr) -> Swept
     if config.system.get("decay_learning_rates", False):
         decay = config.system.ppo_epochs * config.system.num_minibatches * config.system.num_updates
     return SweptClippedAdam(params, peak_lr, max_grad_norm, decay, eps=1e-5)
+
+
+def make_swept_adam(params, lr, max_grad_norm: float, eps: float = 1e-8) -> SweptClippedAdam:
+    """Clip-then-Adam over stacked parameters at a constant learning rate a
+    entry (a float for every entry, or one an entry) held in the optimizer's
+    state: the off-policy systems' stock optimizer, each entry clipped by its
+    own global norm over `params` (reference `make_swept_adam`, :147-163).
+    SAC keeps optax's eps 1e-8, rec-IQL passes 1e-5."""
+    return SweptClippedAdam(params, lr, max_grad_norm, decay_updates=None, eps=eps)
 
 
 def entropy_coefficient(config, actor_optimizer: ClippedAdam) -> float:

@@ -285,3 +285,51 @@ def test_stacked_entry_is_the_unstacked_kernels_bitwise(cuda, stack, t_len, b, h
 def test_max_active_clusters_of_the_resident_kernels(cuda):
     for kernel in ("fwd", "bwd_recurrence"):
         assert gru.max_active_clusters(128, kernel, 256, 2) >= 1
+
+
+def _pair_inputs(seeds, t_len, b, h, seed, device):
+    """rec-IQL's stacked target pass: 2S entries (the S online networks, then the
+    S targets), each pair with its seed's keep, (2S, T, B, H)."""
+    args, _ = _seed_inputs(2 * seeds, t_len, b, h, seed=seed, device=device)
+    args[1] = torch.cat([args[1][:seeds]] * 2).contiguous()
+    return args
+
+
+# The off-policy seed programs' shapes (rec-IQL on SMAX 3s5z: 32 sequences of 20
+# steps x 8 agents) at S = 2 and 4, and a ragged B.
+OFF_POLICY_SEEDS = [(2, 20, 256, 128), (4, 20, 256, 128), (2, 20, 37, 128)]
+
+
+@pytest.mark.parametrize("seeds,t_len,b,h", OFF_POLICY_SEEDS)
+def test_target_pass_over_2s_with_per_pair_keep(cuda, seeds, t_len, b, h):
+    """The stacked K1 over 2S entries with each pair's keep: within 1e-4 of its
+    plain version, bitwise repeatable, and each pair's entries the unstacked
+    kernel on that entry's inputs, bitwise."""
+    args = _pair_inputs(seeds, t_len, b, h, seed=seeds * 100 + b, device=cuda)
+    counts = dict(gru.kernel_launches)
+    hs = gru.gru_sequence_stacked(*args)
+    torch.testing.assert_close(hs, gru.gru_sequence_stacked_reference(*args), **TOL)
+    assert torch.equal(hs, gru.gru_sequence_stacked(*args))
+    assert gru.kernel_launches["fwd_stacked"] == counts["fwd_stacked"] + 2
+    assert gru.kernel_launches["fwd"] == counts["fwd"]
+    for s in (0, seeds - 1, seeds, 2 * seeds - 1):
+        assert torch.equal(hs[s], gru.gru_sequence_forward(*[a[s] for a in args]))
+    assert torch.equal(args[1][0], args[1][seeds])
+
+
+@pytest.mark.parametrize("seeds,t_len,b,h", OFF_POLICY_SEEDS)
+def test_loss_pass_backward_over_s(cuda, seeds, t_len, b, h):
+    """The stacked backward of rec-IQL's loss pass over S entries: within 1e-4
+    of its plain version and bitwise repeatable, one launch of each kernel."""
+    args, g_hs = _seed_inputs(seeds, t_len, b, h, seed=seeds + b, device=cuda)
+    hs = gru.gru_sequence_stacked_forward(*args)
+    counts = dict(gru.kernel_launches)
+    got = gru.gru_sequence_stacked_backward(*args, hs, g_hs)
+    for name in ("bwd_gates_stacked", "bwd_recurrence_stacked", "bwd_reduce_stacked",
+                 "bwd_reduce_sum_stacked"):
+        assert gru.kernel_launches[name] == counts[name] + 1, name
+    want = gru.gru_sequence_stacked_backward_reference(*args, hs, g_hs)
+    for name, g, w, a in zip(("dgates_i", "dh0", "dWh", "db_hn"), got, want,
+                             gru.gru_sequence_stacked_backward(*args, hs, g_hs)):
+        torch.testing.assert_close(g, w, **TOL, msg=name)
+        assert torch.equal(a, g), name

@@ -49,5 +49,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "mava_tpu_torch.advanced_usage.rec_mappo_vmap_sweep",
                  "mava_tpu_torch.advanced_usage.ff_ippo_pbt",
                  "mava_tpu_torch.advanced_usage.rec_ippo_pbt",
-                 "mava_tpu_torch.examples.seed_band"):
+                 "mava_tpu_torch.examples.seed_band",
+                 # the off-policy seed axis, the vault and recorded experience
+                 "mava_tpu_torch.advanced_usage.rec_iql_vmap_seeds",
+                 "mava_tpu_torch.advanced_usage.rec_iql_vmap_sweep",
+                 "mava_tpu_torch.advanced_usage.ff_isac_vmap_seeds",
+                 "mava_tpu_torch.advanced_usage.ff_isac_vmap_sweep",
+                 "mava_tpu_torch.advanced_usage.ff_masac_vmap_seeds",
+                 "mava_tpu_torch.advanced_usage.ff_masac_vmap_sweep",
+                 "mava_tpu_torch.advanced_usage.ff_ippo_store_experience",
+                 "mava_tpu_torch.replay.stacked", "mava_tpu_torch.replay.vault",
+                 "mava_tpu_torch.examples.bc_from_vault"):
         assert name in report["modules"]
