@@ -130,11 +130,22 @@ Run from the root of the repository. It
      (they reach no hand-written kernel), three timed ff-IPPO updates, ff-IPPO on
      Matrax Penalty-25 for 30 updates with its eval return, and a short run of
      the bench program (`bench_torch.run` at 512 envs);
-  15. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
+  15. distributed phase (data parallelism over ranks, `parallel/`): rec-IPPO
+     on RWARE tiny-2ag at the shipped width through `python -m
+     torch.distributed.run --standalone --nproc-per-node=1` (a subprocess: 2
+     updates and one evaluation under NCCL; its exit code and "completed"
+     line); then in this process a world-1 NCCL group (`tcp://localhost`, a
+     free port): one data-parallel update against one stock update from the
+     same state and draws (parameters and losses bitwise equal), exactly 17
+     K1, 16 of each backward kernel and 8 all-reduces (one a minibatch step,
+     counted with `torch.profiler`) an update, the all-reduces' device and
+     host ms an update and both updates' env-steps/s; the group is destroyed
+     after it, so it runs last;
+  16. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
      512 envs under `torch.profiler`: host ms, launches and kernel ms per span,
      launches per rollout step, per-kernel totals and the device's idle share.
 `--seeds` builds the kernels and runs only the seed phase, `--offpolicy` only
-the off-policy seed phase. `--dynamics` runs
+the off-policy seed phase, `--distributed` only the distributed phase. `--dynamics` runs
 only two measurements of `envs/_dynamics.py` and exits:
 MaReacher with the checked solve of the parent against the unchecked one, and
 tracing a whole RK4 substep against tracing q̈ alone (`dynamics_ab`).
@@ -2244,6 +2255,151 @@ def offpolicy_phase(gru, gpu: str) -> dict:
             "stock_sac": stock_sac}
 
 
+# The distributed phase: rec-IPPO at the shipped width (16 envs, rollout 128,
+# 4 epochs x 2 minibatches), 2 updates and one evaluation through torchrun.
+DISTRIBUTED_RUN = ["system.num_updates=2", "arch.num_evaluation=1", "arch.num_eval_episodes=16",
+                   "arch.absolute_metric=False"]
+DISTRIBUTED_REPEATS = 2
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def distributed_learner(mesh, draws):
+    """(learn, state, env-steps an update) of rec-IPPO at the shipped width on
+    `mesh`, from the seed's state, with `draws` (noise, permutations) handed in."""
+    environments, load_config, _ = port()
+    from mava_tpu_torch.systems.ppo import rec_ippo
+
+    cfg = load_config("default_rec_ippo", SLICE_OVERRIDES)
+    cfg.arch.n_devices = mesh.world_size
+    cfg.system.recurrent_chunk_size = cfg.system.rollout_length
+    cfg.system.num_updates_per_eval = 1
+    device = torch.device("cuda", 0)
+    env, _ = environments.make(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(cfg.system.seed)
+    learn, _, state = rec_ippo.learner_setup(env, gen, cfg, device, noise=draws[0],
+                                             permutations=draws[1], mesh=mesh)
+    return learn, state, cfg.system.rollout_length * cfg.arch.num_envs, cfg, env
+
+
+def distributed_phase(gru, gpu: str) -> dict:
+    """rec-IPPO data-parallel under NCCL at world size 1 (one card): through
+    torchrun as a user launches it, then one data-parallel update against one
+    stock update in this process, its launches and its all-reduces."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from mava_tpu_torch.networks.factory import make_rollout_noise_fn
+    from mava_tpu_torch.parallel import Mesh, make_mesh
+    from mava_tpu_torch.parallel import mesh as mesh_module
+    from mava_tpu_torch.utils.training import epoch_permutations
+
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=1",
+         "-m", "mava_tpu_torch.systems.ppo.rec_ippo", *DISTRIBUTED_RUN],
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - start
+    check(proc.returncode == 0, f"torchrun rec-IPPO exited {proc.returncode}:\n"
+                                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    check("Recurrent IPPO experiment completed." in proc.stdout,
+          "torchrun rec-IPPO printed no completed line")
+    misc = [line for line in proc.stderr.splitlines() if "MISC" in line]
+    print(f"  torchrun --nproc-per-node=1 rec_ippo (NCCL, world 1): 2 updates and one "
+          f"evaluation, exit 0 in {wall:.1f} s wall; {misc[-1].strip() if misc else ''}")
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}, not nccl")
+        mesh = make_mesh()
+        check(mesh.data_group is not None and mesh.world_size == 1, f"mesh {mesh}")
+        _, _, _, cfg, env = distributed_learner(Mesh(), (None, None))
+        device = torch.device("cuda", 0)
+        draw_gen = torch.Generator(device=device).manual_seed(7)
+        rollout, envs = cfg.system.rollout_length, cfg.arch.num_envs
+        noise = make_rollout_noise_fn(cfg.network.action_head)(
+            (rollout, envs, env.num_agents, env.action_dim), draw_gen, device)[None]
+        perms = epoch_permutations(cfg.system.ppo_epochs, envs, draw_gen, device)[None]
+
+        def first_update(on):
+            learn, state, steps, _, _ = distributed_learner(on, (noise, perms))
+            gru.reset_launch_counts()
+            before = mesh_module.all_reduces
+            out = learn(state)
+            torch.cuda.synchronize()
+            launches = dict(gru.kernel_launches)
+            params = [p.detach().clone() for net in out.learner_state.params
+                      for p in net.parameters()]
+            return (learn, out), params, launches, mesh_module.all_reduces - before, steps
+
+        (stock_learn, stock), stock_params, stock_launches, stock_reduces, steps = \
+            first_update(Mesh())
+        (dp_learn, dp), dp_params, dp_launches, dp_reduces, _ = first_update(mesh)
+        same = all(torch.equal(a, b) for a, b in zip(stock_params, dp_params))
+        same_losses = all(torch.equal(stock.train_metrics[k], dp.train_metrics[k])
+                          for k in stock.train_metrics)
+        print(f"  one update, data-parallel (NCCL world 1) vs stock: parameters bitwise "
+              f"{'equal' if same else 'DIFFERENT'}, losses bitwise "
+              f"{'equal' if same_losses else 'DIFFERENT'}")
+        check(same and same_losses, "the data-parallel update differs from the stock one")
+        minibatch_steps = cfg.system.ppo_epochs * cfg.system.num_minibatches
+        check(stock_reduces == 0, f"the stock update made {stock_reduces} all-reduces")
+        check(dp_reduces == minibatch_steps, f"{dp_reduces} all-reduces, not {minibatch_steps}")
+        for _, counter, _, per_update in KERNELS:
+            check(dp_launches[counter] == per_update == stock_launches[counter],
+                  f"data-parallel update: {counter} launched {dp_launches[counter]} times, "
+                  f"stock {stock_launches[counter]}, not {per_update}")
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            dp = dp_learn(dp.learner_state)
+            torch.cuda.synchronize()
+        events = prof.events()
+        # The dispatcher's op of `dist.all_reduce`, whatever the backend.
+        reduce_ops = [e for e in events if e.name == "c10d::allreduce_"]
+        nccl_kernels = [e for e in events if "nccl" in e.name.lower()
+                        and e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(getattr(e, "device_time", getattr(e, "cuda_time", 0.0))
+                        for e in nccl_kernels)
+        host_us = sum(e.cpu_time for e in reduce_ops)
+        check(len(reduce_ops) == minibatch_steps,
+              f"the profiler counts {len(reduce_ops)} all-reduces, not {minibatch_steps}")
+
+        # Both updates timed in one call, stock and data-parallel in turn, each
+        # going on from its own state.
+        times = {"stock": [], "data-parallel": []}
+        learners = {"stock": (stock_learn, stock.learner_state),
+                    "data-parallel": (dp_learn, dp.learner_state)}
+        for _ in range(DISTRIBUTED_REPEATS):
+            for label, (learn, state) in learners.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = learn(state)
+                torch.cuda.synchronize()
+                times[label].append(time.perf_counter() - t0)
+                learners[label] = (learn, out.learner_state)
+        for label, seconds in times.items():
+            print_updates(f"{label} rec-IPPO", seconds, steps, gpu)
+        update_ms = 1e3 * sum(times["data-parallel"]) / len(times["data-parallel"])
+        print(f"  all-reduces an update: {len(reduce_ops)} (profiler), "
+              f"{device_us / 1e3:.4f} device ms in {len(nccl_kernels)} NCCL kernels, "
+              f"{host_us / 1e3:.3f} host ms in c10d::allreduce_, against "
+              f"{update_ms:.1f} host ms an update, on {gpu}")
+        print(f"  phase: {time.perf_counter() - start:.1f} s")
+        return {"launches": dp_launches, "all_reduces": len(reduce_ops),
+                "all_reduce_device_ms": device_us / 1e3, "all_reduce_host_ms": host_us / 1e3}
+    finally:
+        dist.destroy_process_group()
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU.", file=sys.stderr)
@@ -2282,6 +2438,11 @@ def main() -> int:
         offpolicy_phase(gru, gpu)
         print(gpu)
         return 0
+    if "--distributed" in sys.argv[1:]:
+        print("distributed phase (rec-IPPO data-parallel under NCCL, world 1):")
+        distributed_phase(gru, gpu)
+        print(gpu)
+        return 0
 
     print("kernel phase:")
     kernels = kernel_phase(gru)
@@ -2316,6 +2477,10 @@ def main() -> int:
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     print("feed-forward phase (ff-IPPO, ff-MAPPO, Matrax, the bench program):")
     feedforward_phase(gru, gpu)
+    print(f"  ({time.perf_counter() - start:.0f} s since the start)")
+    # Last: it brings up a process group, which the phases above run without.
+    print("distributed phase (rec-IPPO data-parallel under NCCL, world 1):")
+    distributed = distributed_phase(gru, gpu)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     if "--profile" in sys.argv[1:]:
         print("profile phase:")
@@ -2374,6 +2539,7 @@ def main() -> int:
             "launches": sliced["launches"][counter],
             "launches_rec_mappo": mappo["launches"][counter],
             "launches_resume_rec_ippo_smax": resume["launches"][counter],
+            "launches_data_parallel_rec_ippo": distributed["launches"][counter],
             "max_abs_err": kernels["errs"][counter],
             "ms": t16[counter], "plain_ms": t16[counter + "_plain"],
             "bound_ms": bound, "bound_by": bound_by,

@@ -11,6 +11,14 @@ update is made for all entries at once.
     resets and the same draws, so that the entries differ by their learning
     rate alone; the rate lives in the optimizer's state.
 The evaluation is the stock evaluator, entry by entry, outside the updates.
+
+With `system.seed_shards = K` under a process group of W ranks (the
+reference's `make_seed_sharded_mesh`), the ranks split into K seed groups of
+W / K consecutive ranks; each group holds `num_seeds / K` entries (their
+params, optimizers, rings and envs), each of its ranks `arch.num_envs` envs of
+every one of them, and the gradients are averaged over the group's ranks only
+(`seed_placement`). The data-parallel stock systems are the K = 1 case of the
+same placement.
 """
 
 from __future__ import annotations
@@ -23,6 +31,10 @@ from torch.utils import _pytree as pytree
 
 from mava_tpu_torch.envs.wrappers import get_final_step_metrics
 from mava_tpu_torch.evaluator import get_eval_fn
+from mava_tpu_torch.parallel import Mesh, make_mesh, make_seed_sharded_mesh
+from mava_tpu_torch.parallel.distributed import gather_metrics, take_rows
+from mava_tpu_torch.systems import anakin
+from mava_tpu_torch.systems.anakin import eval_generator
 from mava_tpu_torch.utils.config import Config
 from mava_tpu_torch.utils.logger import LogEvent, MavaLogger
 from mava_tpu_torch.utils.profiling import PhaseTimer
@@ -30,15 +42,68 @@ from mava_tpu_torch.utils.timestep_checker import check_total_timesteps
 
 
 def refuse_seed_shards(config: Config, program: str) -> None:
-    """`system.seed_shards > 1` shards the entries over a 2-D (seed, data) mesh
-    of several devices in the reference; one card has no such mesh."""
+    """The PBT programs refuse `system.seed_shards > 1`, as the reference's do
+    (`ff_ippo_pbt.py:117-123`): a population's exploit step copies members
+    across the whole population."""
     shards = int(config.system.get("seed_shards", 1))
     if shards > 1:
         raise ValueError(
-            f"system.seed_shards={shards} is not supported by {program}: sharding the "
-            "entries over devices needs the multi-GPU data parallelism of ROADMAP.md "
-            "Queue 1 item 5, which is not yet ported. Run it with seed_shards=1."
+            f"system.seed_shards={shards} is not supported by {program}: its exploit "
+            "step copies members across the population. Run it with seed_shards=1."
         )
+
+
+def seed_placement(config: Config, num: int) -> Tuple[Mesh, range]:
+    """The (seed, data) mesh of `system.seed_shards` groups and this rank's
+    entries of `num`: its seed group's consecutive `num / seed_shards`. Sets
+    `arch.n_devices` to the ranks of one group (the reference's per-seed data
+    shards, `ff_isac_vmap_seeds.py:250-253`). Raises unless `seed_shards`
+    divides `num` and the number of ranks."""
+    shards = int(config.system.get("seed_shards", 1))
+    if shards < 1 or num % shards:
+        raise ValueError(f"system.seed_shards={shards} must divide num_seeds={num}")
+    mesh = make_seed_sharded_mesh(shards)
+    config.arch.n_devices = mesh.data_size
+    return mesh, local_entries(mesh, num)
+
+
+def local_entries(mesh: Mesh, num: int) -> range:
+    """The entries of `num` that a rank of `mesh` holds."""
+    per = num // mesh.seed_shards
+    return range(mesh.seed_group * per, (mesh.seed_group + 1) * per)
+
+
+def entry_reset(env: Any, generator: torch.Generator, num: int, shared: bool, num_envs: int,
+                mesh: Mesh, device) -> Tuple[Any, Any]:
+    """This rank's envs of a stacked program: the reset noise of all `num`
+    entries' envs, `num_envs` on each data rank of a group (entry-major, then
+    data rank), drawn from `generator` as every rank holds it, and the rows of
+    this rank's entries and data rank reset."""
+    per_entry = mesh.data_size * num_envs
+    noise = Draws(num, shared, generator, device).reset(env, per_entry)
+    if mesh.world_size > 1:
+        rows = torch.cat([
+            torch.arange(e * per_entry + mesh.data_rank * num_envs,
+                         e * per_entry + (mesh.data_rank + 1) * num_envs)
+            for e in local_entries(mesh, num)]).to(device)
+        noise = take_rows(noise, rows, num * per_entry)
+    return env.reset(noise)
+
+
+def gather_entries(local: Dict[int, Dict[str, np.ndarray]]) -> Dict[int, Dict[str, np.ndarray]]:
+    """{entry: metrics} of every rank's entries, each entry's arrays joined
+    over the ranks that hold it (the data ranks of its seed group), in rank
+    order. A collective over every rank; the identity without a process group."""
+    if not torch.distributed.is_initialized() or torch.distributed.get_world_size() == 1:
+        return local
+    every: List[Any] = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(every, local)
+    joined: Dict[int, Dict[str, list]] = {}
+    for part in every:
+        for entry, metrics in part.items():
+            for k, v in metrics.items():
+                joined.setdefault(entry, {}).setdefault(k, []).append(np.atleast_1d(v))
+    return {e: {k: np.concatenate(vs) for k, vs in m.items()} for e, m in sorted(joined.items())}
 
 
 def entry_seeds(config: Config, num: int, shared: bool) -> List[int]:
@@ -127,8 +192,13 @@ def train_entries(
     explore: Optional[Callable[[Any], Tuple[Any, Any, int]]] = None,
     rounds: Optional[Sequence[int]] = None,
     steps_per_round: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """Rounds of learn, log and evaluate every entry with the stock evaluator.
+    On a seed-sharded `mesh` (by default the process group's data mesh) each
+    rank trains and evaluates its own entries (`local_entries`) and every
+    entry's evaluation is gathered from the ranks that hold it; `num` counts
+    all the entries.
 
     `explore(state)` -> (state, episode metrics, env-steps), where given, runs
     first and is logged at ACT (SAC's explore phase). Per round: the ACT line
@@ -145,10 +215,10 @@ def train_entries(
     (per-entry returns, per-entry win rates or None, per-entry ranks) of the
     last evaluation."""
     evaluator = get_eval_fn(eval_env, eval_act_fn, config, absolute_metric=False)
-    eval_generator = torch.Generator(device=device).manual_seed(config.system.seed + 1)
+    generator = eval_generator(config, device)
+    entries = local_entries(mesh or make_mesh(), num)
     if steps_per_round is None:
-        steps_per_round = (config.system.num_updates_per_eval * config.system.rollout_length
-                           * config.arch.num_envs)
+        steps_per_round = anakin.steps_per_round(config)
     if rounds is None:
         rounds = [steps_per_round * (r + 1) for r in range(config.arch.num_evaluation)]
     logger = MavaLogger(config)
@@ -156,7 +226,7 @@ def train_entries(
         timer = PhaseTimer(device)
         with timer.phase("explore"):
             learner_state, metrics, t = explore(learner_state)
-        episode_metrics, ep_completed = get_final_step_metrics(metrics)
+        episode_metrics, ep_completed = get_final_step_metrics(gather_metrics(metrics))
         episode_metrics["steps_per_second"] = num * t / timer.phases["explore"]
         if ep_completed:
             logger.log(episode_metrics, t, 0, LogEvent.ACT)
@@ -168,7 +238,8 @@ def train_entries(
         with timer.phase("learn"):
             output = learn(learner_state)
         elapsed = timer.phases["learn"]
-        episode_metrics, ep_completed = get_final_step_metrics(output.episode_metrics)
+        episode_metrics, ep_completed = get_final_step_metrics(
+            gather_metrics(output.episode_metrics))
         episode_metrics["steps_per_second"] = num * steps_per_round / elapsed
         if ep_completed:
             logger.log(episode_metrics, t, eval_step, LogEvent.ACT)
@@ -177,8 +248,10 @@ def train_entries(
         wins = None
         state = output.learner_state
         stacked = policy(state)
-        for s in range(num):
-            metrics = evaluator(stacked.entry(s), eval_generator, init_actor_state())
+        evaluated = gather_entries({
+            e: evaluator(stacked.entry(s), generator, init_actor_state())
+            for s, e in enumerate(entries)})
+        for s, metrics in evaluated.items():
             returns[s] = float(np.mean(metrics["episode_return"]))
             if log_wins and "won_episode" in metrics:
                 won = np.asarray(metrics["won_episode"])

@@ -44,6 +44,10 @@ def run_experiment(_config: Config) -> float:
     the mean episode return of the last round's rollouts."""
     config = copy.deepcopy(_config)
     device = start_experiment(config)
+    if config.arch.n_devices > 1:
+        raise NotImplementedError(
+            "ff_ippo_store_experience writes its vault from one process; run it without "
+            "torch.distributed.run (ROADMAP.md Queue 1 item 5.3).")
     env, _ = environments.make(config, device)
     config = schedule_updates(config)
     generator = torch.Generator(device=device).manual_seed(config.system.seed)

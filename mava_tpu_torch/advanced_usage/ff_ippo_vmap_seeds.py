@@ -32,11 +32,13 @@ from torch.utils import _pytree as pytree
 from mava_tpu_torch import envs as environments
 from mava_tpu_torch.advanced_usage.common import (
     Draws,
+    entry_reset,
     entry_seeds,
     gather_rows,
+    local_entries,
     per_entry_mean,
     print_entries,
-    refuse_seed_shards,
+    seed_placement,
     tile,
     train_entries,
 )
@@ -47,6 +49,8 @@ from mava_tpu_torch.networks import StackedNetwork, stack_observation
 from mava_tpu_torch.networks.factory import make_log_prob_from_params, make_rollout_noise_fn
 from mava_tpu_torch.ops import clipped_ppo_policy_loss, clipped_value_loss
 from mava_tpu_torch.ops.gae import calculate_gae
+from mava_tpu_torch.parallel import Mesh, all_reduce_mean, make_mesh, put_replicated
+from mava_tpu_torch.parallel.distributed import rank_generator
 from mava_tpu_torch.systems.anakin import schedule_updates, stack_trees, start_experiment
 from mava_tpu_torch.systems.ppo import ff_ippo
 from mava_tpu_torch.systems.ppo.types import LearnerState, OptStates, Params
@@ -95,6 +99,7 @@ def get_learner_fn(
     permutations: Optional[torch.Tensor] = None,
     entropy_noise: Optional[torch.Tensor] = None,
     env_noise: Optional[Sequence[Sequence[Any]]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[LearnerState], ExperimentOutput]:
     """Build `learner_fn(state)`, which runs `num_updates_per_eval` updates of
     all `num` entries.
@@ -104,8 +109,11 @@ def get_learner_fn(
     T * E), `entropy_noise` (updates, S, epochs, minibatches, *loc), and
     `env_noise[u][t]` what the envs' `step_noise` would draw for the S * E rows
     at step t of update u; by default all come from the state's generator,
-    each entry its own unless `shared`.
+    each entry its own unless `shared`. Every minibatch step averages the
+    gradients and the losses over `mesh`'s data group (by default the process
+    group's ranks), each entry's over its own.
     """
+    mesh = mesh or make_mesh()
     noise_fn = make_rollout_noise_fn(config.network.action_head)
     log_prob_from_params = make_log_prob_from_params(config.network.action_head)
     sys_cfg = config.system
@@ -190,6 +198,10 @@ def get_learner_fn(
                     critic_total = sys_cfg.vf_coef * value_loss
                     critic_grads = torch.autograd.grad(critic_total.sum(), critic_params)
 
+                    losses_mb = (actor_total, actor_loss, entropy, critic_total, value_loss)
+                    actor_grads, critic_grads, losses_mb = all_reduce_mean(
+                        (actor_grads, critic_grads, losses_mb), mesh)
+                    actor_total, actor_loss, entropy, critic_total, value_loss = losses_mb
                     actor_opt.step(actor_grads)
                     critic_opt.step(critic_grads)
                     losses.append({
@@ -246,19 +258,28 @@ def learner_setup(
     permutations: Optional[torch.Tensor] = None,
     entropy_noise: Optional[torch.Tensor] = None,
     env_noise: Optional[Sequence[Sequence[Any]]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Callable, StackedNetwork, LearnerState]:
     """The stacked networks (entry s from `entry_seeds`), their optimizers, the
-    S * E envs' reset and the learner function (reference `learner_setup`)."""
+    S * E envs' reset and the learner function (reference `learner_setup`).
+    On a seed-sharded `mesh` (by default the process group's data mesh) the
+    learner holds this rank's entries of the `num` (`local_entries`), on its
+    rows of each entry's envs."""
     config.system.num_agents = env.num_agents
     shared = sweep_lrs is not None
+    mesh = mesh or make_mesh()
+    entries = local_entries(mesh, num)
     nets = [ff_ippo.make_networks(env, config, device, seed, centralised_critic)
-            for seed in entry_seeds(config, num, shared)]
+            for seed in entry_seeds(config, num, shared)[entries.start:entries.stop]]
     actor = StackedNetwork([n[0] for n in nets])
     critic = StackedNetwork([n[1] for n in nets])
-    opt_states = make_stacked_optimizers(actor, critic, config, sweep_lrs)
+    opt_states = make_stacked_optimizers(
+        actor, critic, config, None if sweep_lrs is None else sweep_lrs[entries.start:entries.stop])
 
     num_envs = config.arch.num_envs
-    draws = Draws(num, shared, generator, device)
+    if config.arch.get("stagger_resets", False) and mesh.world_size > 1:
+        raise NotImplementedError(
+            "arch.stagger_resets is not supported by the stacked programs over ranks.")
     if config.arch.get("stagger_resets", False):
         # Desynchronised episode boundaries (envs/stagger.py): each entry its own
         # offsets, or one entry's offsets for every entry of a sweep.
@@ -269,16 +290,17 @@ def learner_setup(
         if shared:
             env_state, timestep = tile((env_state, timestep), num)
     else:
-        env_state, timestep = env.reset(draws.reset(env, num_envs))
+        env_state, timestep = entry_reset(env, generator, num, shared, num_envs, mesh, device)
     state = LearnerState(
-        params=Params(actor, critic),
+        params=put_replicated(Params(actor, critic), mesh),
         opt_states=opt_states,
-        key=generator,
+        key=rank_generator(generator, mesh, shared_over_seed_groups=shared),
         env_state=env_state,
         timestep=timestep,
     )
-    learner = get_learner_fn(env, config, num, shared, noise=noise, permutations=permutations,
-                             entropy_noise=entropy_noise, env_noise=env_noise)
+    learner = get_learner_fn(env, config, len(entries), shared, noise=noise,
+                             permutations=permutations, entropy_noise=entropy_noise,
+                             env_noise=env_noise, mesh=mesh)
     return learner, actor, state
 
 
@@ -288,18 +310,17 @@ def run_experiment(_config: Config, centralised_critic: bool = False,
     `sweep_lrs`, of ff-IPPO (ff-MAPPO when `centralised_critic`); returns the
     mean over the entries of the last evaluation's return."""
     config = copy.deepcopy(_config)
-    program = "the ff vmap-seeds/sweep programs"
-    refuse_seed_shards(config, program)
     num = len(sweep_lrs) if sweep_lrs is not None else int(config.system.get("num_seeds", 4))
     device = start_experiment(config)
+    mesh, _ = seed_placement(config, num)
     env, eval_env = environments.make(config, device, add_global_state=centralised_critic)
     config = schedule_updates(config)
     generator = torch.Generator(device=device).manual_seed(config.system.seed)
     learn, _, learner_state = learner_setup(
-        env, generator, config, device, num, centralised_critic, sweep_lrs=sweep_lrs)
+        env, generator, config, device, num, centralised_critic, sweep_lrs=sweep_lrs, mesh=mesh)
     returns, wins, _ = train_entries(
         config, device, learn, learner_state, eval_env, make_ff_eval_act_fn(config),
-        lambda: {}, num)
+        lambda: {}, num, mesh=mesh)
     print_entries("", returns, wins, sweep_lrs)
     return float(returns.mean())
 

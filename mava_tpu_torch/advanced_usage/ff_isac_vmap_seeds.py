@@ -38,17 +38,21 @@ from torch.profiler import record_function
 from mava_tpu_torch import envs as environments
 from mava_tpu_torch.advanced_usage.common import (
     Draws,
+    entry_reset,
     entry_seeds,
+    local_entries,
     per_entry_mean,
     print_entries,
-    refuse_seed_shards,
     schedule_rounds,
+    seed_placement,
     train_entries,
 )
 from mava_tpu_torch.distributions import normal
 from mava_tpu_torch.envs.stagger import reject_stagger
 from mava_tpu_torch.evaluator import make_ff_eval_act_fn
 from mava_tpu_torch.networks import StackedNetwork, stack_observation
+from mava_tpu_torch.parallel import Mesh, all_reduce_mean, make_mesh, put_replicated
+from mava_tpu_torch.parallel.distributed import rank_generator
 from mava_tpu_torch.replay import StackedItemBuffer
 from mava_tpu_torch.systems.anakin import stack_trees, start_experiment
 from mava_tpu_torch.systems.sac import ff_isac
@@ -83,6 +87,7 @@ def get_learner_fns(
     num: int,
     shared: bool,
     centralised_critic: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Callable, Callable]:
     """(explore_fn, learner_fn) over all `num` entries, as `ff_isac.get_learner_fns`.
     A handed-in `Draws` holds the stock fields with the entry axis in front
@@ -90,7 +95,10 @@ def get_learner_fns(
     epochs, B), q_noise (S, epochs, B, A, act), actor_noise and alpha_noise (S,
     epochs, delay, B, A, act)) and env_noise one `env.step_noise` of the S * E
     rows a step; by default every entry draws its own from the state's
-    generator, or one entry's for all when `shared`."""
+    generator, or one entry's for all when `shared`. The Q, actor and alpha
+    steps average their gradients and losses over `mesh`'s data group (by
+    default the process group's ranks), each entry's over its own."""
+    mesh = mesh or make_mesh()
     sys_cfg = config.system
     num_envs, num_agents, act = config.arch.num_envs, env.num_agents, env.action_dim
     rollout, epochs, delay = sys_cfg.rollout_length, sys_cfg.epochs, sys_cfg.policy_update_delay
@@ -144,16 +152,19 @@ def get_learner_fns(
         q1_loss = per_entry_mean(torch.square(q1_values - target))
         q2_loss = per_entry_mean(torch.square(q2_values - target))
         loss = q1_loss + q2_loss
-        opt_states.q.step(torch.autograd.grad(loss.sum(), opt_states.q.params))
-        soft_update(targets.q1, online.q1, sys_cfg.tau)
-        soft_update(targets.q2, online.q2, sys_cfg.tau)
-        return {
+        grads = torch.autograd.grad(loss.sum(), opt_states.q.params)
+        info = {
             "loss": loss.detach(),
             "q1_loss": q1_loss.detach(),
             "q2_loss": q2_loss.detach(),
             "q1_a_vals": per_entry_mean(q1_values.detach()),
             "q2_a_vals": per_entry_mean(q2_values.detach()),
         }
+        grads, info = all_reduce_mean((grads, info), mesh)
+        opt_states.q.step(grads)
+        soft_update(targets.q1, online.q1, sys_cfg.tau)
+        soft_update(targets.q2, online.q2, sys_cfg.tau)
+        return info
 
     def update_actor_and_alpha(params: SacParams, opt_states: OptStates, data: Transition,
                                actor_noise: torch.Tensor, alpha_noise: torch.Tensor):
@@ -167,7 +178,9 @@ def get_learner_fns(
                         if centralised_critic else action)
             min_q = torch.minimum(online.q1(data.obs, q_action), online.q2(data.obs, q_action))
             actor_loss = per_entry_mean((alpha * log_prob) - min_q)
-            opt_states.actor.step(torch.autograd.grad(actor_loss.sum(), actor_params))
+            grads = torch.autograd.grad(actor_loss.sum(), actor_params)
+            grads, actor_loss = all_reduce_mean((grads, actor_loss.detach()), mesh)
+            opt_states.actor.step(grads)
 
             alpha_loss = torch.zeros(num, device=actor_loss.device)
             if sys_cfg.autotune:
@@ -176,7 +189,9 @@ def get_learner_fns(
                         noise=alpha_noise[:, d])
                 alpha_loss = per_entry_mean(
                     -torch.exp(params.log_alpha) * (log_prob + entropy_target))
-                opt_states.alpha.step(torch.autograd.grad(alpha_loss.sum(), [params.log_alpha]))
+                grads = torch.autograd.grad(alpha_loss.sum(), [params.log_alpha])
+                grads, alpha_loss = all_reduce_mean((grads, alpha_loss.detach()), mesh)
+                opt_states.alpha.step(grads)
         return {"actor_loss": actor_loss.detach(), "alpha_loss": alpha_loss.detach()}
 
     def train(state: LearnerState, drawn: SacDraws, draw: Draws) -> List[Dict[str, torch.Tensor]]:
@@ -260,18 +275,32 @@ def learner_setup(
     num: int,
     centralised_critic: bool = False,
     sweep_lrs: Optional[Sequence[float]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Callable, Callable, StackedNetwork, LearnerState]:
     """The stacked networks (entry s from `entry_seeds`; the targets start as
     copies of the online critics), `log_alpha` and the entropy target (S, 1,
     A), the three swept optimizers, the S * E envs' reset and the stacked
-    buffer; returns (explore_fn, learner_fn, actor, state)."""
+    buffer; returns (explore_fn, learner_fn, actor, state). On a seed-sharded
+    `mesh` (by default the process group's data mesh) the learner holds this
+    rank's entries of the `num` (`local_entries`): their networks and rings,
+    on its rows of each entry's envs."""
     reject_stagger(config, "ff-ISAC/ff-MASAC vmap-seeds/sweep")
     sys_cfg = config.system
     num_agents, act = env.num_agents, env.action_dim
     sys_cfg.num_agents = num_agents
     shared = sweep_lrs is not None
+    if shared and len(sweep_lrs) != num:
+        raise ValueError(f"one lr per sweep entry: {len(sweep_lrs)} lrs for {num} entries")
+    mesh = mesh or make_mesh()
+    entries = local_entries(mesh, num)
+    env_state, timestep = entry_reset(env, generator, num, shared, config.arch.num_envs, mesh,
+                                      device)
+    if shared:
+        sweep_lrs = sweep_lrs[entries.start:entries.stop]
+    seeds = entry_seeds(config, num, shared)[entries.start:entries.stop]
+    num = len(entries)
     nets = [ff_isac.make_networks(env, config, device, seed, centralised_critic)
-            for seed in entry_seeds(config, num, shared)]
+            for seed in seeds]
     actor, q1, q2 = (StackedNetwork([n[i] for n in nets]) for i in range(3))
     targets = QVals(*(StackedNetwork([n[i] for n in nets]) for i in (1, 2)))
 
@@ -280,8 +309,6 @@ def learner_setup(
     log_alpha = ff_isac.initial_log_alpha(config, entropy_target)
     params = SacParams(actor, QValsAndTarget(QVals(q1, q2), targets), log_alpha)
 
-    if shared and len(sweep_lrs) != num:
-        raise ValueError(f"one lr per sweep entry: {len(sweep_lrs)} lrs for {num} entries")
     clip = sys_cfg.max_grad_norm
     opt_states = OptStates(
         actor=make_swept_adam(actor.parameters(), sweep_lrs if shared else sys_cfg.policy_lr,
@@ -291,14 +318,13 @@ def learner_setup(
         alpha=make_swept_adam([log_alpha], sys_cfg.alpha_lr, clip, eps=ADAM_EPS),
     )
 
-    num_envs = config.arch.num_envs
-    env_state, timestep = env.reset(Draws(num, shared, generator, device).reset(env, num_envs))
     obs = timestep.observation
     buffer = ff_isac.make_buffer(config, entries=num)
     buffer_state = buffer.init(ff_isac.dummy_transition(obs, num_agents, act, device))
-    state = LearnerState(obs, env_state, buffer_state, params, opt_states, 0, generator)
+    state = LearnerState(obs, env_state, buffer_state, put_replicated(params, mesh), opt_states,
+                         0, rank_generator(generator, mesh, shared_over_seed_groups=shared))
     explore_fn, learner_fn = get_learner_fns(env, config, buffer, entropy_target, num, shared,
-                                             centralised_critic)
+                                             centralised_critic, mesh)
     return explore_fn, learner_fn, actor, state
 
 
@@ -308,19 +334,21 @@ def run_experiment(_config: Config, centralised_critic: bool = False,
     `sweep_lrs`, of ff-ISAC (ff-MASAC when `centralised_critic`); returns the
     mean over the entries of the last evaluation's return."""
     config = copy.deepcopy(_config)
-    refuse_seed_shards(config, "the SAC vmap-seeds/sweep programs")
     num = len(sweep_lrs) if sweep_lrs is not None else int(config.system.get("num_seeds", 4))
     device = start_experiment(config)
+    mesh, _ = seed_placement(config, num)
     config, steps_per_rollout = schedule_rounds(config)
     env, eval_env = environments.make(config, device, add_global_state=centralised_critic)
     generator = torch.Generator(device=device).manual_seed(config.system.seed)
     explore, learn, _, learner_state = learner_setup(
-        env, generator, config, device, num, centralised_critic, sweep_lrs)
-    start = config.system.explore_steps // config.arch.num_envs * config.arch.num_envs
+        env, generator, config, device, num, centralised_critic, sweep_lrs, mesh=mesh)
+    # An entry's env-steps over the ranks of its group (`state.t` counts one rank's).
+    ranks = config.arch.n_devices
+    start = config.system.explore_steps // config.arch.num_envs * config.arch.num_envs * ranks
 
     def explore_phase(state: LearnerState):
         state, metrics = explore(state)
-        return state, metrics, state.t
+        return state, metrics, state.t * ranks
 
     # The reference's range(t, total + 1, steps_per_rollout), each logged at its end.
     rounds = [t + steps_per_rollout for t in
@@ -328,7 +356,7 @@ def run_experiment(_config: Config, centralised_critic: bool = False,
     returns, _, _ = train_entries(
         config, device, learn, learner_state, eval_env, make_ff_eval_act_fn(config),
         lambda: {}, num, policy=lambda state: state.params.actor, explore=explore_phase,
-        rounds=rounds, steps_per_round=steps_per_rollout)
+        rounds=rounds, steps_per_round=steps_per_rollout, mesh=mesh)
     print_entries("", returns, None, sweep_lrs)
     return float(returns.mean())
 

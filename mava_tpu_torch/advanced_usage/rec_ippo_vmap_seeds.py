@@ -30,11 +30,13 @@ from torch.utils import _pytree as pytree
 from mava_tpu_torch import envs as environments
 from mava_tpu_torch.advanced_usage.common import (
     Draws,
+    entry_reset,
     entry_seeds,
     gather_rows,
+    local_entries,
     per_entry_mean,
     print_entries,
-    refuse_seed_shards,
+    seed_placement,
     train_entries,
 )
 from mava_tpu_torch.advanced_usage.ff_ippo_vmap_seeds import (
@@ -51,6 +53,8 @@ from mava_tpu_torch.evaluator import get_num_eval_envs, make_rec_eval_act_fn
 from mava_tpu_torch.networks import ScannedRNN, StackedNetwork, stack_observation
 from mava_tpu_torch.networks.factory import make_log_prob_from_params, make_rollout_noise_fn
 from mava_tpu_torch.ops.gae import calculate_gae_with_next_done
+from mava_tpu_torch.parallel import Mesh, all_reduce_mean, make_mesh, put_replicated
+from mava_tpu_torch.parallel.distributed import rank_generator
 from mava_tpu_torch.systems.anakin import schedule_updates, stack_trees, start_experiment
 from mava_tpu_torch.systems.ppo import rec_ippo
 from mava_tpu_torch.systems.ppo.types import HiddenStates, Params, RNNLearnerState
@@ -73,11 +77,13 @@ def get_learner_fn(
     permutations: Optional[torch.Tensor] = None,
     entropy_noise: Optional[torch.Tensor] = None,
     env_noise: Optional[Sequence[Sequence[Any]]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[RNNLearnerState], ExperimentOutput]:
     """Build `learner_fn(state)`, which runs `num_updates_per_eval` updates of
     all `num` entries. The draws are the stock rec-IPPO learner's with the
     entry axis after the update's (`permutations` (updates, S, epochs,
     sequences)), as in `ff_ippo_vmap_seeds.get_learner_fn`."""
+    mesh = mesh or make_mesh()
     noise_fn = make_rollout_noise_fn(config.network.action_head)
     log_prob_from_params = make_log_prob_from_params(config.network.action_head)
     sys_cfg = config.system
@@ -182,6 +188,10 @@ def get_learner_fn(
                     critic_total = sys_cfg.vf_coef * value_loss
                     critic_grads = torch.autograd.grad(critic_total.sum(), critic_params)
 
+                    losses_mb = (actor_total, actor_loss, entropy, critic_total, value_loss)
+                    actor_grads, critic_grads, losses_mb = all_reduce_mean(
+                        (actor_grads, critic_grads, losses_mb), mesh)
+                    actor_total, actor_loss, entropy, critic_total, value_loss = losses_mb
                     actor_opt.step(actor_grads)
                     critic_opt.step(critic_grads)
                     losses.append({
@@ -227,26 +237,34 @@ def learner_setup(
     permutations: Optional[torch.Tensor] = None,
     entropy_noise: Optional[torch.Tensor] = None,
     env_noise: Optional[Sequence[Sequence[Any]]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Callable, StackedNetwork, RNNLearnerState]:
     """The stacked networks, their optimizers, the S * E envs' reset, zero hidden
-    states (S, E, A, H) and the learner function (reference `learner_setup`)."""
+    states (S, E, A, H) and the learner function (reference `learner_setup`).
+    On a seed-sharded `mesh` (by default the process group's data mesh) the
+    learner holds this rank's entries of the `num` (`local_entries`), on its
+    rows of each entry's envs."""
     reject_stagger(config, "rec-IPPO vmap-seeds/sweep/PBT")
     num_agents = env.num_agents
     config.system.num_agents = num_agents
     shared = sweep_lrs is not None
+    mesh = mesh or make_mesh()
+    entries = local_entries(mesh, num)
     nets = [rec_ippo.make_networks(env, config, device, seed, centralised_critic)
-            for seed in entry_seeds(config, num, shared)]
+            for seed in entry_seeds(config, num, shared)[entries.start:entries.stop]]
     actor = StackedNetwork([n[0] for n in nets])
     critic = StackedNetwork([n[1] for n in nets])
-    opt_states = make_stacked_optimizers(actor, critic, config, sweep_lrs)
+    opt_states = make_stacked_optimizers(
+        actor, critic, config, None if sweep_lrs is None else sweep_lrs[entries.start:entries.stop])
 
     num_envs = config.arch.num_envs
-    env_state, timestep = env.reset(Draws(num, shared, generator, device).reset(env, num_envs))
+    env_state, timestep = entry_reset(env, generator, num, shared, num_envs, mesh, device)
     hidden = config.network.hidden_state_dim
+    num = len(entries)
     state = RNNLearnerState(
-        params=Params(actor, critic),
+        params=put_replicated(Params(actor, critic), mesh),
         opt_states=opt_states,
-        key=generator,
+        key=rank_generator(generator, mesh, shared_over_seed_groups=shared),
         env_state=env_state,
         timestep=timestep,
         dones=torch.zeros((num, num_envs, num_agents), dtype=torch.bool, device=device),
@@ -256,7 +274,7 @@ def learner_setup(
         ),
     )
     learner = get_learner_fn(env, config, num, shared, noise=noise, permutations=permutations,
-                             entropy_noise=entropy_noise, env_noise=env_noise)
+                             entropy_noise=entropy_noise, env_noise=env_noise, mesh=mesh)
     return learner, actor, state
 
 
@@ -284,17 +302,17 @@ def run_experiment(_config: Config, centralised_critic: bool = False,
     `sweep_lrs`, of rec-IPPO (rec-MAPPO when `centralised_critic`); returns the
     mean over the entries of the last evaluation's return."""
     config = prepare(copy.deepcopy(_config))
-    refuse_seed_shards(config, "the rec vmap-seeds/sweep programs")
     num = len(sweep_lrs) if sweep_lrs is not None else int(config.system.get("num_seeds", 4))
     device = start_experiment(config)
+    mesh, _ = seed_placement(config, num)
     env, eval_env = environments.make(config, device, add_global_state=centralised_critic)
     config = schedule_updates(config)
     generator = torch.Generator(device=device).manual_seed(config.system.seed)
     learn, _, learner_state = learner_setup(
-        env, generator, config, device, num, centralised_critic, sweep_lrs=sweep_lrs)
+        env, generator, config, device, num, centralised_critic, sweep_lrs=sweep_lrs, mesh=mesh)
     returns, wins, _ = train_entries(
         config, device, learn, learner_state, eval_env, make_rec_eval_act_fn(config),
-        eval_hidden(config, device), num, log_wins=True)
+        eval_hidden(config, device), num, log_wins=True, mesh=mesh)
     print_entries("rec ", returns, wins, sweep_lrs)
     return float(returns.mean())
 

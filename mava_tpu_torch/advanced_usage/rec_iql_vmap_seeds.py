@@ -43,17 +43,21 @@ from torch.utils import _pytree as pytree
 from mava_tpu_torch import envs as environments
 from mava_tpu_torch.advanced_usage.common import (
     Draws,
+    entry_reset,
     entry_seeds,
+    local_entries,
     per_entry_mean,
     print_entries,
-    refuse_seed_shards,
     schedule_rounds,
+    seed_placement,
     train_entries,
 )
 from mava_tpu_torch.advanced_usage.rec_ippo_vmap_seeds import eval_hidden, one_step
 from mava_tpu_torch.distributions import gumbel, masked_greedy
 from mava_tpu_torch.envs.stagger import reject_stagger
 from mava_tpu_torch.networks import ScannedRNN, StackedNetwork, stack_observation
+from mava_tpu_torch.parallel import Mesh, all_reduce_mean, make_mesh, put_replicated
+from mava_tpu_torch.parallel.distributed import rank_generator
 from mava_tpu_torch.replay import StackedTrajectoryBuffer
 from mava_tpu_torch.systems.anakin import stack_trees, start_experiment
 from mava_tpu_torch.systems.q_learning import rec_iql
@@ -125,13 +129,17 @@ def get_learner_fn(
     num: int,
     shared: bool,
     draws: Optional[Sequence[IqlDraws]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[LearnerState], ExperimentOutput]:
     """Build `learner_fn(state)`, which runs `system.scan_steps` updates of all
     `num` entries. `draws[u]` replaces what update u would draw: the fields of
     `q_learning.types.Draws` with the entry axis in front (action_noise (S,
     rollout, E, A, actions); rows and starts (S, epochs, B)) and env_noise one
     `env.step_noise` of the S * E rows a step. By default every entry draws its
-    own from the state's generator, or one entry's for all when `shared`."""
+    own from the state's generator, or one entry's for all when `shared`.
+    Every Q step averages the gradients and the losses over `mesh`'s data
+    group (by default the process group's ranks), each entry's over its own."""
+    mesh = mesh or make_mesh()
     sys_cfg = config.system
     num_envs, agents = config.arch.num_envs, sys_cfg.num_agents
     rollout, epochs = sys_cfg.rollout_length, sys_cfg.epochs
@@ -139,16 +147,19 @@ def get_learner_fn(
 
     def update_q(params: QNetParams, opt, data: Transition, t_train: int) -> Dict[str, torch.Tensor]:
         q_loss, q_online, target = q_loss_pass(params, data, sys_cfg.gamma, fused)
-        opt.step(torch.autograd.grad(q_loss.sum(), params.online.parameters()))
-        if sys_cfg.hard_update:
-            periodic_update(params.target, params.online, t_train, sys_cfg.update_period)
-        else:
-            soft_update(params.target, params.online, sys_cfg.tau)
-        return {
+        grads = torch.autograd.grad(q_loss.sum(), params.online.parameters())
+        info = {
             "q_loss": q_loss.detach(),
             "mean_q": per_entry_mean(q_online.detach()),
             "mean_target": per_entry_mean(target),
         }
+        grads, info = all_reduce_mean((grads, info), mesh)
+        opt.step(grads)
+        if sys_cfg.hard_update:
+            periodic_update(params.target, params.online, t_train, sys_cfg.update_period)
+        else:
+            soft_update(params.target, params.online, sys_cfg.tau)
+        return info
 
     def update_step(state: LearnerState, drawn: IqlDraws) -> Tuple[LearnerState, Tuple]:
         online, _ = state.params
@@ -227,24 +238,31 @@ def learner_setup(
     num: int,
     sweep_lrs: Optional[Sequence[float]] = None,
     draws: Optional[Sequence[IqlDraws]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Callable, StackedNetwork, LearnerState]:
     """The stacked online and target Q-networks (entry s from `entry_seeds`; the
     targets start equal), the swept optimizer (`q_lr`, or each entry's sweep
-    lr), the S * E envs' reset, the stacked buffer and the learner function."""
+    lr), the S * E envs' reset, the stacked buffer and the learner function.
+    On a seed-sharded `mesh` (by default the process group's data mesh) the
+    learner holds this rank's entries of the `num` (`local_entries`): their
+    networks and rings, on its rows of each entry's envs."""
     reject_stagger(config, "rec-IQL vmap-seeds/sweep")
     num_agents = env.num_agents
     config.system.num_agents = num_agents
     shared = sweep_lrs is not None
+    if shared and len(sweep_lrs) != num:
+        raise ValueError(f"one lr per sweep entry: {len(sweep_lrs)} lrs for {num} entries")
+    mesh = mesh or make_mesh()
+    entries = local_entries(mesh, num)
     nets = [rec_iql.make_q_network(env, config, device, seed)
-            for seed in entry_seeds(config, num, shared)]
+            for seed in entry_seeds(config, num, shared)[entries.start:entries.stop]]
     online, target = StackedNetwork(nets), StackedNetwork(nets)
-    lrs = sweep_lrs if shared else config.system.q_lr
-    if shared and len(lrs) != num:
-        raise ValueError(f"one lr per sweep entry: {len(lrs)} lrs for {num} entries")
+    lrs = sweep_lrs[entries.start:entries.stop] if shared else config.system.q_lr
     opt = make_swept_adam(online.parameters(), lrs, config.system.max_grad_norm, eps=1e-5)
 
     num_envs = config.arch.num_envs
-    env_state, timestep = env.reset(Draws(num, shared, generator, device).reset(env, num_envs))
+    env_state, timestep = entry_reset(env, generator, num, shared, num_envs, mesh, device)
+    num = len(entries)
     obs = timestep.observation
     one = pytree.tree_map(lambda x: x[0], obs)
     buffer = rec_iql.make_buffer(config, entries=num)
@@ -267,10 +285,10 @@ def learner_setup(
         train_steps=0,
         opt_state=opt,
         buffer_state=buffer_state,
-        params=QNetParams(online, target),
-        key=generator,
+        params=put_replicated(QNetParams(online, target), mesh),
+        key=rank_generator(generator, mesh, shared_over_seed_groups=shared),
     )
-    return get_learner_fn(env, config, buffer, num, shared, draws), online, state
+    return get_learner_fn(env, config, buffer, num, shared, draws, mesh), online, state
 
 
 def run_experiment(_config: Config, sweep_lrs: Optional[Sequence[float]] = None) -> float:
@@ -278,19 +296,20 @@ def run_experiment(_config: Config, sweep_lrs: Optional[Sequence[float]] = None)
     `sweep_lrs`, of rec-IQL; returns the mean over the entries of the last
     evaluation's return."""
     config = copy.deepcopy(_config)
-    refuse_seed_shards(config, "the rec-IQL vmap-seeds/sweep programs")
     num = len(sweep_lrs) if sweep_lrs is not None else int(config.system.get("num_seeds", 4))
     device = start_experiment(config)
+    mesh, _ = seed_placement(config, num)
     config, steps_per_rollout = schedule_rounds(config)
     env, eval_env = environments.make(config, device)
     generator = torch.Generator(device=device).manual_seed(config.system.seed)
-    learn, _, learner_state = learner_setup(env, generator, config, device, num, sweep_lrs)
+    learn, _, learner_state = learner_setup(env, generator, config, device, num, sweep_lrs,
+                                            mesh=mesh)
     total = int(config.system.total_timesteps)
     returns, _, _ = train_entries(
         config, device, learn, learner_state, eval_env, rec_iql.make_eval_act_fn(),
         eval_hidden(config, device), num, policy=lambda state: state.params.online,
         rounds=range(steps_per_rollout, total + 1, steps_per_rollout),
-        steps_per_round=steps_per_rollout)
+        steps_per_round=steps_per_rollout, mesh=mesh)
     print_entries("", returns, None, sweep_lrs)
     return float(returns.mean())
 

@@ -274,8 +274,10 @@ def get_final_step_metrics(
     metrics: Dict[str, torch.Tensor],
 ) -> Tuple[Dict[str, np.ndarray], bool]:
     """Metrics at terminal steps, as host arrays for logging
-    (reference `wrappers.py:244-266`)."""
-    metrics = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
+    (reference `wrappers.py:244-266`); `metrics` are tensors, or host arrays
+    (`parallel.distributed.gather_metrics` of every rank's)."""
+    metrics = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+               for k, v in metrics.items()}
     is_final_ep = metrics.pop("is_terminal_step")
     has_final_ep_step = bool(np.any(is_final_ep))
     if not has_final_ep_step:

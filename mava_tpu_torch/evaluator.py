@@ -1,6 +1,8 @@
 """Evaluator: fixed-length episode rollouts, metrics read at the first done step.
 
-Port of `mava_tpu/evaluator.py` for one device. Each episode loop resets every
+Port of `mava_tpu/evaluator.py`. Under a process group each rank runs
+`get_num_eval_envs` envs (its share of the episodes) with its own generator,
+and the logger gathers the metrics. Each episode loop resets every
 eval env, runs `time_limit` steps, and reads each env's metrics at its first
 done step. As in the reference (:95), an env whose episode never ends within
 `time_limit` reports the metrics of step 0. With `env.log_win_rate` the metrics

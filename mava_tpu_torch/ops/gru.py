@@ -54,6 +54,7 @@ The plain versions leave them alone.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -425,19 +426,23 @@ def build_kernels(step_clocks: bool = False) -> ctypes.CDLL:
     flags = NVCC_FLAGS + (("-DGRU_STEP_CLOCKS",) if step_clocks else ())
     key = hashlib.sha256(_SOURCE.read_bytes() + " ".join(flags).encode())
     out = BUILD_DIR / f"libgru_sequence_{key.hexdigest()[:16]}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *flags, "-o", str(tmp), str(_SOURCE)],
-            capture_output=True,
-            text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {_SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, out)
-        if not step_clocks:
-            build_log = proc.stderr + proc.stdout
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # One build for all the ranks of a data-parallel run: the first to take
+    # the lock builds, the others find the library when they get it.
+    with open(out.with_name(f"{out.name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [_nvcc(), *flags, "-o", str(tmp), str(_SOURCE)],
+                capture_output=True,
+                text=True,
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to build {_SOURCE}:\n{proc.stderr}")
+            os.replace(tmp, out)
+            if not step_clocks:
+                build_log = proc.stderr + proc.stdout
     lib = ctypes.CDLL(str(out))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, pointers, ints in (

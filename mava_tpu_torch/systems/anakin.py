@@ -4,6 +4,11 @@ loop with its checkpoint saves (reference `systems/ppo/ff_ippo.py:402-525`, whic
 reference system repeats; rec-IQL's `:458-601` is the same loop with its
 update count `scan_steps` equal to `num_updates_per_eval`; SAC's
 `ff_isac.py:631-685` runs it from the env-step count after its explore phase).
+
+Under a process group (`parallel/`) every rank runs this loop: the env-step
+counts are global (`n_devices` ranks of `num_envs` envs), each rank evaluates
+its share of the episodes with its own stream, and logging and checkpointing
+are collectives that every rank calls, whose files rank 0 writes.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ from torch.utils import _pytree as pytree
 
 from mava_tpu_torch.envs.wrappers import get_final_step_metrics
 from mava_tpu_torch.evaluator import EvalActFn, get_eval_fn
+from mava_tpu_torch.parallel import initialize, make_mesh, num_learner_devices
+from mava_tpu_torch.parallel.distributed import gather_metrics, rank_device, rank_generator
 from mava_tpu_torch.types import ExperimentOutput
 from mava_tpu_torch.utils.checkpointing import Checkpointer
 from mava_tpu_torch.utils.config import Config
@@ -33,19 +40,23 @@ def stack_trees(trees: Sequence[Any]) -> Any:
 
 def start_experiment(config: Config) -> torch.device:
     """The device of the run: `arch.device`, "cuda" unless the caller asked
-    for another."""
+    for another. Launched by torchrun, the process group comes up here on the
+    device's backend (NCCL on the cards, gloo on the CPU) and this rank's card
+    is `cuda:LOCAL_RANK`; `arch.n_devices` is the number of ranks."""
     device = torch.device(config.arch.get("device", "cuda"))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "arch.device is cuda but CUDA is not available; "
             "pass +arch.device=cpu to run the port on the CPU."
         )
+    initialize(device.type)
+    device = rank_device(device)
     # Full fp32 everywhere on the card, as on the reference's path: cuBLAS
     # matmuls and cuDNN's convolutions (`CNNTorso`), which PyTorch would
     # otherwise run as TF32. `CNNTorso`'s bf16 mode is the one opt-in fast path.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    config.arch.n_devices = 1
+    config.arch.n_devices = num_learner_devices(make_mesh())
     return device
 
 
@@ -59,6 +70,21 @@ def schedule_updates(config: Config) -> Config:
         config.system.num_updates // config.arch.num_evaluation
     )
     return config
+
+
+def steps_per_round(config: Config) -> int:
+    """The global env-steps of `num_updates_per_eval` updates: `rollout_length`
+    steps of `num_envs` envs on each of the `n_devices` ranks."""
+    return (config.system.num_updates_per_eval * config.system.rollout_length
+            * config.arch.num_envs * config.arch.n_devices)
+
+
+def eval_generator(config: Config, device: torch.device) -> torch.Generator:
+    """The evaluator's stream: seeded with `system.seed + 1`, and one of its
+    own on each rank of a process group, so that the ranks evaluate different
+    episodes."""
+    generator = torch.Generator(device=device).manual_seed(config.system.seed + 1)
+    return rank_generator(generator, make_mesh())
 
 
 def restore_full_state(config: Config, learner_state: Any) -> Tuple[Any, Optional[int]]:
@@ -115,11 +141,9 @@ def train_and_evaluate(
     logged with it. With `logger.checkpointing.save_model` each round ends
     with a checkpoint of the learner state."""
     evaluator = get_eval_fn(eval_env, eval_act_fn, config, absolute_metric=False)
-    eval_generator = torch.Generator(device=device).manual_seed(config.system.seed + 1)
+    generator = eval_generator(config, device)
     if rounds is None:
-        steps_per_rollout = (
-            config.system.num_updates_per_eval * config.system.rollout_length * config.arch.num_envs
-        )
+        steps_per_rollout = steps_per_round(config)
         rounds = range(start_step, start_step + steps_per_rollout * config.arch.num_evaluation,
                        steps_per_rollout)
     steps_per_rollout = rounds.step
@@ -140,7 +164,7 @@ def train_and_evaluate(
         elapsed = timer.phases["learn"]
         t = int(start + steps_per_rollout)
         episode_metrics, ep_completed = get_final_step_metrics(
-            learner_output.episode_metrics
+            gather_metrics(learner_output.episode_metrics)
         )
         episode_metrics["steps_per_second"] = steps_per_rollout / elapsed
         if ep_completed:
@@ -148,8 +172,8 @@ def train_and_evaluate(
         logger.log(learner_output.train_metrics, t, eval_step, LogEvent.TRAIN)
 
         with timer.phase("eval"):
-            eval_metrics = evaluator(actor, eval_generator, init_actor_state(False))
-        logger.log(eval_metrics, t, eval_step, LogEvent.EVAL)
+            eval_metrics = evaluator(actor, generator, init_actor_state(False))
+        eval_metrics = logger.log(eval_metrics, t, eval_step, LogEvent.EVAL)
         misc = misc_metrics(t) if misc_metrics else {}
         logger.log({"timestep": t, **misc, **timer.metrics()}, t, eval_step, LogEvent.MISC)
         episode_return = float(np.mean(eval_metrics["episode_return"]))
@@ -169,7 +193,7 @@ def train_and_evaluate(
 
     if config.arch.absolute_metric:
         abs_evaluator = get_eval_fn(eval_env, eval_act_fn, config, absolute_metric=True)
-        eval_metrics = abs_evaluator(best_actor, eval_generator, init_actor_state(True))
+        eval_metrics = abs_evaluator(best_actor, generator, init_actor_state(True))
         logger.log(eval_metrics, t, eval_step, LogEvent.ABSOLUTE)
 
     logger.stop()

@@ -12,6 +12,12 @@ The reference packs the shuffle payload into one wide int32 matrix (a TPU
 gather workaround); here each tensor is gathered with the permutation.
 `system.gae_impl` and `system.rollout_unroll` are accepted and ignored.
 
+Data-parallel over ranks (`parallel/`): each rank steps its own `arch.num_envs`
+envs with its own draws, and every minibatch step averages the actor's and the
+critic's gradients and the loss info over the ranks in one all-reduce
+(reference :214) before the clip and Adam; without a process group there is
+none.
+
 CLI: python -m mava_tpu_torch.systems.ppo.ff_ippo [overrides]. The port runs on
 `arch.device` (default "cuda"; add `+arch.device=cpu` to run on the CPU).
 """
@@ -39,6 +45,14 @@ from mava_tpu_torch.networks.factory import (
 )
 from mava_tpu_torch.ops import clipped_ppo_policy_loss, clipped_value_loss
 from mava_tpu_torch.ops.gae import calculate_gae
+from mava_tpu_torch.parallel import (
+    Mesh,
+    all_reduce_mean,
+    make_mesh,
+    put_replicated,
+    sharded_env_reset,
+)
+from mava_tpu_torch.parallel.distributed import rank_generator
 from mava_tpu_torch.systems.anakin import (
     restore_full_state,
     restore_params,
@@ -65,6 +79,7 @@ def get_learner_fn(
     permutations: Optional[torch.Tensor] = None,
     entropy_noise: Optional[torch.Tensor] = None,
     return_trajectories: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[LearnerState], Any]:
     """Build `learner_fn(state)`, which runs `num_updates_per_eval` updates.
 
@@ -85,6 +100,7 @@ def get_learner_fn(
     num_envs, rollout = config.arch.num_envs, sys_cfg.rollout_length
     batch_size = rollout * num_envs
     mb_size = batch_size // sys_cfg.num_minibatches
+    mesh = mesh or make_mesh()
 
     def _update_step(state: LearnerState, sample_noise, epoch_perms, ent_noise):
         actor, critic = state.params
@@ -161,6 +177,10 @@ def get_learner_fn(
                     critic_total = sys_cfg.vf_coef * value_loss
                     critic_grads = torch.autograd.grad(critic_total, critic_params)
 
+                    losses = (actor_total, actor_loss, entropy, critic_total, value_loss)
+                    actor_grads, critic_grads, losses = all_reduce_mean(
+                        (actor_grads, critic_grads, losses), mesh)
+                    actor_total, actor_loss, entropy, critic_total, value_loss = losses
                     actor_opt.step(actor_grads)
                     critic_opt.step(critic_grads)
                     loss_info.append({
@@ -238,9 +258,13 @@ def learner_setup(
     permutations: Optional[torch.Tensor] = None,
     entropy_noise: Optional[torch.Tensor] = None,
     return_trajectories: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Callable, torch.nn.Module, LearnerState]:
     """Networks, optimizers, env reset and the learner function
-    (`get_learner_fn`'s `return_trajectories` passed on)."""
+    (`get_learner_fn`'s `return_trajectories` passed on). On `mesh` (by
+    default the process group's) this rank resets its rows of the global
+    batch from `generator` and draws its steps from its own stream
+    (`rank_generator`); the params are checked equal on every rank."""
     config.system.num_agents = env.num_agents
     actor, critic = make_networks(env, config, device, config.system.seed, centralised_critic)
 
@@ -253,23 +277,27 @@ def learner_setup(
         config.system.max_grad_norm,
     )
 
-    env_state, timestep = env.reset(env.reset_noise(config.arch.num_envs, generator))
+    mesh = mesh or make_mesh()
+    env_state, timestep = sharded_env_reset(
+        env, generator, mesh.data_size * config.arch.num_envs, mesh)
     if config.arch.get("stagger_resets", False):
-        # Desynchronise the episode boundaries across the batch (envs/stagger.py).
+        # Desynchronise the episode boundaries across the batch (envs/stagger.py),
+        # each rank's rows with its own offsets.
         env_state, timestep = stagger_env_states(
-            env, env_state, timestep, stagger_generator(config.system.seed, device)
+            env, env_state, timestep,
+            rank_generator(stagger_generator(config.system.seed, device), mesh)
         )
     restore_params(config, Params(actor, critic))
     state = LearnerState(
-        params=Params(actor, critic),
+        params=put_replicated(Params(actor, critic), mesh),
         opt_states=OptStates(actor_opt, critic_opt),
-        key=generator,
+        key=rank_generator(generator, mesh),
         env_state=env_state,
         timestep=timestep,
     )
     learner = get_learner_fn(
         env, config, noise=noise, permutations=permutations, entropy_noise=entropy_noise,
-        return_trajectories=return_trajectories,
+        return_trajectories=return_trajectories, mesh=mesh,
     )
     return learner, actor, state
 

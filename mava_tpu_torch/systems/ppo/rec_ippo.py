@@ -10,6 +10,12 @@ bootstrap value; GAE with `next_done`; then `ppo_epochs` x `num_minibatches`
 updates on shuffled whole sequences, each re-running both GRUs from the
 chunk-initial hidden state (BPTT through the kernel's backward).
 
+Data-parallel over ranks (`parallel/`): each rank steps its own `arch.num_envs`
+envs with its own draws, and every minibatch step averages the actor's and the
+critic's gradients and the loss info over the ranks in one all-reduce
+(reference :298) before the clip and Adam; without a process group there is
+none.
+
 The reference packs the shuffle payload into one wide int32 matrix (a TPU
 gather workaround); here each tensor is gathered with the permutation.
 
@@ -40,6 +46,15 @@ from mava_tpu_torch.networks.factory import (
 )
 from mava_tpu_torch.ops import clipped_ppo_policy_loss, clipped_value_loss
 from mava_tpu_torch.ops.gae import calculate_gae_with_next_done
+from mava_tpu_torch.parallel import (
+    Mesh,
+    all_reduce_mean,
+    make_mesh,
+    put_replicated,
+    sharded_env_reset,
+    tile_for_shards,
+)
+from mava_tpu_torch.parallel.distributed import rank_generator
 from mava_tpu_torch.systems.anakin import (
     restore_full_state,
     restore_params,
@@ -84,8 +99,10 @@ def get_learner_fn(
     permutations: Optional[torch.Tensor] = None,
     entropy_noise: Optional[torch.Tensor] = None,
     env_noise: Optional[Sequence[Sequence[Any]]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[RNNLearnerState], ExperimentOutput]:
-    """Build `learner_fn(state)`, which runs `num_updates_per_eval` updates.
+    """Build `learner_fn(state)`, which runs `num_updates_per_eval` updates,
+    data-parallel over `mesh` (by default the process group's, if any).
 
     `noise` (updates, T, E, A, actions) and `permutations` (updates, epochs,
     sequences) replace the rollout's sampling noise (Gumbel or normal) and the epoch
@@ -105,6 +122,7 @@ def get_learner_fn(
     num_sequences = num_chunks * num_envs
     layout = sys_cfg.get("chunk_layout", "contiguous")
     mb_size = num_sequences // sys_cfg.num_minibatches
+    mesh = mesh or make_mesh()
 
     def _update_step(state: RNNLearnerState, sample_noise, epoch_perms, ent_noise, step_noise):
         actor, critic = state.params
@@ -208,6 +226,10 @@ def get_learner_fn(
                     critic_total = sys_cfg.vf_coef * value_loss
                     critic_grads = torch.autograd.grad(critic_total, critic_params)
 
+                    losses = (actor_total, actor_loss, entropy, critic_total, value_loss)
+                    actor_grads, critic_grads, losses = all_reduce_mean(
+                        (actor_grads, critic_grads, losses), mesh)
+                    actor_total, actor_loss, entropy, critic_total, value_loss = losses
                     actor_opt.step(actor_grads)
                     critic_opt.step(critic_grads)
                     loss_info.append({
@@ -296,8 +318,12 @@ def learner_setup(
     permutations: Optional[torch.Tensor] = None,
     entropy_noise: Optional[torch.Tensor] = None,
     env_noise: Optional[Sequence[Sequence[Any]]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Callable, torch.nn.Module, RNNLearnerState]:
-    """Networks, optimizers, env reset and the learner function."""
+    """Networks, optimizers, env reset and the learner function. On `mesh`
+    (by default the process group's) this rank resets its rows of the
+    global batch from `generator` and draws its steps from its own stream
+    (`rank_generator`); the params are checked equal on every rank."""
     reject_stagger(config, "rec-IPPO/rec-MAPPO")
     num_agents = env.num_agents
     config.system.num_agents = num_agents
@@ -312,26 +338,28 @@ def learner_setup(
         config.system.max_grad_norm,
     )
 
+    mesh = mesh or make_mesh()
     num_envs = config.arch.num_envs
-    env_state, timestep = env.reset(env.reset_noise(num_envs, generator))
+    env_state, timestep = sharded_env_reset(env, generator, mesh.data_size * num_envs, mesh)
     hidden = config.network.hidden_state_dim
-    hstates = HiddenStates(
+    hstates = tile_for_shards(HiddenStates(
         ScannedRNN.initialize_carry((num_envs, num_agents), hidden, device),
         ScannedRNN.initialize_carry((num_envs, num_agents), hidden, device),
-    )
+    ), mesh)
     hstates = restore_params(config, Params(actor, critic), hstates)
     state = RNNLearnerState(
-        params=Params(actor, critic),
+        params=put_replicated(Params(actor, critic), mesh),
         opt_states=OptStates(actor_opt, critic_opt),
-        key=generator,
+        key=rank_generator(generator, mesh),
         env_state=env_state,
         timestep=timestep,
-        dones=torch.zeros((num_envs, num_agents), dtype=torch.bool, device=device),
+        dones=tile_for_shards(
+            torch.zeros((num_envs, num_agents), dtype=torch.bool, device=device), mesh),
         hstates=hstates,
     )
     learner = get_learner_fn(
         env, config, noise=noise, permutations=permutations, entropy_noise=entropy_noise,
-        env_noise=env_noise,
+        env_noise=env_noise, mesh=mesh,
     )
     return learner, actor, state
 

@@ -18,6 +18,12 @@ Every random draw of an update can be handed in (`Draws`): the Gumbel noise of
 the epsilon-greedy samples, the env's step noise and the buffer's
 (rows, starts); by default they come from the learner state's generator.
 
+Data-parallel over ranks (`parallel/`): each rank acts on its own
+`arch.num_envs` envs into its own ring (its counters move in lockstep with
+every other rank's), samples its own sequences, and every Q step averages the
+gradients and the loss info over the ranks in one all-reduce (reference :217)
+before the clip and Adam; epsilon follows the global env-step count.
+
 CLI: python -m mava_tpu_torch.systems.q_learning.rec_iql [overrides]. The port
 runs on `arch.device` (default "cuda"; add `+arch.device=cpu` to run on the
 CPU). `arch.rollout_unroll` and `arch.donate_buffers` are accepted and do
@@ -42,12 +48,22 @@ from mava_tpu_torch.envs.wrappers import obs_shape
 from mava_tpu_torch.evaluator import get_num_eval_envs
 from mava_tpu_torch.networks import RecQNetwork, ScannedRNN
 from mava_tpu_torch.networks.factory import make_torso
+from mava_tpu_torch.parallel import (
+    Mesh,
+    all_reduce_mean,
+    make_mesh,
+    put_replicated,
+    sharded_env_reset,
+    tile_for_shards,
+)
+from mava_tpu_torch.parallel.distributed import rank_generator
 from mava_tpu_torch.replay import StackedTrajectoryBuffer, TrajectoryBuffer
 from mava_tpu_torch.systems.anakin import (
     restore_full_state,
     schedule_updates,
     stack_trees,
     start_experiment,
+    steps_per_round,
     train_and_evaluate,
 )
 from mava_tpu_torch.systems.q_learning.types import (
@@ -129,9 +145,12 @@ def get_learner_fn(
     config: Config,
     buffer: TrajectoryBuffer,
     draws: Optional[Sequence[Draws]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[LearnerState], ExperimentOutput]:
-    """Build `learner_fn(state)`, which runs `num_updates_per_eval` updates.
+    """Build `learner_fn(state)`, which runs `num_updates_per_eval` updates,
+    data-parallel over `mesh` (by default the process group's, if any).
     `draws[u]` replaces what update u would draw (see `Draws`)."""
+    mesh = mesh or make_mesh()
     sys_cfg = config.system
     num_envs = config.arch.num_envs
     rollout, epochs = sys_cfg.rollout_length, sys_cfg.epochs
@@ -140,16 +159,15 @@ def get_learner_fn(
     def update_q(params: QNetParams, opt, data: Transition, t_train: int) -> Dict[str, torch.Tensor]:
         q_loss, q_online, target = q_loss_pass(params, data, sys_cfg.gamma, fused)
         online_params = list(params.online.parameters())
-        opt.step(torch.autograd.grad(q_loss, online_params))
+        grads = torch.autograd.grad(q_loss, online_params)
+        info = (q_loss.detach(), q_online.detach().mean(), target.mean())
+        grads, (q_loss, mean_q, mean_target) = all_reduce_mean((grads, info), mesh)
+        opt.step(grads)
         if sys_cfg.hard_update:
             periodic_update(params.target, params.online, t_train, sys_cfg.update_period)
         else:
             soft_update(params.target, params.online, sys_cfg.tau)
-        return {
-            "q_loss": q_loss.detach(),
-            "mean_q": q_online.detach().mean(),
-            "mean_target": target.mean(),
-        }
+        return {"q_loss": q_loss, "mean_q": mean_q, "mean_target": mean_target}
 
     def update_step(state: LearnerState, drawn: Draws) -> Tuple[LearnerState, Tuple]:
         gen = state.key
@@ -251,8 +269,12 @@ def learner_setup(
     config: Config,
     device: torch.device,
     draws: Optional[Sequence[Draws]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Callable, RecQNetwork, LearnerState]:
-    """Networks, optimizer, buffer, env reset and the learner function."""
+    """Networks, optimizer, buffer, env reset and the learner function. On
+    `mesh` (by default the process group's) this rank resets its rows of the
+    global batch from `generator`, holds its own ring and draws from its own
+    stream (`rank_generator`); the params are checked equal on every rank."""
     reject_stagger(config, "rec-IQL")
     num_agents = env.num_agents
     config.system.num_agents = num_agents
@@ -260,8 +282,9 @@ def learner_setup(
     target = copy.deepcopy(online)  # online and target start equal (reference :339-341)
     opt = make_optimizer(online.parameters(), config.system.q_lr, config.system.max_grad_norm)
 
+    mesh = mesh or make_mesh()
     num_envs = config.arch.num_envs
-    env_state, timestep = env.reset(env.reset_noise(num_envs, generator))
+    env_state, timestep = sharded_env_reset(env, generator, mesh.data_size * num_envs, mesh)
     obs = timestep.observation
     one = pytree.tree_map(lambda x: x[0], obs)
     buffer = make_buffer(config)
@@ -277,17 +300,17 @@ def learner_setup(
         obs=obs,
         terminal=(1 - timestep.discount[:, :1]) != 0,
         term_or_trunc=timestep.last()[:, None],
-        hidden_state=ScannedRNN.initialize_carry(
-            (num_envs, num_agents), config.network.hidden_state_dim, device),
+        hidden_state=tile_for_shards(ScannedRNN.initialize_carry(
+            (num_envs, num_agents), config.network.hidden_state_dim, device), mesh),
         env_state=env_state,
         time_steps=0,
         train_steps=0,
         opt_state=opt,
-        buffer_state=buffer_state,
-        params=QNetParams(online, target),
-        key=generator,
+        buffer_state=tile_for_shards(buffer_state, mesh),
+        params=put_replicated(QNetParams(online, target), mesh),
+        key=rank_generator(generator, mesh),
     )
-    return get_learner_fn(env, config, buffer, draws), online, state
+    return get_learner_fn(env, config, buffer, draws, mesh), online, state
 
 
 def make_eval_act_fn():
@@ -316,8 +339,7 @@ def run_experiment(_config: Config) -> Tuple[float, ExperimentOutput]:
     learner_state, resumed = restore_full_state(config, learner_state)
     rounds = None
     if resumed is not None:
-        step = config.system.num_updates_per_eval * config.system.rollout_length \
-            * config.arch.num_envs
+        step = steps_per_round(config)
         rounds = range(resumed, int(config.system.total_timesteps) - step + 1, step)
         if not len(rounds):
             raise ValueError(

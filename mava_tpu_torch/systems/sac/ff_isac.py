@@ -25,6 +25,13 @@ norm of both critics' gradients together).
 Every random draw of an update, and of the explore phase, can be handed in
 (`Draws`); by default they come from the learner state's generator.
 
+Data-parallel over ranks (`parallel/`): each rank explores and acts on its own
+`arch.num_envs` envs into its own ring and samples its own items; the Q step,
+each actor step and each alpha step average their gradients and loss over
+the ranks in one all-reduce each (reference :328, :360, :378) before the clip
+and Adam. `state.t` counts this rank's env-steps; the logged counts are global
+(times `n_devices`), as the reference's.
+
 CLI: python -m mava_tpu_torch.systems.sac.ff_isac [overrides]. The port runs on
 `arch.device` (default "cuda"; add `+arch.device=cpu` to run on the CPU).
 `arch.rollout_unroll` and `arch.donate_buffers` are accepted and do nothing
@@ -50,6 +57,15 @@ from mava_tpu_torch.envs.wrappers import get_final_step_metrics
 from mava_tpu_torch.evaluator import make_ff_eval_act_fn
 from mava_tpu_torch.networks import FeedForwardActor, FeedForwardQNet
 from mava_tpu_torch.networks.factory import make_action_head, make_torso
+from mava_tpu_torch.parallel import (
+    Mesh,
+    all_reduce_mean,
+    make_mesh,
+    put_replicated,
+    sharded_env_reset,
+    tile_for_shards,
+)
+from mava_tpu_torch.parallel.distributed import gather_metrics, rank_generator
 from mava_tpu_torch.replay import ItemBuffer, StackedItemBuffer
 from mava_tpu_torch.systems.anakin import (
     restore_full_state,
@@ -175,11 +191,14 @@ def get_learner_fns(
     buffer: ItemBuffer,
     entropy_target: torch.Tensor,
     centralised_critic: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Callable, Callable]:
     """(explore_fn, learner_fn). `explore_fn(state, draws=None)` runs the
     explore phase and returns (state, episode metrics (steps, E)).
-    `learner_fn(state, draws=None)` runs `system.scan_steps` updates;
+    `learner_fn(state, draws=None)` runs `system.scan_steps` updates,
+    data-parallel over `mesh` (by default the process group's, if any);
     `draws[u]` replaces what update u would draw (see `Draws`)."""
+    mesh = mesh or make_mesh()
     sys_cfg = config.system
     num_envs, num_agents, act = config.arch.num_envs, env.num_agents, env.action_dim
     rollout, epochs, delay = sys_cfg.rollout_length, sys_cfg.epochs, sys_cfg.policy_update_delay
@@ -230,16 +249,19 @@ def get_learner_fns(
         q1_loss = torch.mean(torch.square(q1_values - target))
         q2_loss = torch.mean(torch.square(q2_values - target))
         loss = q1_loss + q2_loss
-        opt_states.q.step(torch.autograd.grad(loss, opt_states.q.params))
-        soft_update(targets.q1, online.q1, sys_cfg.tau)
-        soft_update(targets.q2, online.q2, sys_cfg.tau)
-        return {
+        grads = torch.autograd.grad(loss, opt_states.q.params)
+        info = {
             "loss": loss.detach(),
             "q1_loss": q1_loss.detach(),
             "q2_loss": q2_loss.detach(),
             "q1_a_vals": q1_values.detach().mean(),
             "q2_a_vals": q2_values.detach().mean(),
         }
+        grads, info = all_reduce_mean((grads, info), mesh)
+        opt_states.q.step(grads)
+        soft_update(targets.q1, online.q1, sys_cfg.tau)
+        soft_update(targets.q2, online.q2, sys_cfg.tau)
+        return info
 
     def update_actor_and_alpha(params: SacParams, opt_states: OptStates, data: Transition,
                                actor_noise: torch.Tensor, alpha_noise: torch.Tensor):
@@ -256,14 +278,18 @@ def get_learner_fns(
                         if centralised_critic else action)
             min_q = torch.minimum(online.q1(data.obs, q_action), online.q2(data.obs, q_action))
             actor_loss = ((alpha * log_prob) - min_q).mean()
-            opt_states.actor.step(torch.autograd.grad(actor_loss, actor_params))
+            grads = torch.autograd.grad(actor_loss, actor_params)
+            grads, actor_loss = all_reduce_mean((grads, actor_loss.detach()), mesh)
+            opt_states.actor.step(grads)
 
             alpha_loss = torch.zeros((), device=actor_loss.device)
             if sys_cfg.autotune:
                 with torch.no_grad():
                     _, log_prob = params.actor(data.obs).sample_and_log_prob(noise=alpha_noise[d])
                 alpha_loss = torch.mean(-torch.exp(params.log_alpha) * (log_prob + entropy_target))
-                opt_states.alpha.step(torch.autograd.grad(alpha_loss, [params.log_alpha]))
+                grads = torch.autograd.grad(alpha_loss, [params.log_alpha])
+                grads, alpha_loss = all_reduce_mean((grads, alpha_loss.detach()), mesh)
+                opt_states.alpha.step(grads)
         return {"actor_loss": actor_loss.detach(), "alpha_loss": alpha_loss.detach()}
 
     def train(state: LearnerState, drawn: Draws) -> List[Dict[str, torch.Tensor]]:
@@ -351,10 +377,14 @@ def learner_setup(
     config: Config,
     device: torch.device,
     centralised_critic: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Callable, Callable, torch.nn.Module, LearnerState]:
     """Networks (targets as copies of the online critics), temperature, the
     three optimizers, the buffer, the env reset; returns (explore_fn,
-    learner_fn, actor, state)."""
+    learner_fn, actor, state). On `mesh` (by default the process group's)
+    this rank resets its rows of the global batch from `generator`, holds its
+    own ring and draws from its own stream (`rank_generator`); the params are
+    checked equal on every rank."""
     reject_stagger(config, "ff-ISAC/ff-MASAC")
     sys_cfg = config.system
     num_agents, act = env.num_agents, env.action_dim
@@ -374,13 +404,17 @@ def learner_setup(
         alpha=ClippedAdam([log_alpha], sys_cfg.alpha_lr, clip, eps=ADAM_EPS),
     )
 
+    mesh = mesh or make_mesh()
     num_envs = config.arch.num_envs
-    env_state, timestep = env.reset(env.reset_noise(num_envs, generator))
+    env_state, timestep = sharded_env_reset(env, generator, mesh.data_size * num_envs, mesh)
     obs = timestep.observation
     buffer = make_buffer(config)
-    buffer_state = buffer.init(dummy_transition(obs, num_agents, act, device))
-    state = LearnerState(obs, env_state, buffer_state, params, opt_states, 0, generator)
-    explore_fn, learner_fn = get_learner_fns(env, config, buffer, entropy_target, centralised_critic)
+    buffer_state = tile_for_shards(buffer.init(dummy_transition(obs, num_agents, act, device)),
+                                   mesh)
+    state = LearnerState(obs, env_state, buffer_state, put_replicated(params, mesh), opt_states,
+                         0, rank_generator(generator, mesh))
+    explore_fn, learner_fn = get_learner_fns(env, config, buffer, entropy_target,
+                                             centralised_critic, mesh)
     return explore_fn, learner_fn, actor, state
 
 
@@ -408,7 +442,7 @@ def run_experiment(_config: Config, centralised_critic: bool = False) -> Tuple[f
     device = start_experiment(config)
     config = check_total_timesteps(config)
     steps_per_rollout = int(config.system.total_timesteps // config.arch.num_evaluation)
-    act_steps = config.arch.num_envs * config.system.rollout_length
+    act_steps = config.arch.n_devices * config.arch.num_envs * config.system.rollout_length
     config.system.scan_steps = max(1, steps_per_rollout // act_steps)
 
     env, eval_env = environments.make(config, device, add_global_state=centralised_critic)
@@ -426,14 +460,14 @@ def run_experiment(_config: Config, centralised_critic: bool = False) -> Tuple[f
         state, metrics = explore(state)
         if device.type == "cuda":
             torch.cuda.synchronize()
-        t = state.t
+        t = state.t * config.arch.n_devices
         logger.log({"step": t}, t, 0, LogEvent.MISC)
-        final_metrics, ep_completed = get_final_step_metrics(metrics)
+        final_metrics, ep_completed = get_final_step_metrics(gather_metrics(metrics))
         final_metrics["steps_per_second"] = t / (time.perf_counter() - start_time)
         if ep_completed:  # a long time limit may end no episode while exploring
             logger.log(final_metrics, t, 0, LogEvent.ACT)
     else:
-        t = state.t
+        t = state.t * config.arch.n_devices
         logger.log({"step": t}, t, 0, LogEvent.MISC)
 
     rounds = range(t, int(config.system.total_timesteps) + 1, steps_per_rollout)

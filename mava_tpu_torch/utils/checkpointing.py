@@ -20,6 +20,14 @@ into a learner state of the same structure: modules, optimizer moments,
 generators and leaf tensors that require grad in place (the optimizers and
 the learner keep referring to them), every other tensor as a new tensor on
 the template's device.
+
+Under a process group (`parallel/`) the checkpointer is a collective that every
+rank builds and calls: rank 0's directory token is broadcast, every rank's
+learner state is gathered to rank 0, which alone writes, and a restore gives
+each rank its own part. The saved state is the one-process layout of the
+global batch: the fields that hold this rank's rows (envs, timesteps, hidden
+states, rings) concatenated in rank order, the replicated ones (params,
+optimizers, counters) once, and the generators every rank's, stacked.
 """
 
 from __future__ import annotations
@@ -28,10 +36,14 @@ import json
 import os
 import shutil
 from datetime import datetime
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.utils import _pytree as pytree
 
+from mava_tpu_torch.parallel.distributed import is_main_process
+from mava_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mava_tpu_torch.utils.training import ClippedAdam
 
 # Bump the major version on a breaking change of the checkpoint format; a
@@ -39,6 +51,12 @@ from mava_tpu_torch.utils.training import ClippedAdam
 CHECKPOINTER_VERSION = 1.0
 
 _MODULE, _ADAM, _GENERATOR = "__module__", "__clipped_adam__", "__generator__"
+# Every rank's generator state, (ranks, n) in rank order.
+_GENERATORS = "__generators__"
+# The fields of a learner state that hold the same values on every rank; the
+# generator (`key`) is each rank's own; every other field holds this rank's
+# rows of the global batch.
+_REPLICATED = frozenset({"params", "opt_states", "opt_state", "time_steps", "train_steps", "t"})
 
 
 def _sanitize(obj: Any) -> Any:
@@ -141,6 +159,68 @@ def restore_into(template: Any, saved: Any, where: str = "state") -> Any:
     raise _mismatch(where, template, saved)
 
 
+def _broadcast(value: Any) -> Any:
+    """Rank 0's `value` on every rank (itself without a process group)."""
+    if not dist.is_initialized():
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def gather_state(state: Any, fields: Sequence[str], mesh: Mesh) -> Optional[Dict[str, Any]]:
+    """{field: `to_host`} of the learner state's `fields`, every rank's joined
+    into the one-process layout (see the module's docstring), on rank 0; None
+    on the other ranks."""
+    host = [to_host(getattr(state, name)) for name in fields]
+    if mesh.world_size == 1:
+        return dict(zip(fields, host))
+    every = [None] * mesh.world_size if mesh.rank == 0 else None
+    dist.gather_object(host, every, dst=0)
+    if mesh.rank != 0:
+        return None
+    joined = {}
+    for i, name in enumerate(fields):
+        trees = [e[i] for e in every]
+        if name in _REPLICATED:
+            joined[name] = trees[0]
+        elif name == "key":
+            joined[name] = {_GENERATORS: torch.stack([t[_GENERATOR] for t in trees])}
+        else:
+            joined[name] = pytree.tree_map(
+                lambda *xs: torch.cat(xs) if isinstance(xs[0], torch.Tensor) and xs[0].dim() > 0
+                else xs[0], *trees)
+    return joined
+
+
+def split_state(saved: list, template: Any, mesh: Mesh) -> list:
+    """This rank's part of a state that `gather_state` joined: its rows of
+    every sharded field and its generator; unchanged without a process group."""
+    if mesh.world_size == 1:
+        return saved
+    out = []
+    for i, name in enumerate(template._fields):
+        part = saved[i]
+        if name == "key":
+            # A row of its own: `Generator.set_state` reads from the storage's start.
+            part = {_GENERATOR: part[_GENERATORS][mesh.rank].clone()}
+        elif name not in _REPLICATED:
+            part = split_rows(part, mesh)
+        out.append(part)
+    return out
+
+
+def split_rows(tree: Any, mesh: Mesh) -> Any:
+    """This rank's rows of every tensor of a joined host tree."""
+    def take(x: Any) -> Any:
+        if not isinstance(x, torch.Tensor) or x.dim() == 0:
+            return x
+        n = x.shape[0] // mesh.world_size
+        return x[mesh.rank * n : (mesh.rank + 1) * n]
+
+    return pytree.tree_map(take, tree)
+
+
 class Checkpointer:
     """Save and restore learner states keyed by env-step."""
 
@@ -154,11 +234,14 @@ class Checkpointer:
         max_to_keep: Optional[int] = 1,
         keep_period: Optional[int] = None,
     ):
-        uid = checkpoint_uid or datetime.now().strftime("%Y%m%d%H%M%S")
+        self.mesh = make_mesh()
+        uid = checkpoint_uid or _broadcast(datetime.now().strftime("%Y%m%d%H%M%S"))
         self.directory = os.path.join(os.getcwd(), rel_dir, model_name, uid)
         self.save_interval_steps = save_interval_steps
         self.max_to_keep = max_to_keep
         self.keep_period = keep_period
+        if not is_main_process():
+            return
         os.makedirs(self.directory, exist_ok=True)
         meta_path = os.path.join(self.directory, "metadata.json")
         if metadata is not None or not os.path.exists(meta_path):
@@ -204,21 +287,25 @@ class Checkpointer:
              episode_return: float = 0.0, full_state: bool = False) -> bool:
         """Save {params, hstates?} at an env-step, tracked by episode return;
         with `full_state` also the whole learner state (reference :104-141).
-        Returns False where `save_interval_steps` skips the step."""
-        latest = self.latest_step()
-        if timestep % self.save_interval_steps != 0 or (latest is not None and timestep <= latest):
+        Returns False where `save_interval_steps` skips the step. A
+        collective under a process group: rank 0 decides and writes."""
+        latest = self.latest_step() if is_main_process() else None
+        if not _broadcast(timestep % self.save_interval_steps == 0
+                          and (latest is None or timestep > latest)):
             return False
         state = unreplicated_learner_state
-        item = {"params": to_host(state.params)}
-        hstates = getattr(state, "hstates", None)
-        if hstates is not None:
-            item["hstates"] = to_host(hstates)
+        fields = state._fields if full_state else [
+            f for f in ("params", "hstates") if getattr(state, f, None) is not None]
+        host = gather_state(state, fields, self.mesh)
+        if host is None:  # not rank 0
+            return True
+        item = {k: host[k] for k in ("params", "hstates") if k in host}
         step_dir = os.path.join(self.directory, str(timestep))
         tmp = f"{step_dir}.tmp"
         os.makedirs(tmp, exist_ok=True)
         torch.save(item, os.path.join(tmp, "model.pt"))
         if full_state:
-            torch.save(to_host(state), os.path.join(tmp, "state.pt"))
+            torch.save([host[f] for f in fields], os.path.join(tmp, "state.pt"))
         with open(os.path.join(tmp, "metrics.json"), "w") as f:
             json.dump({"episode_return": float(episode_return)}, f)
         os.replace(tmp, step_dir)
@@ -248,13 +335,16 @@ class Checkpointer:
     def restore_state(self, template: Dict[str, Any], timestep: Optional[int] = None) -> Any:
         """Restore the {params, hstates?} item into `template`."""
         saved = self._load(self._step_dir(timestep), "model.pt")
+        if "hstates" in saved:
+            saved["hstates"] = split_rows(saved["hstates"], self.mesh)
         return {k: restore_into(v, saved[k], k) for k, v in template.items()}
 
     def restore_full_state(self, template: Any, timestep: Optional[int] = None) -> Any:
         """Restore the whole learner state saved with `full_state=True` into
         `template`, a learner state of the same structure; the resumed run
         continues exactly (reference :171-182)."""
-        return restore_into(template, self._load(self._step_dir(timestep), "state.pt"))
+        saved = self._load(self._step_dir(timestep), "state.pt")
+        return restore_into(template, split_state(saved, template, self.mesh))
 
     def restore_params(self, input_params: Any, restore_hstates: bool = False,
                        input_hstates: Any = None,

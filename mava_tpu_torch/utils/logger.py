@@ -7,7 +7,9 @@ reference's. The JSON file is
 absolute_metrics: {...}}}}}}; the tfevents files go to
 `<base_exp_path>/tensorboard/<system_name>/<timestamp>/` (`utils/tbwriter.py`,
 no TensorBoard package needed). The neptune package is imported only when
-`logger.use_neptune` is set, and its absence is then a clear error.
+`logger.use_neptune` is set, and its absence is then a clear error. Under a
+process group only rank 0 has backends, and `MavaLogger.log` gathers every
+rank's metrics first.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from typing import Any, Dict, List, Union
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
+
+from mava_tpu_torch.parallel.distributed import gather_metrics, is_main_process
 
 # ANSI colours of the reference's console output (colorama's Fore.* values).
 _MAGENTA, _GREEN, _BLUE, _CYAN, _YELLOW = (f"\033[{c}m" for c in (35, 32, 34, 36, 33))
@@ -282,27 +286,36 @@ class MavaLogger:
         self.cfg = config
         loggers: List[BaseLogger] = []
         unique_token = datetime.now().strftime("%Y%m%d%H%M%S")
-        if config.logger.get("use_neptune"):
-            loggers.append(NeptuneLogger(config, unique_token))
-        if config.logger.get("use_tb"):
-            loggers.append(TensorboardLogger(config, unique_token))
-        if config.logger.get("use_json"):
-            loggers.append(JsonLogger(config, unique_token))
-        if config.logger.get("use_console", True):
-            loggers.append(ConsoleLogger(config, unique_token))
+        if is_main_process():
+            if config.logger.get("use_neptune"):
+                loggers.append(NeptuneLogger(config, unique_token))
+            if config.logger.get("use_tb"):
+                loggers.append(TensorboardLogger(config, unique_token))
+            if config.logger.get("use_json"):
+                loggers.append(JsonLogger(config, unique_token))
+            if config.logger.get("use_console", True):
+                loggers.append(ConsoleLogger(config, unique_token))
         self.logger: BaseLogger = MultiLogger(loggers)
 
-    def log(self, metrics: Dict, t: int, t_eval: int, event: LogEvent) -> None:
-        if "won_episode" in metrics:
-            metrics = self.calc_winrate(metrics, event)
+    def log(self, metrics: Dict, t: int, t_eval: int, event: LogEvent) -> Dict:
+        """Summarise `metrics` and send them to the backends; returns every
+        rank's metrics joined (with `win_rate` in place of `won_episode`),
+        which the caller reads as the run's (the evaluation's return, its win
+        rate). Under a process group this is a collective (reference
+        :334-356): every rank calls it, at the same point, with the same keys;
+        no call site is wrapped in a rank check."""
+        joined = gather_metrics(metrics)
+        if "won_episode" in joined:
+            joined = self.calc_winrate(joined, event)
         # Keys in sorted order at every level, as the reference's `jax.tree.map`
         # leaves them: the console line and the TensorBoard records follow it.
-        metrics = _sorted_keys(pytree.tree_map(_to_host, metrics))
+        metrics = _sorted_keys(pytree.tree_map(_to_host, joined))
         if event == LogEvent.TRAIN:
             metrics = pytree.tree_map(np.mean, metrics)
         else:
             metrics = pytree.tree_map(describe, metrics)
         self.logger.log_dict(metrics, t, t_eval, event)
+        return joined
 
     def calc_winrate(self, episode_metrics: Dict, event: LogEvent) -> Dict:
         # Mutates the caller's dict, as the reference does (its :367-377): the

@@ -1,5 +1,7 @@
 """Derive total_timesteps <-> num_updates (port of
-`mava_tpu/utils/timestep_checker.py`). The port trains on one device."""
+`mava_tpu/utils/timestep_checker.py`). The counts are global: an update
+takes `rollout_length` steps of `num_envs` envs on each of `arch.n_devices`
+ranks."""
 
 from __future__ import annotations
 

@@ -59,5 +59,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "mava_tpu_torch.advanced_usage.ff_masac_vmap_sweep",
                  "mava_tpu_torch.advanced_usage.ff_ippo_store_experience",
                  "mava_tpu_torch.replay.stacked", "mava_tpu_torch.replay.vault",
-                 "mava_tpu_torch.examples.bc_from_vault"):
+                 "mava_tpu_torch.examples.bc_from_vault",
+                 # data parallelism over ranks
+                 "mava_tpu_torch.parallel", "mava_tpu_torch.parallel.mesh",
+                 "mava_tpu_torch.parallel.distributed"):
         assert name in report["modules"]

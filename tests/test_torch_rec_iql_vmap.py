@@ -331,5 +331,5 @@ def test_runs_on_the_card_by_default(program):
 
 def test_seed_shards_is_refused():
     cfg = load_config("default_rec_iql", CLI + ["+arch.device=cpu", "+system.seed_shards=2"])
-    with pytest.raises(ValueError, match="seed_shards=2 is not supported.*Queue 1 item 5"):
+    with pytest.raises(ValueError, match=r"seed_shards=2 must divide the device count \(1\)"):
         rec_iql_vmap_seeds.run_experiment(cfg)

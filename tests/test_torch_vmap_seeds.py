@@ -270,7 +270,7 @@ def test_seed_shards_is_refused(system, fast_config_overrides):
     module, _ = CLIS[system]
     cfg = load_config(SYSTEMS[system][0], fast_config_overrides + [
         "+arch.device=cpu", "+system.seed_shards=2"])
-    with pytest.raises(ValueError, match="seed_shards=2 is not supported.*multi-GPU"):
+    with pytest.raises(ValueError, match=r"seed_shards=2 must divide the device count \(1\)"):
         module.run_experiment(cfg)
 
 
