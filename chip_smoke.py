@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py [--profile | --seeds | --offpolicy | --dynamics]
+    python3 chip_smoke.py [--profile | --seeds | --offpolicy | --distributed | --programs |
+                           --dynamics]
 
 Run from the root of the repository. It
   1. prints the torch and CUDA versions and the card's name and power limit;
@@ -80,10 +81,10 @@ Run from the root of the repository. It
      step on the CPU (rtol = atol = 1e-4), the step's host ms, launches and host
      syncs (none allowed) and the trace time of its q̈; ff-ISAC on each through
      `run_experiment` (16 envs, rollout 2, 32 epochs, delay 4, batch 32, the
-     1,000,000-item buffer on the card; cut in depth: one batch explored, two
-     rounds of one update, episodes of 2 steps) with every parameter changed and
-     no GRU launch, then one timed update (env-steps/s, peak memory) and on
-     MaHopper one profiled (launches per act and train step, idle share);
+     1,000,000-item buffer on the card; cut in depth: one batch explored, one
+     round of one update, episodes of 2 steps) with every parameter changed and
+     no GRU launch and the run's peak memory; on MaHopper one more update,
+     timed and profiled (launches per act and train step, idle share);
      ff-MASAC the same on MaHumanoid and MaHopper; continuous ff-IPPO on
      MaWalker (rollout cut to 8, 2 updates; one update of rollout 1 profiled
      for the launches per rollout step and the idle share);
@@ -108,7 +109,7 @@ Run from the root of the repository. It
      ff-IPPO sweep of 4 lrs and a rec-IPPO PBT of 4 members with one exploit
      step, cut in depth; the launches of a whole stacked update at S = 8
      against S = 1 (at most 1.5x) and env-steps/s at S = 1, 4, 8 beside one
-     stock update;
+     stock update, at a rollout of 32;
   13. off-policy seed phase: the stacked K1 over 2S = 8 entries at rec-IQL's
      target pass (T = 20, B = 256, H = 128; each online/target pair with its
      seed's keep) and the stacked K1 and backward over S = 4 at its loss pass,
@@ -130,7 +131,18 @@ Run from the root of the repository. It
      (they reach no hand-written kernel), three timed ff-IPPO updates, ff-IPPO on
      Matrax Penalty-25 for 30 updates with its eval return, and a short run of
      the bench program (`bench_torch.run` at 512 envs);
-  15. distributed phase (data parallelism over ranks, `parallel/`): rec-IPPO
+  15. programs phase: the quickstart (`examples/quickstart.py`'s `main()` at
+     its defaults, LBF 2s-8x8-2p-2f-coop at 128 envs, cut in depth to 131,072
+     env-steps and 2 evaluations: its final eval return finite), then the
+     tools of `mava_tpu_torch/scripts/`: `bench_suite` on rec_mappo_smax (1
+     update a call, 1 warm-up and 1 timed call; exactly 17 K1 and 16 of each
+     backward kernel an update), `bench_mfu` on rec_ippo_smax and
+     rec_iql_smax (1 update and 8 updates a call, 1 timed; the launches of its counting
+     call exact, GRU and matmul FLOPs > 0, 0 < MFU <= 1, the busy share),
+     `bench_envs_sweep` at 16 and 64 envs, `bench_vmap_seeds` at S = 2 and
+     `run_seeds` over 2 seeds of ff-IPPO on Matrax, each number beside the
+     card's name and power limit;
+  16. distributed phase (data parallelism over ranks, `parallel/`): rec-IPPO
      on RWARE tiny-2ag at the shipped width through `python -m
      torch.distributed.run --standalone --nproc-per-node=1` (a subprocess: 2
      updates and one evaluation under NCCL; its exit code and "completed"
@@ -141,11 +153,12 @@ Run from the root of the repository. It
      counted with `torch.profiler`) an update, the all-reduces' device and
      host ms an update and both updates' env-steps/s; the group is destroyed
      after it, so it runs last;
-  16. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
+  17. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
      512 envs under `torch.profiler`: host ms, launches and kernel ms per span,
      launches per rollout step, per-kernel totals and the device's idle share.
 `--seeds` builds the kernels and runs only the seed phase, `--offpolicy` only
-the off-policy seed phase, `--distributed` only the distributed phase. `--dynamics` runs
+the off-policy seed phase, `--distributed` only the distributed phase,
+`--programs` only the programs phase. `--dynamics` runs
 only two measurements of `envs/_dynamics.py` and exits:
 MaReacher with the checked solve of the parent against the unchecked one, and
 tracing a whole RK4 substep against tracing q̈ alone (`dynamics_ab`).
@@ -164,6 +177,10 @@ import time
 import torch
 from torch.utils import _pytree as pytree
 
+# The work of a kernel launch and the card's peaks are reckoned in the op's
+# module, which the MFU bench shares; re-exported here under their old names.
+from mava_tpu_torch.ops.gru import PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, kernel_work
+
 RTOL = ATOL = 1e-4  # fp32 kernel vs fp32 plain version: summation order differs
 SLICE_OVERRIDES = [
     "system.num_updates=4",
@@ -172,9 +189,6 @@ SLICE_OVERRIDES = [
     "arch.absolute_metric=False",
     "+arch.device=cuda",
 ]
-# Published peaks of an H100 SXM: fp32 outside the tensor cores, and HBM3.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 SOURCE = "mava_tpu_torch/csrc/gru_sequence.cu"
 SLICE_SHAPES = [(128, 16, 128), (128, 32, 128)]
 # rec-MAPPO on SMAX 3s5z (16 envs x 8 agents): the critic pass and the losses;
@@ -310,37 +324,6 @@ def gru_inputs(t_len: int, b: int, h: int, seed: int, resets: float = 0.1, devic
 
 
 # ------------------------------------------------------------------ bounds
-def kernel_work(kernel: str, t_len: int, b: int, h: int, slices: int = 1, stack: int = 1,
-                shared_keep: bool = True):
-    """(FLOP, bytes) one call of `kernel` needs: the matrix product's multiply-adds
-    counted as 2, every input read once and every output written once, fp32.
-    `bwd_reduce` is the whole function (both of K2b's kernels, no scratch) and
-    does not depend on `slices`; `bwd_reduce_sum` is the second kernel alone,
-    whose input is the `slices` partial sums. A `*_stacked` kernel is the
-    unstacked one for each of `stack` entries; `fwd_stacked`'s entries share
-    one `keep` unless `shared_keep` is False (the seed programs)."""
-    n, w = t_len * b, h * 3 * h
-    if kernel == "bwd_reduce_sum":
-        return (slices - 1) * (w + h), 4 * (slices + 1) * (w + h)
-    if kernel.endswith("_stacked"):
-        flop, nbytes = kernel_work(kernel[: -len("_stacked")], t_len, b, h, slices)
-        shared = 4 * n * h if kernel == "fwd_stacked" and shared_keep else 0
-        return stack * flop, stack * nbytes - (stack - 1) * shared
-    product = 2 * n * h * 3 * h
-    floats = {
-        # gates_i, keep, h0, Wh, b_hn -> hs
-        "fwd": n * 3 * h + n * h + b * h + w + h + n * h,
-        # gates_i, keep, h0, Wh, b_hn, hs -> gates (4 per unit)
-        "bwd_gates": n * 3 * h + n * h + b * h + w + h + n * h + n * 4 * h,
-        # gates, keep, h0, Wh, hs, g_hs -> dgates_i, dgh, dh0
-        "bwd_recurrence": n * 4 * h + n * h + b * h + w + n * h + n * h + 2 * n * 3 * h + b * h,
-        # keep, h0, hs, dgh -> dWh, db_hn
-        "bwd_reduce": n * h + b * h + n * h + n * 3 * h + w + h,
-    }[kernel]
-    flop = product + (2 * n * 3 * h if kernel == "bwd_reduce" else 0)
-    return flop, 4 * floats
-
-
 def bound_ms(kernel: str, t_len: int, b: int, h: int, slices: int = 1, stack: int = 1,
              shared_keep: bool = True):
     """(least ms the card could take, which resource sets it)."""
@@ -1081,12 +1064,96 @@ def feedforward_phase(gru, gpu: str) -> None:
 
     start = time.perf_counter()
     rate = bench_torch.run(bench_torch.NUM_ENVS, bench_torch.ROLLOUT_LENGTH,
-                           bench_torch.UPDATES_PER_CALL, warmup_calls=1, timed_calls=2,
+                           bench_torch.UPDATES_PER_CALL, warmup_calls=1, timed_calls=1,
                            device="cuda")
     check(rate > 0, "the bench program reports no rate")
-    print(f"  bench program, short (ff-IPPO, {bench_torch.NUM_ENVS} envs, 1 warm-up and 2 timed "
+    print(f"  bench program, short (ff-IPPO, {bench_torch.NUM_ENVS} envs, 1 warm-up and 1 timed "
           f"calls of {bench_torch.UPDATES_PER_CALL} updates): {rate:.1f} env-steps/s on {gpu} "
           f"({time.perf_counter() - start:.1f} s wall)")
+
+
+# ------------------------------------------------------------------ programs phase
+# The quickstart and the user tools of `mava_tpu_torch/scripts/`, each through
+# the function its CLI calls, at its configs' widths and cut in depth only: the
+# quickstart at 131,072 env-steps (8 updates at 128 envs) and 2 evaluations;
+# the suite and the MFU bench at fewer updates a call and fewer calls; the
+# sweeps at two points and S = 2; the seed table at 2 seeds of 2 updates.
+QUICKSTART_CUT = ["system.total_timesteps=131072", "arch.num_evaluation=2"]
+MFU_CUT = {"updates_per_call": 1, "scan_steps": 8, "timed_calls": 1}
+SEED_TABLE = ["ppo.ff_ippo", "default_ff_ippo", "42,7", "env=matrax",
+              "env.scenario.task_name=Penalty-25-stateless-v0", "env.kwargs.time_limit=10",
+              "system.num_updates=2", "arch.num_evaluation=1", "arch.num_eval_episodes=32",
+              "logger.use_console=False"]
+
+
+def programs_phase(gru, gpu: str) -> dict:
+    """The quickstart's `main()`, then `bench_suite` on rec_mappo_smax with its
+    exact launches, `bench_mfu` on rec_ippo_smax and rec_iql_smax (GRU and
+    matmul FLOPs counted, 0 < MFU <= 1), `bench_envs_sweep` at two points,
+    `bench_vmap_seeds` at S = 2 and `run_seeds` over two seeds, each number
+    beside the card's name and power limit."""
+    import math
+
+    from mava_tpu_torch.examples import quickstart
+    from mava_tpu_torch.scripts import (
+        bench_envs_sweep,
+        bench_mfu,
+        bench_suite,
+        bench_vmap_seeds,
+        run_seeds,
+    )
+
+    argv, sys.argv = sys.argv, ["quickstart", *QUICKSTART_CUT]
+    try:
+        start = time.perf_counter()
+        value = quickstart.main()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    finally:
+        sys.argv = argv
+    check(isinstance(value, float) and math.isfinite(value),
+          f"the quickstart returned {value!r}, not a finite float")
+    print(f"  quickstart (LBF 2s-8x8-2p-2f-coop, 128 envs, 131,072 env-steps, 2 evaluations): "
+          f"final eval return {value:.3f}, {131072 / wall:.1f} env-steps/s over {wall:.1f} s "
+          f"wall (set-up and evaluations included) on {gpu}")
+
+    updates = 2  # 1 warm-up and 1 timed call of 1 update
+    gru.reset_launch_counts()
+    suite = bench_suite.bench_one("rec_mappo_smax", "cuda", updates_per_call=1, warmup_calls=1,
+                                  timed_calls=1)
+    launches = dict(gru.kernel_launches)
+    for _, counter, _, per_update in KERNELS:
+        check(launches[counter] == per_update * updates,
+              f"bench_suite rec_mappo_smax: {counter} launched {launches[counter]} times in "
+              f"{updates} updates, not {per_update} an update")
+    print(f"  bench_suite rec_mappo_smax (1 update a call, 1 warm-up, 1 timed): "
+          f"{suite['value']} env-steps/s, launches {launches} on {gpu}")
+
+    mfu = {}
+    for name, per_update, per_call in (
+            ("rec_ippo_smax", {c: n for _, c, _, n in KERNELS}, MFU_CUT["updates_per_call"]),
+            ("rec_iql_smax", IQL_PER_UPDATE, MFU_CUT["scan_steps"])):
+        record = bench_mfu.measure(name, "cuda", **MFU_CUT)
+        want = {c: n * per_call for c, n in per_update.items() if n}
+        check(record["gru_launches_per_call"] == want,
+              f"bench_mfu {name}: launches {record['gru_launches_per_call']}, not {want}")
+        check(record["gru_kernel_flops_per_call"] > 0 and record["matmul_flops_per_call"] > 0,
+              f"bench_mfu {name}: a FLOP count is 0")
+        check(0 < record["mfu_vs_fp32_peak"] <= 1,
+              f"bench_mfu {name}: MFU {record['mfu_vs_fp32_peak']}")
+        check(0 < record["device_busy_share"] <= 1.05,
+              f"bench_mfu {name}: busy share {record['device_busy_share']}")
+        mfu[name] = record
+
+    sweep = bench_envs_sweep.sweep((16, 64), 1, "cuda", updates_per_call=1, warmup_calls=1)
+    check(all(rate > 0 for _, rate in sweep), f"bench_envs_sweep: {sweep}")
+    vmap = bench_vmap_seeds.compare([2], "cuda", updates_per_call=1, timed_calls=1)
+    check(vmap[1]["env_steps_per_second_all_seeds"] > 0, f"bench_vmap_seeds: {vmap}")
+
+    seeds = run_seeds.main(SEED_TABLE)
+    check(len(seeds) == 2 and all(math.isfinite(x) for x in seeds), f"run_seeds: {seeds}")
+    print(f"  run_seeds (ff-IPPO on Matrax Penalty, 2 updates a seed): {seeds} on {gpu}")
+    return {"suite": suite, "launches": launches, "mfu": mfu, "sweep": sweep, "vmap": vmap}
 
 
 # ------------------------------------------------------------------ SAC phase
@@ -1236,16 +1303,18 @@ ARTICULATED = [("maswimmer", "swimmer-2x1"), ("mahopper", "hopper-3x1"),
                ("maant", "ant-4x2"), ("mahumanoid", "humanoid-9-8")]
 # Cut in depth only (an env step costs 0.1-2.9 s of host at 16 envs): episodes
 # of 2 steps, so an evaluation of 16 episodes is 2 steps; SAC explores one batch
-# (32 items) and runs two rounds of one update; ff-IPPO rolls out 8 steps. An
-# update is profiled on MaHopper only, and ff-IPPO's with a rollout of 1 step:
+# (32 items) and runs one round of one update (two rounds until the programs
+# phase came); ff-IPPO rolls out 8 steps. An update is timed apart from the
+# run and profiled on MaHopper only (every env until the programs phase came;
+# PERF.md §5 keeps their rates), and ff-IPPO's with a rollout of 1 step:
 # processing the profile of an update takes ~0.3 ms an event, over two minutes
 # for MaHumanoid's 240,000 launches (PERF.md §5 has every env's, from a run of
 # this phase that profiled them all).
 ARTICULATED_CUT = ["env.kwargs.time_limit=2", "arch.num_eval_episodes=16",
                    "arch.absolute_metric=False"]
-ARTICULATED_SAC = ["system.explore_steps=32", "system.total_timesteps=64",
-                   "arch.num_evaluation=2", "+arch.device=cuda"]
-ARTICULATED_SAC_UPDATES = 2
+ARTICULATED_SAC = ["system.explore_steps=32", "system.total_timesteps=32",
+                   "arch.num_evaluation=1", "+arch.device=cuda"]
+ARTICULATED_SAC_UPDATES = 1
 ARTICULATED_MASAC = ["mahumanoid", "mahopper"]
 ARTICULATED_PROFILED = ["mahopper"]
 ARTICULATED_PPO = ["env=mawalker", "env/scenario=walker2d-2x3", "network=continuous_mlp",
@@ -1358,10 +1427,10 @@ def articulated_phase(gru, gpu: str, start: float) -> dict:
         label = f"{system} on {env_name} {scenario}"
         peak = sac_run(gru, system, config_name, centralised, [*env, *ARTICULATED_SAC],
                        ARTICULATED_SAC_UPDATES, f" on {env_name}")
-        out[label] = {**sac_updates(label, config_name, centralised,
-                                    [*env, "system.explore_steps=32"], gpu, 0,
-                                    env_name in ARTICULATED_PROFILED),
-                      "peak_gb": peak}
+        out[label] = {"peak_gb": peak}
+        if env_name in ARTICULATED_PROFILED:
+            out[label].update(sac_updates(label, config_name, centralised,
+                                          [*env, "system.explore_steps=32"], gpu, 0))
         print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     label = "continuous ff-IPPO on MaWalker walker2d-2x3"
     torch.cuda.synchronize()
@@ -1674,6 +1743,8 @@ SEED_REPLACES = "mava_tpu/ops/pallas_gru.py:{} under jax.vmap " \
                 "(mava_tpu/advanced_usage/rec_ippo_vmap_seeds.py:181)"
 SEED_RUN = SMAX + ["arch.num_eval_episodes=16", "arch.absolute_metric=False",
                    "+arch.device=cuda", "logger.use_console=False"]
+# The launches and env-steps/s at S = 1, 4, 8 and of a stock update, cut in depth.
+SEED_RATE_CUT = ["system.rollout_length=32"]
 
 
 def seed_inputs(stack: int, t_len: int, b: int, h: int, seed: int, shared_keep: bool = False):
@@ -1929,10 +2000,11 @@ def seed_phase(gru, gpu: str) -> dict:
           f"4 members, 2 rounds with one exploit step: best win rate {pbt:.3f} "
           f"({time.perf_counter() - start:.1f} s into the phase)")
 
-    # Launches of a whole update (the profiler's launch calls) and env-steps/s.
+    # Launches of a whole update (the profiler's launch calls) and env-steps/s,
+    # at a rollout cut to 32 steps (128 until the programs phase came).
     rates, counts = {}, {}
     for stack in (1, 4, 8):
-        cfg, _, learn, state, _ = seed_learner(stack)
+        cfg, _, learn, state, _ = seed_learner(stack, SEED_RATE_CUT)
         state = learn(state).learner_state  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1942,10 +2014,11 @@ def seed_phase(gru, gpu: str) -> dict:
         rates[stack] = steps / (time.perf_counter() - t0)
         if stack in (1, 8):
             counts[stack] = launches_and_syncs(lambda: learn(state))["launches"]
-    stock_s, _, _, steps = one_update("rec_ippo", SMAX, repeats=2)
+    stock_s, _, _, steps = one_update("rec_ippo", SMAX + SEED_RATE_CUT, repeats=2)
     ratio = counts[8] / counts[1]
     check(ratio <= 1.5, f"a stacked update launches {ratio:.2f}x at S = 8 what it does at S = 1")
-    print(f"  a stacked rec-IPPO update: {counts[1]} launches at S = 1, {counts[8]} at S = 8 "
+    print(f"  a stacked rec-IPPO update, rollout 32: {counts[1]} launches at S = 1, {counts[8]} "
+          f"at S = 8 "
           f"({ratio:.3f}x); env-steps/s S = 1 {rates[1]:.1f}, S = 4 {rates[4]:.1f}, S = 8 "
           f"{rates[8]:.1f}; one stock update {steps / stock_s[-1]:.1f} on {gpu}")
     print(f"  seed phase: {time.perf_counter() - start:.1f} s")
@@ -2443,6 +2516,11 @@ def main() -> int:
         distributed_phase(gru, gpu)
         print(gpu)
         return 0
+    if "--programs" in sys.argv[1:]:
+        print("programs phase (the quickstart; run_seeds, bench_suite, bench_mfu, the sweeps):")
+        programs_phase(gru, gpu)
+        print(gpu)
+        return 0
 
     print("kernel phase:")
     kernels = kernel_phase(gru)
@@ -2478,6 +2556,9 @@ def main() -> int:
     print("feed-forward phase (ff-IPPO, ff-MAPPO, Matrax, the bench program):")
     feedforward_phase(gru, gpu)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
+    print("programs phase (the quickstart; run_seeds, bench_suite, bench_mfu, the sweeps):")
+    programs = programs_phase(gru, gpu)
+    print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     # Last: it brings up a process group, which the phases above run without.
     print("distributed phase (rec-IPPO data-parallel under NCCL, world 1):")
     distributed = distributed_phase(gru, gpu)
@@ -2500,7 +2581,10 @@ def main() -> int:
     for name, counter, replaces, _ in KERNELS:
         paths = {"launches_smax_rec_mappo": smax["launches"][counter],
                  "launches_rec_iql": iql["launches"][counter],
-                 "launches_maconnector_rcnn_rec_mappo": grid["connector"]["launches"][counter]}
+                 "launches_maconnector_rcnn_rec_mappo": grid["connector"]["launches"][counter],
+                 "launches_bench_suite_rec_mappo_smax": programs["launches"][counter],
+                 "launches_bench_mfu_rec_iql_smax":
+                     programs["mfu"]["rec_iql_smax"]["gru_launches_per_call"].get(counter, 0)}
         if counter == "fwd_stacked":
             record["kernels"].append({
                 "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,

@@ -47,8 +47,9 @@ dimension. Its plain versions are the unstacked ones entry by entry
 `fwd_launches` and `bwd_launches` count calls of the unstacked op that launched
 kernels (one per forward call, one per backward call); `kernel_launches` counts
 each kernel by name, the stacked ones as `fwd_stacked`, `bwd_gates_stacked`,
-`bwd_recurrence_stacked`, `bwd_reduce_stacked` and `bwd_reduce_sum_stacked`.
-The plain versions leave them alone.
+`bwd_recurrence_stacked`, `bwd_reduce_stacked` and `bwd_reduce_sum_stacked`,
+and `launch_shapes` the same launches by kernel and shape, which is what
+`launched_flops` reckons with `kernel_work`. The plain versions leave them alone.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from collections import Counter
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -95,6 +97,12 @@ KERNELS = ("fwd", "bwd_gates", "bwd_recurrence", "bwd_reduce", "bwd_reduce_sum",
            "bwd_gates_stacked", "bwd_recurrence_stacked", "bwd_reduce_stacked",
            "bwd_reduce_sum_stacked")
 kernel_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+# (kernel, T, B, H, slices, stack, shared keep) -> launches: `kernel_work`'s arguments.
+launch_shapes: Counter = Counter()
+
+# Published peaks of an H100 SXM: fp32 outside the tensor cores, and HBM3.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def reset_launch_counts() -> None:
@@ -102,6 +110,46 @@ def reset_launch_counts() -> None:
     fwd_launches = bwd_launches = 0
     for name in KERNELS:
         kernel_launches[name] = 0
+    launch_shapes.clear()
+
+
+def kernel_work(kernel: str, t_len: int, b: int, h: int, slices: int = 1, stack: int = 1,
+                shared_keep: bool = True):
+    """(FLOP, bytes) one call of `kernel` needs: the matrix product's multiply-adds
+    counted as 2, every input read once and every output written once, fp32.
+    `bwd_reduce` is the whole function (both of K2b's kernels, no scratch) and
+    does not depend on `slices`; `bwd_reduce_sum` is the second kernel alone,
+    whose input is the `slices` partial sums. A `*_stacked` kernel is the
+    unstacked one for each of `stack` entries; `fwd_stacked`'s entries share
+    one `keep` unless `shared_keep` is False (the seed programs)."""
+    n, w = t_len * b, h * 3 * h
+    if kernel == "bwd_reduce_sum":
+        return (slices - 1) * (w + h), 4 * (slices + 1) * (w + h)
+    if kernel.endswith("_stacked"):
+        flop, nbytes = kernel_work(kernel[: -len("_stacked")], t_len, b, h, slices)
+        shared = 4 * n * h if kernel == "fwd_stacked" and shared_keep else 0
+        return stack * flop, stack * nbytes - (stack - 1) * shared
+    product = 2 * n * h * 3 * h
+    floats = {
+        # gates_i, keep, h0, Wh, b_hn -> hs
+        "fwd": n * 3 * h + n * h + b * h + w + h + n * h,
+        # gates_i, keep, h0, Wh, b_hn, hs -> gates (4 per unit)
+        "bwd_gates": n * 3 * h + n * h + b * h + w + h + n * h + n * 4 * h,
+        # gates, keep, h0, Wh, hs, g_hs -> dgates_i, dgh, dh0
+        "bwd_recurrence": n * 4 * h + n * h + b * h + w + n * h + n * h + 2 * n * 3 * h + b * h,
+        # keep, h0, hs, dgh -> dWh, db_hn
+        "bwd_reduce": n * h + b * h + n * h + n * 3 * h + w + h,
+    }[kernel]
+    flop = product + (2 * n * 3 * h if kernel == "bwd_reduce" else 0)
+    return flop, 4 * floats
+
+
+def launched_flops() -> float:
+    """The FLOP of every kernel launched since `reset_launch_counts`: each
+    launch at its own kernel's `kernel_work`. K2b's first launch counts as the
+    whole reduction and its sum launch adds the slices' sum, so a split
+    reduction counts (slices - 1) adds per output more than an unsplit one."""
+    return float(sum(n * kernel_work(*key)[0] for key, n in launch_shapes.items()))
 
 
 class KernelRoute(NamedTuple):
@@ -558,11 +606,13 @@ def _resident(t_len: int, b: int, h: int) -> bool:
     return forced_route is None and kernel_route(t_len, b, h).route == "resident"
 
 
-def _launch(name: str, fn, device: torch.device, *args) -> None:
+def _launch(name: str, work: Tuple, fn, device: torch.device, *args) -> None:
+    """Launch `fn` and count it; `work` is (T, B, H, slices, stack, shared keep)."""
     with torch.cuda.device(device):
         err = fn(*[_ptr(a) if isinstance(a, torch.Tensor) else a for a in args], _stream(device))
     _raise_on(err, fn.__name__)
     kernel_launches[name] += 1
+    launch_shapes[(name, *work)] += 1
 
 
 def _empty(device: torch.device, *shape: int) -> torch.Tensor:
@@ -580,8 +630,8 @@ def gru_sequence_forward(gates_i, keep, h0, w_h, b_hn, step_clocks: bool = False
     dev = gates_i.device
     cluster = CLUSTER if _resident(t_len, b, h) else 0
     hs = _empty(dev, t_len, b, h)
-    _launch("fwd", lib.gru_sequence_fwd, dev, gates_i, keep, h0, w_h, b_hn, hs, t_len, b, h, 1, 0,
-            cluster)
+    _launch("fwd", (t_len, b, h, 1, 1, True), lib.gru_sequence_fwd, dev,
+            gates_i, keep, h0, w_h, b_hn, hs, t_len, b, h, 1, 0, cluster)
     fwd_launches += 1
     return hs
 
@@ -598,7 +648,8 @@ def gru_sequence_stacked_forward(gates_i, keep, h0, w_h, b_hn) -> torch.Tensor:
     hs = _empty(dev, stack, t_len, b, h)
     # The same kernel function as K1: the span tells its launches apart in a profile.
     with record_function("gru/fwd_stacked"):
-        _launch("fwd_stacked", lib.gru_sequence_fwd, dev, gates_i, keep, h0, w_h, b_hn, hs, t_len,
+        _launch("fwd_stacked", (t_len, b, h, 1, stack, keep.dim() == 3),
+                lib.gru_sequence_fwd, dev, gates_i, keep, h0, w_h, b_hn, hs, t_len,
                 b, h, stack, int(keep.dim() == 4), cluster)
     return hs
 
@@ -611,7 +662,7 @@ def gru_backward_gates(gates_i, keep, h0, w_h, b_hn, hs) -> torch.Tensor:
         return gru_backward_gates_reference(gates_i, keep, h0, w_h, b_hn, hs)
     lib = build_kernels()
     gates = _empty(gates_i.device, t_len, b, 4 * h)
-    _launch("bwd_gates", lib.gru_sequence_bwd_gates, gates_i.device,
+    _launch("bwd_gates", (t_len, b, h, 1, 1, True), lib.gru_sequence_bwd_gates, gates_i.device,
             gates_i, keep, h0, w_h, b_hn, hs, gates, t_len, b, h, 1, 0)
     return gates
 
@@ -638,7 +689,7 @@ def gru_backward_recurrence(gates_i, keep, h0, w_h, b_hn, hs, g_hs, gates=None,
         w_h_t = _empty(dev, 3 * h, h)
         w_h_t.copy_(w_h.T)
     dgates, dgh, dh0 = _empty(dev, t_len, b, 3 * h), _empty(dev, t_len, b, 3 * h), _empty(dev, b, h)
-    _launch("bwd_recurrence", lib.gru_sequence_bwd_recurrence, dev,
+    _launch("bwd_recurrence", (t_len, b, h, 1, 1, True), lib.gru_sequence_bwd_recurrence, dev,
             gates_i, keep, h0, w_h, w_h_t, b_hn, hs, g_hs, gates if resident else None,
             dgates, dgh, dh0, t_len, b, h, 1, 0, CLUSTER if resident else 0)
     return dgates, dgh, dh0
@@ -662,8 +713,8 @@ def gru_backward_reduce_partials(keep, h0, hs, dgh, slices: Optional[int] = None
         return gru_backward_reduce_partials_reference(keep, h0, hs, dgh, split)
     lib = build_kernels()
     partials = _empty(dev, split.slices, h * 3 * h + h)
-    _launch("bwd_reduce", lib.gru_sequence_bwd_reduce, dev, keep, h0, hs, dgh, partials,
-            t_len, b, h, split.slices, split.rows_per_slice, 1, 0)
+    _launch("bwd_reduce", (t_len, b, h, split.slices, 1, True), lib.gru_sequence_bwd_reduce, dev,
+            keep, h0, hs, dgh, partials, t_len, b, h, split.slices, split.rows_per_slice, 1, 0)
     return partials
 
 
@@ -692,7 +743,8 @@ def gru_backward_reduce_sum(partials: torch.Tensor, h: int):
     lib = build_kernels()
     dev = partials.device
     dwh, dbhn = _empty(dev, h, 3 * h), _empty(dev, h)
-    _launch("bwd_reduce_sum", lib.gru_sequence_bwd_reduce_sum, dev, partials, dwh, dbhn,
+    _launch("bwd_reduce_sum", (0, 0, h, partials.shape[0], 1, True),
+            lib.gru_sequence_bwd_reduce_sum, dev, partials, dwh, dbhn,
             h, partials.shape[0], 1)
     return dwh, dbhn
 
@@ -738,7 +790,8 @@ def gru_backward_gates_stacked(gates_i, keep, h0, w_h, b_hn, hs) -> torch.Tensor
     if gates_i.device.type == "cpu":
         return gru_backward_gates_stacked_reference(gates_i, keep, h0, w_h, b_hn, hs)
     gates = _empty(gates_i.device, stack, t_len, b, 4 * h)
-    _launch("bwd_gates_stacked", build_kernels().gru_sequence_bwd_gates, gates_i.device,
+    _launch("bwd_gates_stacked", (t_len, b, h, 1, stack, True),
+            build_kernels().gru_sequence_bwd_gates, gates_i.device,
             gates_i, keep, h0, w_h, b_hn, hs, gates, t_len, b, h, stack, int(keep.dim() == 4))
     return gates
 
@@ -764,7 +817,8 @@ def gru_backward_recurrence_stacked(gates_i, keep, h0, w_h, b_hn, hs, g_hs, gate
         w_h_t.copy_(w_h.transpose(1, 2))
     dgates, dgh = _empty(dev, stack, t_len, b, 3 * h), _empty(dev, stack, t_len, b, 3 * h)
     dh0 = _empty(dev, stack, b, h)
-    _launch("bwd_recurrence_stacked", build_kernels().gru_sequence_bwd_recurrence, dev,
+    _launch("bwd_recurrence_stacked", (t_len, b, h, 1, stack, True),
+            build_kernels().gru_sequence_bwd_recurrence, dev,
             gates_i, keep, h0, w_h, w_h_t, b_hn, hs, g_hs, gates if resident else None,
             dgates, dgh, dh0, t_len, b, h, stack, int(keep.dim() == 4),
             CLUSTER if resident else 0)
@@ -790,7 +844,8 @@ def gru_backward_reduce_partials_stacked(keep, h0, hs, dgh, slices: Optional[int
         raise ValueError(f"gru_backward_reduce_partials_stacked: {stack} entries x "
                          f"{split.slices} slices exceed the grid")
     partials = _empty(hs.device, stack, split.slices, h * 3 * h + h)
-    _launch("bwd_reduce_stacked", build_kernels().gru_sequence_bwd_reduce, hs.device,
+    _launch("bwd_reduce_stacked", (t_len, b, h, split.slices, stack, True),
+            build_kernels().gru_sequence_bwd_reduce, hs.device,
             keep, h0, hs, dgh, partials, t_len, b, h, split.slices, split.rows_per_slice,
             stack, int(keep.dim() == 4))
     return partials
@@ -805,7 +860,8 @@ def gru_backward_reduce_sum_stacked(partials: torch.Tensor, h: int):
         return gru_backward_reduce_sum_stacked_reference(partials, h)
     dev = partials.device
     dwh, dbhn = _empty(dev, stack, h, 3 * h), _empty(dev, stack, h)
-    _launch("bwd_reduce_sum_stacked", build_kernels().gru_sequence_bwd_reduce_sum, dev,
+    _launch("bwd_reduce_sum_stacked", (0, 0, h, slices, stack, True),
+            build_kernels().gru_sequence_bwd_reduce_sum, dev,
             partials, dwh, dbhn, h, slices, stack)
     return dwh, dbhn
 

@@ -62,5 +62,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "mava_tpu_torch.examples.bc_from_vault",
                  # data parallelism over ranks
                  "mava_tpu_torch.parallel", "mava_tpu_torch.parallel.mesh",
-                 "mava_tpu_torch.parallel.distributed"):
+                 "mava_tpu_torch.parallel.distributed",
+                 # the quickstart and the user tools
+                 "mava_tpu_torch.examples.quickstart", "mava_tpu_torch.scripts",
+                 "mava_tpu_torch.scripts.common", "mava_tpu_torch.scripts.run_seeds",
+                 "mava_tpu_torch.scripts.bench_suite", "mava_tpu_torch.scripts.bench_band",
+                 "mava_tpu_torch.scripts.bench_envs_sweep",
+                 "mava_tpu_torch.scripts.bench_vmap_seeds", "mava_tpu_torch.scripts.bench_mfu"):
         assert name in report["modules"]
