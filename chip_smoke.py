@@ -85,7 +85,8 @@ Run from the root of the repository. It
      round of one update, episodes of 2 steps) with every parameter changed and
      no GRU launch and the run's peak memory; on MaHopper one more update,
      timed and profiled (launches per act and train step, idle share);
-     ff-MASAC the same on MaHumanoid and MaHopper; continuous ff-IPPO on
+     ff-MASAC the same on MaHumanoid and MaHopper, without the timed update;
+     continuous ff-IPPO on
      MaWalker (rollout cut to 8, 2 updates; one update of rollout 1 profiled
      for the launches per rollout step and the idle share);
   11. resume phase: rec-IPPO on SMAX 3s5z at the shipped width with 64 envs
@@ -151,7 +152,15 @@ Run from the root of the repository. It
      same state and draws (parameters and losses bitwise equal), exactly 17
      K1, 16 of each backward kernel and 8 all-reduces (one a minibatch step,
      counted with `torch.profiler`) an update, the all-reduces' device and
-     host ms an update and both updates' env-steps/s; the group is destroyed
+     host ms an update and both updates' env-steps/s; the recording program
+     (`ff_ippo_store_experience`, RWARE tiny-2ag as shipped, 2 updates in 2
+     rounds) through torchrun at world 1, whose vault, read back, equals the
+     same learner's trajectories gathered in this process by
+     `gather_env_rows` (bitwise, else within 1e-6, with one gather a round
+     and the vault's bytes a round); one stacked `ff_ippo_vmap_sweep` update
+     of 2 lrs with `arch.stagger_resets=True`, whose entries start from
+     bitwise-equal staggered envs (a seed group of one rank: no all-reduce);
+     the group is destroyed
      after it, so it runs last;
   17. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
      512 envs under `torch.profiler`: host ms, launches and kernel ms per span,
@@ -1306,7 +1315,9 @@ ARTICULATED = [("maswimmer", "swimmer-2x1"), ("mahopper", "hopper-3x1"),
 # (32 items) and runs one round of one update (two rounds until the programs
 # phase came); ff-IPPO rolls out 8 steps. An update is timed apart from the
 # run and profiled on MaHopper only (every env until the programs phase came;
-# PERF.md §5 keeps their rates), and ff-IPPO's with a rollout of 1 step:
+# PERF.md §5 keeps their rates), for ff-ISAC only since the recording program
+# came to the distributed phase (ff-MASAC's there made 55,039 launches against
+# ff-ISAC's 54,779), and ff-IPPO's with a rollout of 1 step:
 # processing the profile of an update takes ~0.3 ms an event, over two minutes
 # for MaHumanoid's 240,000 launches (PERF.md §5 has every env's, from a run of
 # this phase that profiled them all).
@@ -1316,7 +1327,7 @@ ARTICULATED_SAC = ["system.explore_steps=32", "system.total_timesteps=32",
                    "arch.num_evaluation=1", "+arch.device=cuda"]
 ARTICULATED_SAC_UPDATES = 1
 ARTICULATED_MASAC = ["mahumanoid", "mahopper"]
-ARTICULATED_PROFILED = ["mahopper"]
+ARTICULATED_PROFILED = [("ff_isac", "mahopper")]
 ARTICULATED_PPO = ["env=mawalker", "env/scenario=walker2d-2x3", "network=continuous_mlp",
                    "system.rollout_length=8", "system.num_updates=2", *ARTICULATED_CUT]
 
@@ -1413,7 +1424,8 @@ def articulated_phase(gru, gpu: str, start: float) -> dict:
     card against the CPU and its costs; ff-ISAC on each through
     `run_experiment` (the 1,000,000-item buffer on the card, no GRU launch)
     with env-steps/s, and a profiled update on MaHopper; ff-MASAC on
-    MaHumanoid and MaHopper the same; continuous ff-IPPO on MaWalker."""
+    MaHumanoid and MaHopper the same, unprofiled; continuous ff-IPPO on
+    MaWalker."""
     out = {}
     for env_name, scenario in ARTICULATED:
         out[env_name] = articulated_step(env_name, scenario, gpu)
@@ -1428,7 +1440,7 @@ def articulated_phase(gru, gpu: str, start: float) -> dict:
         peak = sac_run(gru, system, config_name, centralised, [*env, *ARTICULATED_SAC],
                        ARTICULATED_SAC_UPDATES, f" on {env_name}")
         out[label] = {"peak_gb": peak}
-        if env_name in ARTICULATED_PROFILED:
+        if (system, env_name) in ARTICULATED_PROFILED:
             out[label].update(sac_updates(label, config_name, centralised,
                                           [*env, "system.explore_steps=32"], gpu, 0))
         print(f"  ({time.perf_counter() - start:.0f} s since the start)")
@@ -2333,6 +2345,137 @@ def offpolicy_phase(gru, gpu: str) -> dict:
 DISTRIBUTED_RUN = ["system.num_updates=2", "arch.num_evaluation=1", "arch.num_eval_episodes=16",
                    "arch.absolute_metric=False"]
 DISTRIBUTED_REPEATS = 2
+# The recording program through torchrun (NCCL, world 1): ff-IPPO on RWARE
+# tiny-2ag as shipped, 2 updates in 2 rounds (one vault chunk a round); and an
+# lr sweep of 2 entries with staggered resets.
+STORE_RUN = ["system.num_updates=2", "arch.num_evaluation=2"]
+STAGGER_SWEEP_LRS = [1e-4, 1e-3]
+
+
+def store_through_torchrun(workdir: str) -> dict:
+    """`ff_ippo_store_experience` through torchrun at world 1 (NCCL) in
+    `workdir`; its vault read back ({leaf name: array})."""
+    import os
+
+    from mava_tpu_torch.replay.vault import Vault
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([os.getcwd(), env.get("PYTHONPATH", "")])
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=1",
+         "-m", "mava_tpu_torch.advanced_usage.ff_ippo_store_experience", *STORE_RUN],
+        capture_output=True, text=True, timeout=300, cwd=workdir, env=env)
+    wall = time.perf_counter() - start
+    check(proc.returncode == 0, f"torchrun ff_ippo_store_experience exited {proc.returncode}:\n"
+                                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    check("ff-IPPO experience-recording run completed." in proc.stdout
+          and proc.stdout.count("Experience stored in ") == 1,
+          "torchrun ff_ippo_store_experience printed no completed or stored line")
+    root = os.path.join(workdir, "vaults", "ff_ippo_store_experience")
+    uids = os.listdir(root)
+    check(len(uids) == 1, f"{len(uids)} vaults written, not one")
+    print(f"  torchrun --nproc-per-node=1 ff_ippo_store_experience (NCCL, world 1): 2 updates "
+          f"in 2 rounds, exit 0 in {wall:.1f} s wall, one vault")
+    return Vault("ff_ippo_store_experience", rel_dir=os.path.join(workdir, "vaults"),
+                 vault_uid=uids[0]).read()
+
+
+def store_in_process(mesh, vault: dict) -> dict:
+    """The recording program's learner in this process, from the same seed on
+    the same mesh: each round's trajectories through `gather_env_rows`, held
+    against `vault` (bitwise, or the largest difference); one gather a round."""
+    import numpy as np
+
+    from mava_tpu_torch.advanced_usage.ff_ippo_store_experience import batch_major
+    from mava_tpu_torch.parallel import distributed
+    from mava_tpu_torch.replay.vault import leaf_names
+    from mava_tpu_torch.systems.anakin import schedule_updates
+    from mava_tpu_torch.systems.ppo import ff_ippo
+
+    environments, load_config, _ = port()
+    cfg = load_config("default_ff_ippo", STORE_RUN + ["+arch.device=cuda"])
+    cfg.arch.n_devices = mesh.world_size
+    device = torch.device("cuda", 0)
+    env, _ = environments.make(cfg, device)
+    cfg = schedule_updates(cfg)
+    gen = torch.Generator(device=device).manual_seed(cfg.system.seed)
+    learn, _, state = ff_ippo.learner_setup(env, gen, cfg, device, return_trajectories=True,
+                                            mesh=mesh)
+    before = distributed.env_row_gathers
+    rounds = []
+    for _ in range(cfg.arch.num_evaluation):
+        out, trajectories = learn(state)
+        rounds.append(batch_major(distributed.gather_env_rows(trajectories, mesh)))
+        state = out.learner_state
+    torch.cuda.synchronize()
+    gathers = distributed.env_row_gathers - before
+    check(gathers == len(rounds), f"{gathers} gathers in {len(rounds)} rounds, not one a round")
+    names = leaf_names(rounds[0])
+    check(sorted(names) == sorted(vault), f"vault leaves {sorted(vault)}, not {sorted(names)}")
+    round_bytes = sum(x.numel() * x.element_size() for x in pytree.tree_leaves(rounds[0]))
+    differ = {}
+    for i, name in enumerate(names):
+        want = np.concatenate([pytree.tree_leaves(r)[i].cpu().numpy() for r in rounds], axis=1)
+        got = vault[name]
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"vault leaf {name}: {got.dtype} {got.shape}, not {want.dtype} {want.shape}")
+        if not np.array_equal(got, want):
+            differ[name] = float(np.max(np.abs(got.astype(np.float64) - want)))
+    worst = max(differ.values(), default=0.0)
+    print(f"  its vault ({len(names)} leaves, {vault['.action'].shape[0]} rows x "
+          f"{vault['.action'].shape[1]} steps) against the same learner in this process: "
+          + ("bitwise equal" if not differ else f"differs in {differ}")
+          + f"; {gathers} gathers in {len(rounds)} rounds; {round_bytes:,} vault bytes a round")
+    check(worst <= 1e-6, f"the vault differs from the in-process trajectories by {worst}")
+    return {"vault_bytes_a_round": round_bytes, "gathers": gathers, "bitwise": not differ,
+            "max_abs_err": worst}
+
+
+def staggered_sweep() -> dict:
+    """One stacked `ff_ippo_vmap_sweep` update of 2 lrs with
+    `arch.stagger_resets=True` under the group: the two entries start from
+    bitwise-equal, staggered env states; finite losses, one all-reduce a
+    minibatch step."""
+    from mava_tpu_torch.advanced_usage import ff_ippo_vmap_seeds
+    from mava_tpu_torch.parallel import make_seed_sharded_mesh
+    from mava_tpu_torch.parallel import mesh as mesh_module
+
+    environments, load_config, _ = port()
+    cfg = load_config("default_ff_ippo", ["arch.stagger_resets=True", "+arch.device=cuda"])
+    mesh = make_seed_sharded_mesh(1)
+    cfg.arch.n_devices, cfg.system.num_updates_per_eval = mesh.data_size, 1
+    device = torch.device("cuda", 0)
+    env, _ = environments.make(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(cfg.system.seed)
+    start = time.perf_counter()
+    learn, _, state = ff_ippo_vmap_seeds.learner_setup(
+        env, gen, cfg, device, len(STAGGER_SWEEP_LRS), sweep_lrs=STAGGER_SWEEP_LRS, mesh=mesh)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - start
+    n = cfg.arch.num_envs
+    rows = [x for x in pytree.tree_leaves((state.env_state, state.timestep))
+            if isinstance(x, torch.Tensor) and x.dim() > 0 and x.shape[0] == 2 * n]
+    same = all(torch.equal(x[:n], x[n:]) for x in rows)
+    counts = state.env_state.env_state.step_count[:n]
+    spread = len(set(counts.tolist()))
+    print(f"  ff_ippo_vmap_sweep, 2 lrs, stagger_resets (NCCL, world 1): the entries' "
+          f"{len(rows)} env tensors bitwise {'equal' if same else 'DIFFERENT'}; "
+          f"{spread} distinct step counts of {n} envs; setup {setup:.1f} s")
+    check(same and rows, "a staggered sweep's entries start from different env states")
+    check(spread > 1, f"the burn-in left step counts {counts.tolist()}")
+    before = mesh_module.all_reduces
+    out = learn(state)
+    torch.cuda.synchronize()
+    reduces = mesh_module.all_reduces - before
+    # A seed group of one rank (world 1 here) has no data group and no collective.
+    steps = cfg.system.ppo_epochs * cfg.system.num_minibatches if mesh.data_group else 0
+    check(all(bool(torch.isfinite(v).all()) for v in out.train_metrics.values()),
+          "the staggered sweep's losses are not finite")
+    check(reduces == steps, f"the staggered sweep update made {reduces} all-reduces, not {steps}")
+    print(f"  one stacked update from there: losses finite, {reduces} all-reduces "
+          f"(a seed group of {mesh.data_size} rank)")
+    return {"stagger_spread": spread, "sweep_all_reduces": reduces}
 
 
 def free_port() -> int:
@@ -2365,6 +2508,10 @@ def distributed_phase(gru, gpu: str) -> dict:
     """rec-IPPO data-parallel under NCCL at world size 1 (one card): through
     torchrun as a user launches it, then one data-parallel update against one
     stock update in this process, its launches and its all-reduces."""
+    import os
+    import shutil
+    import tempfile
+
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
@@ -2374,6 +2521,12 @@ def distributed_phase(gru, gpu: str) -> dict:
     from mava_tpu_torch.utils.training import epoch_permutations
 
     start = time.perf_counter()
+    os.makedirs("build", exist_ok=True)
+    store_dir = tempfile.mkdtemp(dir="build")
+    try:
+        vault = store_through_torchrun(store_dir)
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=1",
          "-m", "mava_tpu_torch.systems.ppo.rec_ippo", *DISTRIBUTED_RUN],
@@ -2465,9 +2618,16 @@ def distributed_phase(gru, gpu: str) -> dict:
               f"{device_us / 1e3:.4f} device ms in {len(nccl_kernels)} NCCL kernels, "
               f"{host_us / 1e3:.3f} host ms in c10d::allreduce_, against "
               f"{update_ms:.1f} host ms an update, on {gpu}")
+
+        recording = time.perf_counter()
+        stored = store_in_process(mesh, vault)
+        stored.update(staggered_sweep())
+        print(f"  the recording program and the staggered sweep: "
+              f"{time.perf_counter() - recording:.1f} s in this process, on {gpu}")
         print(f"  phase: {time.perf_counter() - start:.1f} s")
         return {"launches": dp_launches, "all_reduces": len(reduce_ops),
-                "all_reduce_device_ms": device_us / 1e3, "all_reduce_host_ms": host_us / 1e3}
+                "all_reduce_device_ms": device_us / 1e3, "all_reduce_host_ms": host_us / 1e3,
+                **stored}
     finally:
         dist.destroy_process_group()
 
@@ -2512,7 +2672,8 @@ def main() -> int:
         print(gpu)
         return 0
     if "--distributed" in sys.argv[1:]:
-        print("distributed phase (rec-IPPO data-parallel under NCCL, world 1):")
+        print("distributed phase (rec-IPPO data-parallel, the recording program, a staggered "
+              "sweep; NCCL, world 1):")
         distributed_phase(gru, gpu)
         print(gpu)
         return 0
@@ -2560,7 +2721,8 @@ def main() -> int:
     programs = programs_phase(gru, gpu)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     # Last: it brings up a process group, which the phases above run without.
-    print("distributed phase (rec-IPPO data-parallel under NCCL, world 1):")
+    print("distributed phase (rec-IPPO data-parallel, the recording program, a staggered "
+          "sweep; NCCL, world 1):")
     distributed = distributed_phase(gru, gpu)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     if "--profile" in sys.argv[1:]:

@@ -8,9 +8,17 @@ brought to the host and appended to a `Vault` under
 `vaults/<logger.system_name>/<uid>` of the working directory (the OG-MARL
 dataset pattern). `examples/bc_from_vault.py` reads such a vault back.
 
+Over W ranks (torchrun) each rank records its own `arch.num_envs` envs; every
+round `gather_env_rows` brings every rank's batch to rank 0 in rank order
+along the env axis (the reference's out spec `P(None, None, DATA_AXIS)`,
+:78-85), so that rank 0's vault holds (W * E * updates, T, ...) slabs. Rank 0
+alone creates and writes the vault; the step counts and the returned mean are
+the global batch's (reference :92-97, :135-137).
+
 CLI: python -m mava_tpu_torch.advanced_usage.ff_ippo_store_experience \
     env=rware env/scenario=tiny-2ag system.total_timesteps=2000000
-(on the card; add `+arch.device=cpu` to run on the CPU).
+(on the card; add `+arch.device=cpu` to run on the CPU; over N cards
+`python -m torch.distributed.run --nproc-per-node=N -m ...`).
 """
 
 from __future__ import annotations
@@ -23,8 +31,10 @@ from torch.utils import _pytree as pytree
 
 from mava_tpu_torch import envs as environments
 from mava_tpu_torch.envs.wrappers import get_final_step_metrics
+from mava_tpu_torch.parallel import is_main_process, make_mesh
+from mava_tpu_torch.parallel.distributed import gather_env_rows, gather_metrics
 from mava_tpu_torch.replay.vault import Vault
-from mava_tpu_torch.systems.anakin import schedule_updates, start_experiment
+from mava_tpu_torch.systems.anakin import schedule_updates, start_experiment, steps_per_round
 from mava_tpu_torch.systems.ppo import ff_ippo
 from mava_tpu_torch.utils.config import Config, load_config
 from mava_tpu_torch.utils.logger import LogEvent, MavaLogger
@@ -40,32 +50,32 @@ def batch_major(trajectories):
 
 
 def run_experiment(_config: Config) -> float:
-    """Train ff-IPPO and store every update's transitions in a vault; returns
-    the mean episode return of the last round's rollouts."""
+    """Train ff-IPPO and store every update's transitions in a vault (rank 0's
+    of the global batch); returns the mean episode return of the last round's
+    rollouts over the global batch, on every rank."""
     config = copy.deepcopy(_config)
     device = start_experiment(config)
-    if config.arch.n_devices > 1:
-        raise NotImplementedError(
-            "ff_ippo_store_experience writes its vault from one process; run it without "
-            "torch.distributed.run (ROADMAP.md Queue 1 item 5.3).")
+    mesh = make_mesh()
     env, _ = environments.make(config, device)
     config = schedule_updates(config)
     generator = torch.Generator(device=device).manual_seed(config.system.seed)
     learn, _, learner_state = ff_ippo.learner_setup(env, generator, config, device,
-                                                    return_trajectories=True)
-    steps_per_rollout = (config.system.num_updates_per_eval * config.system.rollout_length
-                         * config.arch.num_envs)
+                                                    return_trajectories=True, mesh=mesh)
+    steps_per_rollout = steps_per_round(config)
     logger = MavaLogger(config)
-    vault = Vault(vault_name=config.logger.system_name)
+    vault = Vault(vault_name=config.logger.system_name) if is_main_process() else None
     output = None
     for eval_step in range(config.arch.num_evaluation):
         timer = PhaseTimer(device)
         with timer.phase("learn"):
             output, trajectories = learn(learner_state)
         with timer.phase("vault"):
-            vault.write(batch_major(trajectories))
+            trajectories = gather_env_rows(trajectories, mesh)
+            if vault is not None:
+                vault.write(batch_major(trajectories))
         t = int(steps_per_rollout * (eval_step + 1))
-        episode_metrics, ep_completed = get_final_step_metrics(output.episode_metrics)
+        joined = gather_metrics(output.episode_metrics)
+        episode_metrics, ep_completed = get_final_step_metrics(joined)
         episode_metrics["steps_per_second"] = steps_per_rollout / sum(timer.phases.values())
         logger.log({"timestep": t, **timer.metrics()}, t, eval_step, LogEvent.MISC)
         if ep_completed:
@@ -73,8 +83,9 @@ def run_experiment(_config: Config) -> float:
         logger.log(output.train_metrics, t, eval_step, LogEvent.TRAIN)
         learner_state = output.learner_state
     logger.stop()
-    print(f"Experience stored in {vault.base_dir}")
-    return float(output.episode_metrics["episode_return"].float().mean())
+    if vault is not None:
+        print(f"Experience stored in {vault.base_dir}")
+    return float(torch.as_tensor(joined["episode_return"]).float().mean())
 
 
 def main() -> float:

@@ -50,7 +50,7 @@ from mava_tpu_torch.networks.factory import make_log_prob_from_params, make_roll
 from mava_tpu_torch.ops import clipped_ppo_policy_loss, clipped_value_loss
 from mava_tpu_torch.ops.gae import calculate_gae
 from mava_tpu_torch.parallel import Mesh, all_reduce_mean, make_mesh, put_replicated
-from mava_tpu_torch.parallel.distributed import rank_generator
+from mava_tpu_torch.parallel.distributed import rank_generator, take_rows
 from mava_tpu_torch.systems.anakin import schedule_updates, stack_trees, start_experiment
 from mava_tpu_torch.systems.ppo import ff_ippo
 from mava_tpu_torch.systems.ppo.types import LearnerState, OptStates, Params
@@ -261,10 +261,10 @@ def learner_setup(
     mesh: Optional[Mesh] = None,
 ) -> Tuple[Callable, StackedNetwork, LearnerState]:
     """The stacked networks (entry s from `entry_seeds`), their optimizers, the
-    S * E envs' reset and the learner function (reference `learner_setup`).
-    On a seed-sharded `mesh` (by default the process group's data mesh) the
-    learner holds this rank's entries of the `num` (`local_entries`), on its
-    rows of each entry's envs."""
+    S * E envs' reset (staggered with `arch.stagger_resets`) and the learner
+    function (reference `learner_setup`). On a seed-sharded `mesh` (by
+    default the process group's data mesh) the learner holds this rank's
+    entries of the `num` (`local_entries`), on its rows of each entry's envs."""
     config.system.num_agents = env.num_agents
     shared = sweep_lrs is not None
     mesh = mesh or make_mesh()
@@ -277,20 +277,19 @@ def learner_setup(
         actor, critic, config, None if sweep_lrs is None else sweep_lrs[entries.start:entries.stop])
 
     num_envs = config.arch.num_envs
-    if config.arch.get("stagger_resets", False) and mesh.world_size > 1:
-        raise NotImplementedError(
-            "arch.stagger_resets is not supported by the stacked programs over ranks.")
+    env_state, timestep = entry_reset(env, generator, num, shared, num_envs, mesh, device)
     if config.arch.get("stagger_resets", False):
-        # Desynchronised episode boundaries (envs/stagger.py): each entry its own
-        # offsets, or one entry's offsets for every entry of a sweep.
-        stagger = stagger_generator(config.system.seed, device)
-        env_state, timestep = env.reset(env.reset_noise(num_envs if shared else num * num_envs,
-                                                        generator))
-        env_state, timestep = stagger_env_states(env, env_state, timestep, stagger)
+        # Desynchronised episode boundaries (envs/stagger.py) of this rank's rows
+        # (reference :207-222): each entry and rank its own offsets, or for a
+        # sweep one entry's envs staggered and tiled over the entries, the same
+        # stream in every seed group, so that the entries differ by lr alone.
+        stagger = rank_generator(stagger_generator(config.system.seed, device), mesh,
+                                 shared_over_seed_groups=shared)
         if shared:
-            env_state, timestep = tile((env_state, timestep), num)
-    else:
-        env_state, timestep = entry_reset(env, generator, num, shared, num_envs, mesh, device)
+            one = take_rows((env_state, timestep), slice(0, num_envs), len(entries) * num_envs)
+            env_state, timestep = tile(stagger_env_states(env, *one, stagger), len(entries))
+        else:
+            env_state, timestep = stagger_env_states(env, env_state, timestep, stagger)
     state = LearnerState(
         params=put_replicated(Params(actor, critic), mesh),
         opt_states=opt_states,

@@ -19,8 +19,7 @@ _HEADS = {
 def _lookup(table: Dict[str, Any], kind: str, what: str) -> Any:
     if kind not in table:
         raise NotImplementedError(
-            f"{what} {kind!r} is not yet ported to mava_tpu_torch "
-            f"(ported: {sorted(table)}); see ROADMAP.md."
+            f"{what} {kind!r} is not a network of mava_tpu_torch (known: {sorted(table)})."
         )
     return table[kind]
 

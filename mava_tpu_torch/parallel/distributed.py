@@ -15,7 +15,8 @@ global batch would hold: its rows of a global tensor (`put_sharded_rows`), its
 own copy of a per-shard template (`tile_for_shards`), the replicated params
 checked equal on every rank (`put_replicated`), and its rows of a global env
 reset (`sharded_env_reset`). Logging and checkpointing are collective: every
-rank calls them, rank 0 writes (`gather_metrics`, `utils/checkpointing.py`).
+rank calls them, rank 0 writes (`gather_metrics`, `utils/checkpointing.py`),
+as does the recording program's vault (`gather_env_rows`).
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ from mava_tpu_torch.parallel.mesh import Mesh
 
 # What torchrun sets for every rank it starts.
 _TORCHRUN_VARS = ("WORLD_SIZE", "RANK", "LOCAL_RANK")
+# Collectives made by `gather_env_rows` (one per call under a data group).
+env_row_gathers = 0
 
 
 def initialize(device_type: str) -> bool:
@@ -180,3 +183,39 @@ def gather_metrics(metrics: Dict[str, Any]) -> Dict[str, Any]:
         return float(np.mean(np.asarray(xs, dtype=np.float64)))
 
     return pytree.tree_map(join, *every)
+
+
+def gather_env_rows(tree: Any, mesh: Mesh) -> Any:
+    """Every data rank's rows of a (updates, T, E, ...) batch `tree` on its
+    data rank 0, concatenated in rank order along the env axis (the
+    reference's out spec `P(None, None, DATA_AXIS)`), and None on the other
+    ranks. Each rank packs its tensors, env axis first, into one byte buffer,
+    and one `gather` brings the W buffers to data rank 0, whatever the
+    leaves' dtypes: every rank holds the same shapes, so each buffer splits
+    back at the same offsets. Under a data group this is a collective even at
+    one rank (every rank calls it); without one `tree` is returned as it is."""
+    global env_row_gathers
+    if mesh.data_group is None:
+        return tree
+    leaves, spec = pytree.tree_flatten(tree)
+    tensors = [x.detach().movedim(2, 0).contiguous() for x in leaves
+               if isinstance(x, torch.Tensor)]
+    flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in tensors])
+    dst = dist.get_global_rank(mesh.data_group, 0)
+    every = ([torch.empty_like(flat) for _ in range(mesh.data_size)]
+             if mesh.data_rank == 0 else None)
+    dist.gather(flat, every, dst=dst, group=mesh.data_group)
+    env_row_gathers += 1
+    if every is None:
+        return None
+    parts: list = [[] for _ in tensors]
+    for buffer in every:
+        offset = 0
+        for i, t in enumerate(tensors):
+            n = t.numel() * t.element_size()
+            # A copy: the slice's offset need not be aligned to the dtype's size.
+            parts[i].append(buffer[offset : offset + n].clone().view(t.dtype).view(t.shape))
+            offset += n
+    joined = iter(torch.cat(p).movedim(0, 2) for p in parts)
+    return pytree.tree_unflatten(
+        [next(joined) if isinstance(x, torch.Tensor) else x for x in leaves], spec)

@@ -216,7 +216,10 @@ def get_learner_fn(
             train_metrics=stack_trees(train_info),
         )
         if return_trajectories:
-            return output, stack_trees(trajectories)
+            # Actions in the env's action dtype, as the reference records them.
+            trajectories = stack_trees(trajectories)
+            return output, trajectories._replace(
+                action=trajectories.action.to(env.action_spec().dtype))
         return output
 
     return learner_fn

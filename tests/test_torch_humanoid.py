@@ -1,10 +1,14 @@
-"""The port's MaHumanoid (humanoid-9-8) dynamics against `mava_tpu`'s, as the
-planar envs are held in `test_torch_planar_envs.py`: the mass matrix (1e-6)
-and q̈ with contact on, in flight and past the joint limits (1e-5 of the
-largest entry); its steps are in `test_torch_humanoid_steps.py`. Then the
-padding contract of the 9 | 8 split: the mask, the padded slot's zeros in the
-view, the padded action moving nothing and costing nothing; and M positive
-definite tilted.
+"""The port's MaHumanoid (humanoid-9-8) against `mava_tpu`'s, as the planar
+envs are held in `test_torch_planar_envs.py`: the mass matrix (1e-6) and q̈
+with contact on, in flight and past the joint limits (1e-5 of the largest
+entry); one step from those states (1e-5); a 12-step rollout through
+AutoReset -> RecordEpisodeMetrics with the JAX reset's draws injected (1e-4),
+in which the humanoid, pushed over at the start, terminates with discount 0
+and is reset. Then the padding contract of the 9 | 8 split: the mask, the
+padded slot's zeros in the view, the padded action moving nothing and costing
+nothing; and M positive definite tilted. One pair of envs for the file: the
+JAX step is traced and compiled once (about 25 s on a CPU), and the port's
+q̈ traced once.
 """
 
 import jax.numpy as jnp
@@ -15,10 +19,13 @@ import torch
 from test_torch_planar_envs import (
     MASS_TOL,
     NUM_ENVS,
+    ROLLOUT_STEPS,
     Pair,
     _t,
     assert_accel_matches,
     assert_graphs_read_nothing_back,
+    assert_step_matches,
+    run_rollout,
 )
 
 torch.set_num_threads(1)
@@ -26,7 +33,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def humanoid():
-    return Pair("mahumanoid")
+    return Pair("mahumanoid", ["env.kwargs.time_limit=10"])
 
 
 def test_mass_matrix_matches_jax(humanoid):
@@ -47,6 +54,16 @@ def test_accel_graph_reads_nothing_back(humanoid):
     q, qd, tau, _ = humanoid.states(2)
     humanoid.tu.integrate.accel(_t(q), _t(qd), _t(tau))
     assert_graphs_read_nothing_back(humanoid.tu.integrate)
+
+
+def test_one_step_matches_from_the_same_state(humanoid):
+    q, qd, _, actions = humanoid.states(3)
+    assert_step_matches(humanoid, q, qd, actions)
+
+
+def test_rollout_matches_through_auto_resets(humanoid):
+    terminations, resets = run_rollout(humanoid, ROLLOUT_STEPS, seed=4)
+    assert terminations > 0 and resets >= NUM_ENVS
 
 
 @pytest.mark.parametrize("case", ["mask_and_view", "padded_action_is_a_no_op",

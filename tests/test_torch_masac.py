@@ -4,7 +4,11 @@ each agent's fresh action in its own slot, and the global state stored once
 per item. One whole update from the JAX learner's state and draws (after its
 explore phase and a warm-up update; the buffer wraps) equals the JAX learner's
 to 1e-5: every parameter, `log_alpha`, the Adam states, the losses and the
-buffer. Then the CLI on the CPU, on MaSwarm and on MaReacher.
+buffer. The same on MaHumanoid humanoid-9-8, whose centralised critics read
+the global state, the two agents' 40-wide views tiled (2 x 80), and the joint
+action of the padded (2, 9) rectangle; the JAX learner's two compiles of the
+humanoid's step take most of a minute on a CPU, so this file starts early in
+a run's queue of files. Then the CLI on the CPU, on MaSwarm and on MaReacher.
 """
 
 import sys
@@ -16,6 +20,7 @@ import torch
 from mava_tpu_torch.systems.sac import ff_masac
 from mava_tpu_torch.utils.config import load_config
 from test_torch_sac import CLI, _setup, check_one_update
+from test_torch_sac_articulated import articulated_draws
 
 torch.set_num_threads(1)
 
@@ -24,6 +29,15 @@ def test_one_masac_update_matches_jax_learner():
     out = check_one_update("default_ff_masac", centralised=True)
     stored = out.learner_state.buffer_state.experience.obs.global_state
     assert stored.shape[1] == 1  # (max_length, 1, G): once per item
+
+
+def test_one_masac_update_on_mahumanoid_matches_jax_learner():
+    out = check_one_update("default_ff_masac", centralised=True, overrides=["env=mahumanoid"],
+                           **articulated_draws("mahumanoid"))
+    obs = out.learner_state.buffer_state.experience.obs
+    assert obs.agents_view.shape[1:] == (2, 40) and obs.global_state.shape[1:] == (1, 80)
+    q1 = out.learner_state.params.q.online.q1
+    assert q1.torso.layers[0].in_features == 80 + 2 * 9
 
 
 def test_autotune_off_keeps_alpha_and_matches():

@@ -202,7 +202,70 @@ def collectives(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-TASKS = {"update": update, "seed_update": seed_update, "collectives": collectives}
+def store(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, Any]:
+    """The recording program (`ff_ippo_store_experience.run_experiment`) in
+    this rank's own working directory, its learner started from this rank's
+    state and draws; what it logged at MISC and returned, and its gathers."""
+    import os
+
+    from mava_tpu_torch.advanced_usage import ff_ippo_store_experience
+    from mava_tpu_torch.parallel import distributed
+    from mava_tpu_torch.systems.ppo import ff_ippo
+    from mava_tpu_torch.utils.config import load_config
+    from mava_tpu_torch.utils.logger import LogEvent, MavaLogger
+
+    setup, log, misc = ff_ippo.learner_setup, MavaLogger.log, []
+
+    def started(*args, **kwargs):
+        learn, actor, state = setup(*args, **kwargs, **spec["draws"])
+        return learn, actor, spec["state"]._replace(key=state.key)
+
+    def logged(self, metrics, t, t_eval, event):
+        if event == LogEvent.MISC:
+            misc.append(metrics["timestep"])
+        return log(self, metrics, t, t_eval, event)
+
+    ff_ippo.learner_setup, MavaLogger.log = started, logged
+    os.chdir(spec["cwd"])
+    cfg = load_config(spec["config"], list(spec["overrides"]) + ["+arch.device=cpu"])
+    cfg.logger.system_name = "store_ranks"
+    value = ff_ippo_store_experience.run_experiment(cfg)
+    return {"value": value, "misc_timesteps": misc, "gathers": distributed.env_row_gathers}
+
+
+def stagger(rank: int, world: int, spec: Dict[str, Any]) -> Dict[str, Any]:
+    """`ff_ippo_vmap_seeds.learner_setup` with `arch.stagger_resets` for each
+    case of `spec["cases"]` (seed shards, sweep or seeds) on this rank's
+    seed-sharded mesh: the env state and timestep it starts from, and, where
+    the case holds this rank's params and draws, one update from there."""
+    from mava_tpu_torch import envs as tenvs
+    from mava_tpu_torch.advanced_usage import ff_ippo_vmap_seeds
+    from mava_tpu_torch.parallel import make_seed_sharded_mesh
+
+    cfg = _config(spec, world)
+    env, _ = tenvs.make(cfg, "cpu")
+    out = []
+    for case in spec["cases"]:
+        mesh = make_seed_sharded_mesh(case["seed_shards"])
+        cfg.arch.n_devices = mesh.data_size
+        learn, _, state = ff_ippo_vmap_seeds.learner_setup(
+            env, torch.Generator().manual_seed(0), cfg, torch.device("cpu"), spec["num"],
+            sweep_lrs=case["sweep_lrs"], mesh=mesh, **case.get("draws", {}))
+        result = {"start": (state.env_state, state.timestep)}
+        if "params" in case:
+            with torch.no_grad():
+                for net, params in zip(state.params, case["params"]):
+                    for name, value in params.items():
+                        net.params[name].copy_(value)
+            new = learn(state)
+            result["params"] = host_params(new.learner_state.params)
+            result["train"] = {k: v.detach().clone() for k, v in new.train_metrics.items()}
+        out.append(result)
+    return {"cases": out}
+
+
+TASKS = {"update": update, "seed_update": seed_update, "collectives": collectives,
+         "store": store, "stagger": stagger}
 
 
 def main(task: str, rank: int, world: int, workdir: str) -> None:

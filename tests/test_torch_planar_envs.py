@@ -9,8 +9,9 @@ pressed 1 cm into the ground), in flight (1 m up) and with every joint pushed
 past its upper limit (1e-5 of q̈'s largest entry: the solve mixes every
 entry); one step from those states (1e-5); then a rollout through AutoReset
 -> RecordEpisodeMetrics with the JAX reset's draws injected (1e-4), long
-enough for truncations and auto-resets, in which the hopper and the walker,
-pushed over at the start, terminate with discount 0. The other factorisations
+enough for truncations, auto-resets and two steps after them
+(`ROLLOUT_STEPS`), in which the hopper and the walker, pushed over at the
+start, terminate with discount 0. The other factorisations
 and the invariants are in `test_torch_articulated.py`.
 """
 
@@ -32,6 +33,10 @@ NUM_ENVS = 3
 MASS_TOL = dict(rtol=1e-6, atol=1e-6)
 STEP_TOL = dict(rtol=1e-5, atol=1e-5)
 ROLLOUT_TOL = dict(rtol=1e-4, atol=1e-4)
+# The rollouts run at `env.kwargs.time_limit=10`: every env ends its first
+# episode (a fall, or the time limit at step 10) and is reset, and two steps
+# follow its reset.
+ROLLOUT_STEPS = 12
 # env: (its base coordinates, the vertical one, reset noise width past the
 # base, its half range, a pitch rate that topples it)
 BODIES = {
@@ -240,7 +245,7 @@ def run_rollout(pair, steps: int, seed: int, tol=ROLLOUT_TOL):
 
 
 def test_rollout_matches_through_auto_resets(pair):
-    terminations, resets = run_rollout(pair, 20, seed=4)
+    terminations, resets = run_rollout(pair, ROLLOUT_STEPS, seed=4)
     assert resets >= NUM_ENVS
     if BODIES[pair.name][4]:
         assert terminations > 0, "the pushed body never fell"

@@ -2,7 +2,7 @@
 (walker2d-2x3), against `mava_tpu`'s, as `test_torch_planar_envs.py` holds the
 serial chains: the mass matrix (1e-6), q̈ pressed into the ground, in flight
 and past the joint limits (1e-5 of its largest entry) with no host read in its
-graph, one step (1e-5), and a 20-step rollout through AutoReset ->
+graph, one step (1e-5), and a 12-step rollout through AutoReset ->
 RecordEpisodeMetrics with the JAX reset's draws injected (1e-4), in which the
 walker, pushed over at the start, terminates with discount 0.
 """
@@ -17,6 +17,7 @@ from test_torch_planar_envs import (
     BODIES,
     MASS_TOL,
     NUM_ENVS,
+    ROLLOUT_STEPS,
     _t,
     assert_accel_matches,
     assert_graphs_read_nothing_back,
@@ -58,7 +59,7 @@ def test_one_step_matches_from_the_same_state(pair):
 
 
 def test_rollout_matches_through_auto_resets(pair):
-    terminations, resets = run_rollout(pair, 20, seed=4)
+    terminations, resets = run_rollout(pair, ROLLOUT_STEPS, seed=4)
     assert resets >= NUM_ENVS
     if BODIES[pair.name][4]:
         assert terminations > 0, "the pushed body never fell"

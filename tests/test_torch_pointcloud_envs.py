@@ -5,7 +5,7 @@ against `mava_tpu`'s.
 against the reference's (1e-5 of q̈'s largest entry); MaAnt at ant-4x2 as the
 planar envs are held in `test_torch_planar_envs.py`: the mass matrix (1e-6),
 q̈ with contact on, in flight and past the joint limits (1e-5 of the largest
-entry), one step (1e-5), a 20-step rollout through the wrappers with
+entry), one step (1e-5), a 12-step rollout through the wrappers with
 auto-resets (1e-4). Then the port's own invariants: `newton_accel` equals the
 hessian-of-T Lagrangian (`tests/test_envs_maant.py:100`), and M stays positive
 definite tilted through the pitch singularity.
@@ -23,6 +23,7 @@ from mava_tpu_torch.envs._dynamics import contact_force, limit_torque, solve
 from mava_tpu_torch.envs.pointcloud3d import newton_accel
 from test_torch_planar_envs import (
     MASS_TOL,
+    ROLLOUT_STEPS,
     Pair,
     _t,
     assert_accel_matches,
@@ -77,7 +78,7 @@ def test_one_step_matches_from_the_same_state(ant):
 
 
 def test_rollout_matches_through_auto_resets(ant):
-    terminations, resets = run_rollout(ant, 20, seed=5)
+    terminations, resets = run_rollout(ant, ROLLOUT_STEPS, seed=5)
     assert resets >= 3 and terminations == 0  # the ant stands, truncated at 10
 
 

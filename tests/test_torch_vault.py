@@ -51,11 +51,13 @@ LEAVES = {".done", ".action", ".value", ".reward", ".log_prob", ".obs.agents_vie
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_trajectories():
+def _jax_trajectories(devices: int = 1):
     """One update of the JAX learner built as the recording program builds it
-    (ff_ippo_store_experience.py:51-89), its first state and its draws."""
+    (ff_ippo_store_experience.py:51-89) on a mesh of `devices`, its first
+    state and each shard's draws (noise, permutations)."""
     cfg = _prepare(jax_load_config("default_ff_ippo", TINY))
-    mesh = make_mesh(jax.devices()[:1])
+    cfg.arch.n_devices = devices
+    mesh = make_mesh(jax.devices()[:devices])
     env, _ = jenvs.make(cfg)
     keys = jax.random.split(jax.random.PRNGKey(3), 3)
     _, actor, state = jff_ippo.learner_setup(env, tuple(keys), cfg, mesh)
@@ -70,21 +72,25 @@ def _jax_trajectories():
     out_specs = (JExperimentOutput(learner_state=specs, episode_metrics=P(None, None, DATA_AXIS),
                                    train_metrics=P()), P(None, None, DATA_AXIS))
     learn = build_learner(learner, mesh, in_specs=(specs,), out_specs=out_specs)
-    # The learner's own draws (ff_ippo.py:116-126 and :262-270).
-    key, sample_key = jax.random.split(state.key[0])
-    noise = jax.random.gumbel(sample_key, (cfg.system.rollout_length, cfg.arch.num_envs,
-                                           env.num_agents, env.action_dim))
-    _, shuffle_key = jax.random.split(key)
-    perms = jax.numpy.argsort(jax.random.bits(
-        shuffle_key, (cfg.system.ppo_epochs, cfg.system.rollout_length * cfg.arch.num_envs),
-        dtype=jax.numpy.uint32), axis=1)
+    draws = []
+    for shard_key in state.key:
+        # Each shard's own draws (ff_ippo.py:116-126 and :262-270).
+        key, sample_key = jax.random.split(shard_key)
+        noise = jax.random.gumbel(sample_key, (cfg.system.rollout_length, cfg.arch.num_envs,
+                                               env.num_agents, env.action_dim))
+        _, shuffle_key = jax.random.split(key)
+        perms = jax.numpy.argsort(jax.random.bits(
+            shuffle_key, (cfg.system.ppo_epochs, cfg.system.rollout_length * cfg.arch.num_envs),
+            dtype=jax.numpy.uint32), axis=1)
+        draws.append((np.asarray(noise), np.asarray(perms)))
     out, trajectories = jax.device_get(learn(state))
-    return jax.device_get(state), np.asarray(noise), np.asarray(perms), out, trajectories
+    return jax.device_get(state), draws, out, trajectories
 
 
 @functools.lru_cache(maxsize=None)
 def _port_trajectories():
-    jstate, noise, perms, _, _ = _jax_trajectories()
+    jstate, draws, _, _ = _jax_trajectories()
+    (noise, perms), = draws
     cfg = _prepare(load_config("default_ff_ippo", TINY + ["+arch.device=cpu"]))
     env, _ = tenvs.make(cfg, "cpu")
     learn, _, state = ff_ippo.learner_setup(
@@ -101,7 +107,7 @@ def _batch_major(tree):
 
 
 def test_return_trajectories_matches_jax_learner():
-    _, _, _, jout, jtraj = _jax_trajectories()
+    _, _, jout, jtraj = _jax_trajectories()
     out, traj = _port_trajectories()
     assert type(traj).__name__ == "PPOTransition" and traj.done.shape[:3] == (1, 8, 2)
     got, want = traj._asdict(), jtraj._asdict()
