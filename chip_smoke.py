@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py [--profile | --seeds | --offpolicy | --distributed | --programs |
-                           --dynamics]
+                           --standalone | --dynamics]
 
 Run from the root of the repository. It
   1. prints the torch and CUDA versions and the card's name and power limit;
@@ -40,24 +40,35 @@ Run from the root of the repository. It
      update); then runs updates through the kernels and through the plain GRU
      from the same state and draws, checks that they agree, and reports
      env-steps/s of the update on the resident and on the streaming kernels;
-  5. rec-MAPPO phase: the same for `default_rec_mappo` (a centralised recurrent
+  5. standalone phase: the port alone. `mava_tpu_torch/` (no `__pycache__`) is
+     copied into an empty temporary directory, which a child process takes as
+     its working directory and first path entry, with the kernels' build
+     directory (`MAVA_TPU_TORCH_BUILD_DIR`) another empty one; in the child
+     `jax`, `jaxlib`, `flax`, `optax` and `mava_tpu` cannot be imported. The
+     child builds the kernels with nvcc from the copy's `csrc/` and makes one
+     rec-IPPO update at the slice's size through `run_experiment` (launches
+     exactly 17 K1, 16 of each backward kernel, no stacked K1), which this
+     process holds against the same update made here (bitwise, else within
+     1e-6); then the copy's `plot_results` draws the run's marl-eval JSON, one
+     PNG a task;
+  6. rec-MAPPO phase: the same for `default_rec_mappo` (a centralised recurrent
      critic on the global state) through `rec_mappo.run_experiment`, with the
      launch counts set to 0 just before: exactly 17 forward and 16 of each
      backward kernel per update; one update on the kernels against one on the
      plain GRU;
-  6. SMAX phase: rec-MAPPO on SMAX 3s5z (`env=smax env/scenario=3s5z`: 8 agents,
+  7. SMAX phase: rec-MAPPO on SMAX 3s5z (`env=smax env/scenario=3s5z`: 8 agents,
      13 actions, 175 + 8 observation features, a 160-wide world state) through
      `rec_mappo.run_experiment`, 4 updates with exactly 17 forward and 16 of each
      backward kernel an update and its eval win rate; one update on the kernels
      against one on the plain GRU; env-steps/s; one update under
      `torch.profiler` (launches per rollout step, idle share);
-  7. rec-IQL phase: `default_rec_iql` on SMAX 3s5z through
+  8. rec-IQL phase: `default_rec_iql` on SMAX 3s5z through
      `rec_iql.run_experiment`, 50 updates with exactly 2 stacked forwards (the
      fused double-DQN target pass, S = 2, T = 20, B = 256), 2 forwards and 2 of
      each backward kernel an update; the fused target pass against the unfused
      one on the same sampled sequences; env-steps/s and mean Q; one update under
      `torch.profiler`;
-  8. grid phase: rec-MAPPO with `network=rcnn` (CNN [32, 32] 3x3 -> GRU H =
+  9. grid phase: rec-MAPPO with `network=rcnn` (CNN [32, 32] 3x3 -> GRU H =
      128 -> MLP [128]) on MaConnector con-10x10x10a at the shipped system
      config, 2 updates through `rec_mappo.run_experiment` with exactly 17
      forward and 16 of each backward kernel an update (B = 160 on the critic
@@ -66,7 +77,7 @@ Run from the root of the repository. It
      clean-10x10x10a, ff-MAPPO on LBF 8x8-2p-2f-coop and ff-IPPO on Gigastep
      hide_and_seek_5_vs_5_fobs (no GRU kernel). Each: env-steps/s, launches per
      rollout step and idle share of one profiled update, peak memory on the card;
-  9. SAC phase: `default_ff_isac` and `default_ff_masac` on MaSwarm spread-3ag as
+  10. SAC phase: `default_ff_isac` and `default_ff_masac` on MaSwarm spread-3ag as
      shipped (16 envs, rollout 2, 32 epochs, delay 4, batch 32, the
      1,000,000-item buffer on the card) through their `run_experiment`: the
      4,992-step explore phase and two rounds of 4 updates, every parameter
@@ -75,7 +86,7 @@ Run from the root of the repository. It
      `torch.profiler` (spans `sac/act`, `sac/train`): env-steps/s, launches per
      update and per train step, the device's idle share; the same for one
      ff-ISAC update on MaReacher reacher-2x1 after one batch explored;
-  10. articulated phase: for each of MaSwimmer swimmer-2x1, MaHopper hopper-3x1,
+  11. articulated phase: for each of MaSwimmer swimmer-2x1, MaHopper hopper-3x1,
      MaCheetah halfcheetah-6x1, MaWalker walker2d-2x3, MaAnt ant-4x2 and
      MaHumanoid humanoid-9-8, one step of 16 envs on the card against the same
      step on the CPU (rtol = atol = 1e-4), the step's host ms, launches and host
@@ -89,7 +100,7 @@ Run from the root of the repository. It
      continuous ff-IPPO on
      MaWalker (rollout cut to 8, 2 updates; one update of rollout 1 profiled
      for the launches per rollout step and the idle share);
-  11. resume phase: rec-IPPO on SMAX 3s5z at the shipped width with 64 envs
+  12. resume phase: rec-IPPO on SMAX 3s5z at the shipped width with 64 envs
      through `run_experiment`, 4 updates straight against 2 saved with
      `logger.checkpointing.save_full_state` and 2 resumed in a fresh run with
      `load_full_state`: parameters, optimizer moments, generators, env and
@@ -98,7 +109,7 @@ Run from the root of the repository. It
      4,096-item buffer, bitwise; ff-IPPO on RWARE tiny-2ag with
      `arch.stagger_resets=True`: the spread of the envs' step counts after the
      burn-in, the setup's seconds, one update;
-  12. seed phase: the stacked GRU kernels of the seed programs (the stacked K1
+  13. seed phase: the stacked GRU kernels of the seed programs (the stacked K1
      with a keep per entry, K2p, K2a and K2b with the stack entry as one more
      grid dimension) against their plain versions at S = 4 and 8 on the SMAX
      3s5z path shapes (T = 128, B = 128 and 64), gradients bitwise repeatable,
@@ -111,7 +122,7 @@ Run from the root of the repository. It
      step, cut in depth; the launches of a whole stacked update at S = 8
      against S = 1 (at most 1.5x) and env-steps/s at S = 1, 4, 8 beside one
      stock update, at a rollout of 32;
-  13. off-policy seed phase: the stacked K1 over 2S = 8 entries at rec-IQL's
+  14. off-policy seed phase: the stacked K1 over 2S = 8 entries at rec-IQL's
      target pass (T = 20, B = 256, H = 128; each online/target pair with its
      seed's keep) and the stacked K1 and backward over S = 4 at its loss pass,
      against their plain versions, bitwise repeatable, timed beside their
@@ -127,12 +138,12 @@ Run from the root of the repository. It
      writes' share of a stacked act step's host ms; the ring's bytes an entry
      and the peak memory; `ff_ippo_store_experience` writing a vault (under
      `build/`) and `examples.bc_from_vault` cloning from it;
-  14. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
+  15. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
      updates each through their `run_experiment` with the same health checks
      (they reach no hand-written kernel), three timed ff-IPPO updates, ff-IPPO on
      Matrax Penalty-25 for 30 updates with its eval return, and a short run of
      the bench program (`bench_torch.run` at 512 envs);
-  15. programs phase: the quickstart (`examples/quickstart.py`'s `main()` at
+  16. programs phase: the quickstart (`examples/quickstart.py`'s `main()` at
      its defaults, LBF 2s-8x8-2p-2f-coop at 128 envs, cut in depth to 131,072
      env-steps and 2 evaluations: its final eval return finite), then the
      tools of `mava_tpu_torch/scripts/`: `bench_suite` on rec_mappo_smax (1
@@ -143,7 +154,7 @@ Run from the root of the repository. It
      `bench_envs_sweep` at 16 and 64 envs, `bench_vmap_seeds` at S = 2 and
      `run_seeds` over 2 seeds of ff-IPPO on Matrax, each number beside the
      card's name and power limit;
-  16. distributed phase (data parallelism over ranks, `parallel/`): rec-IPPO
+  17. distributed phase (data parallelism over ranks, `parallel/`): rec-IPPO
      on RWARE tiny-2ag at the shipped width through `python -m
      torch.distributed.run --standalone --nproc-per-node=1` (a subprocess: 2
      updates and one evaluation under NCCL; its exit code and "completed"
@@ -162,12 +173,13 @@ Run from the root of the repository. It
      bitwise-equal staggered envs (a seed group of one rank: no all-reduce);
      the group is destroyed
      after it, so it runs last;
-  17. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
+  18. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
      512 envs under `torch.profiler`: host ms, launches and kernel ms per span,
      launches per rollout step, per-kernel totals and the device's idle share.
 `--seeds` builds the kernels and runs only the seed phase, `--offpolicy` only
 the off-policy seed phase, `--distributed` only the distributed phase,
-`--programs` only the programs phase. `--dynamics` runs
+`--programs` only the programs phase, `--standalone` only the standalone
+phase. `--dynamics` runs
 only two measurements of `envs/_dynamics.py` and exits:
 MaReacher with the checked solve of the parent against the unchecked one, and
 tracing a whole RK4 substep against tracing q̈ alone (`dynamics_ab`).
@@ -177,11 +189,18 @@ It prints one JSON line with the kernels' records, then, as its last line,
 
 from __future__ import annotations
 
+import importlib.util
+import inspect
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from pathlib import Path
+from typing import NamedTuple
 
 import torch
 from torch.utils import _pytree as pytree
@@ -886,6 +905,231 @@ def slice_phase(gru, gpu: str) -> dict:
     return {"launches": launches}
 
 
+# ------------------------------------------------------------------ standalone phase
+# The port alone, in a child process that runs from a copy of `mava_tpu_torch/`
+# and nothing else of the repo. `IMPORT_BLOCKER`, the first lines of every such
+# child, makes each import of these top-level names raise; `mava_tpu_torch` is
+# another name and imports.
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "mava_tpu")
+IMPORT_BLOCKER = f"""
+import sys
+
+BLOCKED = {BLOCKED!r}
+
+
+class ImportBlocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.partition(".")[0] in BLOCKED:
+            raise ImportError(f"{{name}} is blocked: the port runs on its own")
+        return None
+
+
+sys.meta_path.insert(0, ImportBlocker())
+"""
+# One rec-IPPO update at the slice's size, as a user runs it, logging the
+# marl-eval JSON that `plot_results` reads.
+STANDALONE_RUN = SLICE_OVERRIDES + ["system.num_updates=1", "network.gru_impl=pallas",
+                                    "logger.use_json=True"]
+# The child's main, after `IMPORT_BLOCKER` and the source of `rec_ippo_run`:
+# argv = device, the overrides as JSON, the path of the saved update. It builds
+# the kernels on the card into the (empty) build directory first, and prints
+# one JSON line last.
+STANDALONE_MAIN = """
+import json
+import time
+from pathlib import Path
+
+import mava_tpu_torch
+from mava_tpu_torch.ops import gru
+
+device, overrides, out_path = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3]
+copy = Path.cwd().resolve()
+if Path(mava_tpu_torch.__file__).resolve().parent != copy / "mava_tpu_torch":
+    raise SystemExit(f"mava_tpu_torch came from {mava_tpu_torch.__file__}, not from {copy}")
+build_dir = gru.kernel_build_dir()
+libraries = lambda: sorted(p.name for p in build_dir.glob("libgru_sequence_*.so"))
+if build_dir.exists() and libraries():
+    raise SystemExit(f"{build_dir} holds a kernel library before the first GRU call")
+build_seconds = None
+if device == "cuda":
+    start = time.perf_counter()
+    gru.build_kernels()
+    build_seconds = time.perf_counter() - start
+report = rec_ippo_run(overrides, out_path)
+report.update(module=mava_tpu_torch.__file__, build_dir=str(build_dir),
+              build_seconds=build_seconds, libraries=libraries() if build_dir.exists() else [],
+              loaded=sorted(name for name in sys.modules if name.partition(".")[0] in BLOCKED))
+print(json.dumps(report))
+"""
+
+
+def rec_ippo_run(overrides, out_path) -> dict:
+    """rec-IPPO through `run_experiment` at `overrides`, the launch counts set to
+    0 just before and each learn call timed; saves the last update's parameters
+    and losses to `out_path`. Its source is also sent to the standalone child,
+    so it imports what it needs itself."""
+    import time
+
+    import torch
+
+    from mava_tpu_torch.ops import gru
+    from mava_tpu_torch.systems.ppo import rec_ippo
+    from mava_tpu_torch.utils.config import load_config
+
+    config = load_config("default_rec_ippo", overrides)
+    sync = torch.cuda.synchronize if config.arch.get("device", "cuda") == "cuda" else (lambda: None)
+    update_seconds = []
+    setup = rec_ippo.learner_setup
+
+    def timed_setup(*args, **kwargs):
+        learn, actor, state = setup(*args, **kwargs)
+
+        def timed_learn(learner_state):
+            sync()
+            start = time.perf_counter()
+            out = learn(learner_state)
+            sync()
+            update_seconds.append(time.perf_counter() - start)
+            return out
+
+        return timed_learn, actor, state
+
+    rec_ippo.learner_setup = timed_setup
+    try:
+        gru.reset_launch_counts()
+        start = time.perf_counter()
+        performance, output = rec_ippo.run_experiment(config)
+        sync()
+        run_seconds = time.perf_counter() - start
+    finally:
+        rec_ippo.learner_setup = setup
+    torch.save({"params": [p.detach().cpu() for net in output.learner_state.params
+                           for p in net.parameters()],
+                "losses": {k: v.detach().cpu() for k, v in output.train_metrics.items()}}, out_path)
+    return {"launches": dict(gru.kernel_launches), "update_seconds": update_seconds,
+            "run_seconds": run_seconds, "performance": performance,
+            "env_steps_per_update": config.system.rollout_length * config.arch.num_envs}
+
+
+def copy_port(dest: Path) -> Path:
+    """`mava_tpu_torch/` without `__pycache__` copied into `dest`, which holds
+    nothing else of the repo; returns `dest`."""
+    shutil.copytree(Path(__file__).resolve().parent / "mava_tpu_torch", dest / "mava_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    return dest
+
+
+def run_alone(copy: Path, code: str, args, build_dir: Path, timeout: float = 600):
+    """`code` after `IMPORT_BLOCKER` in a child process whose working directory
+    and first path entry is `copy`, with the kernels built into `build_dir`."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(copy), MAVA_TPU_TORCH_BUILD_DIR=str(build_dir))
+    return subprocess.run([sys.executable, "-c", IMPORT_BLOCKER + code, *map(str, args)],
+                          cwd=copy, env=env, capture_output=True, text=True, timeout=timeout)
+
+
+def standalone_update(copy: Path, device: str, overrides, out_path: Path, build_dir: Path) -> dict:
+    """`rec_ippo_run` in a child run from `copy` (`STANDALONE_MAIN`); returns its report."""
+    code = inspect.getsource(rec_ippo_run) + STANDALONE_MAIN
+    proc = run_alone(copy, code, [device, json.dumps(list(overrides)), out_path], build_dir)
+    check(proc.returncode == 0, f"the standalone run failed ({proc.returncode}):\n"
+                                f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+# Where matplotlib is not installed, `plot_results` cannot draw: the child then
+# reads the JSON with the tool's own `collect` and `_series` and prints the
+# points of each (env, task, algorithm) series that it would have drawn.
+PLOT_MAIN = """
+import runpy
+runpy.run_module("mava_tpu_torch.scripts.plot_results", run_name="__main__", alter_sys=True)
+"""
+SERIES_MAIN = """
+import json
+from mava_tpu_torch.scripts import plot_results
+data = plot_results.collect([sys.argv[1]])
+print(json.dumps({f"{env}/{task}/{alg}": [len(plot_results._series(steps, sys.argv[2])[0])
+                                          for _, steps in runs]
+                  for env, tasks in data.items() for task, algs in tasks.items()
+                  for alg, runs in algs.items()}))
+"""
+
+
+def plot_alone(copy: Path, json_dir: Path, out_dir: Path, build_dir: Path) -> list:
+    """`python -m mava_tpu_torch.scripts.plot_results json_dir --out out_dir` run
+    from `copy` behind the import blocker; checks one PNG a (env, task) of the
+    JSON and returns the PNGs' names. Without matplotlib it checks instead that
+    the tool reads one series of points a task, and returns []."""
+    tasks = set()
+    for path in json_dir.rglob("metrics.json"):
+        tasks |= {(env, task) for env, by_task in json.loads(path.read_text()).items()
+                  for task in by_task}
+    check(len(tasks) > 0, f"no marl-eval JSON under {json_dir}")
+    metric = "mean_episode_return"
+    if importlib.util.find_spec("matplotlib") is None:
+        proc = run_alone(copy, SERIES_MAIN, [json_dir, metric], build_dir, timeout=300)
+        check(proc.returncode == 0, f"plot_results failed from the copy:\n{proc.stderr[-4000:]}")
+        series = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(len(series) == len(tasks) and all(n and min(n) > 0 for n in series.values()),
+              f"plot_results read {series} for the tasks {sorted(tasks)}")
+        print(f"  plot_results read {series} (points a run); no PNG drawn: matplotlib is not "
+              f"installed here")
+        return []
+    proc = run_alone(copy, PLOT_MAIN, [json_dir, "--metric", metric, "--out", out_dir], build_dir,
+                     timeout=300)
+    check(proc.returncode == 0, f"plot_results failed from the copy:\n{proc.stderr[-4000:]}")
+    pngs = sorted(p.name for p in out_dir.glob("*.png"))
+    check(len(pngs) == len(tasks), f"plot_results drew {pngs} for the tasks {sorted(tasks)}")
+    return pngs
+
+
+def max_difference(a: dict, b: dict) -> float:
+    """The largest |a - b| over the saved parameters and losses of two updates."""
+    check(len(a["params"]) == len(b["params"]) and a["losses"].keys() == b["losses"].keys(),
+          "the two updates saved different tensors")
+    pairs = list(zip(a["params"], b["params"])) + [(a["losses"][k], b["losses"][k])
+                                                   for k in b["losses"]]
+    return max((x.double() - y.double()).abs().max().item() for x, y in pairs)
+
+
+def standalone_phase(gpu: str) -> dict:
+    """One rec-IPPO update from a copy of the port alone, with kernels it builds
+    from the copy's source into an empty directory, against the same update in
+    this process; then the copy's `plot_results` on the run's JSON."""
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as alone, tempfile.TemporaryDirectory() as build, \
+            tempfile.TemporaryDirectory() as here:
+        copy = copy_port(Path(alone))
+        check(not (copy / "mava_tpu").exists() and not list(Path(build).iterdir()),
+              "the copy or the build directory is not empty")
+        child = standalone_update(copy, "cuda", STANDALONE_RUN, copy / "update.pt", Path(build))
+        child_seconds = time.perf_counter() - start
+        check(child["loaded"] == [], f"the standalone run loaded {child['loaded']}")
+        check(len(child["libraries"]) == 1, f"the standalone run built {child['libraries']}")
+        for _, counter, _, per_update in KERNELS:
+            check(child["launches"][counter] == per_update,
+                  f"standalone: {counter} launched {child['launches'][counter]} times in one "
+                  f"update, not {per_update}")
+        pngs = plot_alone(copy, copy / "results" / "json", copy / "plots", Path(build))
+        alone_seconds = time.perf_counter() - start
+
+        mine = rec_ippo_run(STANDALONE_RUN + [f"logger.base_exp_path={here}"],
+                            Path(here) / "update.pt")
+        err = max_difference(torch.load(copy / "update.pt"), torch.load(Path(here) / "update.pt"))
+    check(err <= 1e-6, f"the standalone update differs from this process's by {err:.3e}")
+    steps = child["env_steps_per_update"]
+    print(f"  the copy ({child['module']}) built its kernels in {child['build_seconds']:.1f} s "
+          f"into an empty directory ({child['libraries'][0]}); launches {child['launches']}")
+    print(f"  standalone update vs the same update in this process: max |diff| {err:.3e} "
+          f"({'bitwise' if err == 0 else 'not bitwise'}); plot_results drew {pngs}")
+    print(f"  env-steps/s of the update: standalone {steps / child['update_seconds'][0]:.1f}, "
+          f"in this process {steps / mine['update_seconds'][0]:.1f} on {gpu}")
+    print(f"  standalone phase {alone_seconds:.1f} s (the child {child_seconds:.1f} s, its run "
+          f"{child['run_seconds']:.1f} s), {time.perf_counter() - start:.1f} s with the "
+          f"in-process update")
+    return {"launches": child["launches"]}
+
+
 def mappo_phase(gru, gpu: str) -> dict:
     """rec-MAPPO, the centralised recurrent critic: the path of the CTDE systems
     that runs the kernels. Per update exactly the launches of rec-IPPO: the
@@ -1318,9 +1562,9 @@ ARTICULATED = [("maswimmer", "swimmer-2x1"), ("mahopper", "hopper-3x1"),
 # PERF.md §5 keeps their rates), for ff-ISAC only since the recording program
 # came to the distributed phase (ff-MASAC's there made 55,039 launches against
 # ff-ISAC's 54,779), and ff-IPPO's with a rollout of 1 step:
-# processing the profile of an update takes ~0.3 ms an event, over two minutes
-# for MaHumanoid's 240,000 launches (PERF.md §5 has every env's, from a run of
-# this phase that profiled them all).
+# processing the profile of an update took ~0.3 ms an event, over two minutes
+# for MaHumanoid's 240,000 launches, until `profiled_events` (PERF.md §5 has
+# every env's, from a run of this phase that profiled them all).
 ARTICULATED_CUT = ["env.kwargs.time_limit=2", "arch.num_eval_episodes=16",
                    "arch.absolute_metric=False"]
 ARTICULATED_SAC = ["system.explore_steps=32", "system.total_timesteps=32",
@@ -1338,6 +1582,35 @@ def inner_env(env):
     return env
 
 
+class ProfiledEvent(NamedTuple):
+    """What the phases read of a profiler event, in the units of torch's
+    `FunctionEvent`: times in us, and the correlation id, which a kernel
+    shares with the call that launched it."""
+
+    name: str
+    device_type: torch.autograd.DeviceType
+    id: int
+    start: float
+    end: float
+
+
+def profiled_events(prof) -> list:
+    """`prof`'s events read straight from its kineto results: what
+    `prof.events()` holds (the names demangled as it demangles them, the same
+    ids and times) without building its tree of Python events, which took ~0.3
+    ms an event on the card's host, minutes for an articulated env's step."""
+    demangled, out = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        name = e.name()
+        if name not in demangled:
+            demangled[name] = torch._C._demangle(name) if len(name) > 1 else name
+        out.append(ProfiledEvent(demangled[name], e.device_type(), e.correlation_id(),
+                                 e.start_ns() / 1e3, e.end_ns() / 1e3))
+    return out
+
+
 def launches_and_syncs(fn) -> dict:
     """`fn()` under torch.profiler: kernel launches, host syncs (stream, device
     and event synchronizes beyond those of profiling nothing) and
@@ -1349,7 +1622,7 @@ def launches_and_syncs(fn) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
-        events = list(prof.events())
+        events = profiled_events(prof)
         names = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU]
         return {"launches": sum("launch" in n.lower() and n.startswith(("cuda", "cu"))
                                 for n in names),
@@ -1568,7 +1841,7 @@ def profile_update(label: str, run, steps: int, rollout_length: int) -> dict:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = list(prof.events())
+    events = profiled_events(prof)
     # The spans are mirrored on the device's timeline as annotations: not work.
     on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                  and not e.name.startswith(span_prefix)]
@@ -1581,17 +1854,16 @@ def profile_update(label: str, run, steps: int, rollout_length: int) -> dict:
     print(f"  {label} update of {steps} env-steps: {wall_ms:.1f} ms host, {len(launches)} "
           f"launches, {len(kernels)} kernels")
     def launched_in(span):
-        return [e for e in launches if span.time_range.start <= e.time_range.start
-                <= span.time_range.end]
+        return [e for e in launches if span.start <= e.start <= span.end]
 
     # The stacked K1 is K1's kernel function; its launches sit in the wrapper's span.
     stacked_ids = {e.id for span in spans if span.name == "gru/fwd_stacked"
                    for e in launched_in(span)}
     span_launches, span_ms = {}, {}
-    for span in sorted(spans, key=lambda e: e.time_range.start):
+    for span in sorted(spans, key=lambda e: e.start):
         if span.name.startswith("gru/"):
             continue
-        lo, hi = span.time_range.start, span.time_range.end
+        lo, hi = span.start, span.end
         span_ms[span.name] = span_ms.get(span.name, 0.0) + (hi - lo) / 1e3
         if span.name == "sac_vmap/ring_write":  # one a step: summed below, not printed
             continue
@@ -1600,7 +1872,7 @@ def profile_update(label: str, run, steps: int, rollout_length: int) -> dict:
         inside = launched_in(span)
         span_launches[span.name] = span_launches.get(span.name, 0) + len(inside)
         ids = {e.id for e in inside}
-        ms = sum(k.time_range.end - k.time_range.start for k in kernels if k.id in ids) / 1e3
+        ms = sum(k.end - k.start for k in kernels if k.id in ids) / 1e3
         per_step = (f" ({len(inside) / rollout_length:.1f} a rollout step)"
                     if span.name.endswith(("/rollout", "/act")) else "")
         print(f"  {span.name}: {(hi - lo) / 1e3:.1f} ms host, {len(inside)} launches{per_step}, "
@@ -1611,17 +1883,17 @@ def profile_update(label: str, run, steps: int, rollout_length: int) -> dict:
         mine = [k for k in kernels
                 if (f"gru_{base}_kernel" in k.name or f"gru_{base}_resident_kernel" in k.name)
                 and (k.id in stacked_ids) == stacked]
-        ms = sum(k.time_range.end - k.time_range.start for k in mine) / 1e3
+        ms = sum(k.end - k.start for k in mine) / 1e3
         print(f"  gru_{counter}*: {len(mine)} launches, {ms:.3f} ms")
     busy, end = 0.0, float("-inf")
-    for lo, hi in sorted((e.time_range.start, e.time_range.end) for e in on_device):
+    for lo, hi in sorted((e.start, e.end) for e in on_device):
         busy += max(0.0, hi - max(lo, end))
         end = max(end, hi)
     idle = 1.0 - busy / 1e3 / wall_ms
     print(f"  device busy {busy / 1e3:.1f} ms of {wall_ms:.1f} ms: idle share {idle:.3f}")
     rollout = [e for e in spans if e.name.endswith(("/rollout", "/act"))]
-    per_step = (len([e for e in launches if rollout[0].time_range.start <= e.time_range.start
-                     <= rollout[0].time_range.end]) / rollout_length) if rollout else None
+    per_step = (len([e for e in launches if rollout[0].start <= e.start <= rollout[0].end])
+                / rollout_length) if rollout else None
     return {"wall_ms": wall_ms, "busy_ms": busy / 1e3, "idle_share": idle,
             "launches": len(launches), "launches_per_rollout_step": per_step,
             "span_launches": span_launches, "span_ms": span_ms}
@@ -2587,14 +2859,13 @@ def distributed_phase(gru, gpu: str) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             dp = dp_learn(dp.learner_state)
             torch.cuda.synchronize()
-        events = prof.events()
+        events = profiled_events(prof)
         # The dispatcher's op of `dist.all_reduce`, whatever the backend.
         reduce_ops = [e for e in events if e.name == "c10d::allreduce_"]
         nccl_kernels = [e for e in events if "nccl" in e.name.lower()
                         and e.device_type == torch.autograd.DeviceType.CUDA]
-        device_us = sum(getattr(e, "device_time", getattr(e, "cuda_time", 0.0))
-                        for e in nccl_kernels)
-        host_us = sum(e.cpu_time for e in reduce_ops)
+        device_us = sum(e.end - e.start for e in nccl_kernels)
+        host_us = sum(e.end - e.start for e in reduce_ops)
         check(len(reduce_ops) == minibatch_steps,
               f"the profiler counts {len(reduce_ops)} all-reduces, not {minibatch_steps}")
 
@@ -2682,12 +2953,19 @@ def main() -> int:
         programs_phase(gru, gpu)
         print(gpu)
         return 0
+    if "--standalone" in sys.argv[1:]:
+        print("standalone phase (rec-IPPO from a copy of the port alone; plot_results):")
+        standalone_phase(gpu)
+        print(gpu)
+        return 0
 
     print("kernel phase:")
     kernels = kernel_phase(gru)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     print("slice phase (rec-IPPO):")
     sliced = slice_phase(gru, gpu)
+    print("standalone phase (rec-IPPO from a copy of the port alone; plot_results):")
+    standalone = standalone_phase(gpu)
     print("rec-MAPPO phase:")
     mappo = mappo_phase(gru, gpu)
     print("SMAX phase (rec-MAPPO on 3s5z):")
@@ -2741,7 +3019,8 @@ def main() -> int:
     record = {"kernels": []}
     stacked = kernels["stacked"]
     for name, counter, replaces, _ in KERNELS:
-        paths = {"launches_smax_rec_mappo": smax["launches"][counter],
+        paths = {"launches_standalone_rec_ippo": standalone["launches"][counter],
+                 "launches_smax_rec_mappo": smax["launches"][counter],
                  "launches_rec_iql": iql["launches"][counter],
                  "launches_maconnector_rcnn_rec_mappo": grid["connector"]["launches"][counter],
                  "launches_bench_suite_rec_mappo_smax": programs["launches"][counter],

@@ -2,8 +2,8 @@
 
 The JAX package `mava_tpu` is the reference this port is held against; every
 module here mirrors the module of the same path there. The port imports
-`torch` and never JAX. It reads the YAML config tree under
-`mava_tpu/configs/` as data.
+`torch` and never JAX, and reads no file of `mava_tpu`: its YAML config tree
+is its own copy, `mava_tpu_torch/configs/`, and it ships its kernel source.
 
 Ported so far: the seven systems (ff/rec IPPO and MAPPO, rec-IQL, ff-ISAC,
 ff-MASAC), nine of the environments with the wrapper chain, the MLP and CNN

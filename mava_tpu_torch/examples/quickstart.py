@@ -10,7 +10,7 @@ tested module of the port:
 * the card   -> `mava_tpu_torch/systems/anakin.py::start_experiment` (the device,
                 fp32 products; under torchrun the process group, `parallel/`)
 * evaluation -> `mava_tpu_torch/evaluator.py` (greedy eval episodes, return table)
-* config     -> the YAML tree of `mava_tpu/configs/`, read by `utils/config.py`
+* config     -> the YAML tree of `mava_tpu_torch/configs/`, read by `utils/config.py`
                 (composable groups, CLI overrides)
 
 Run it on the card (defaults: LBF 2s-8x8-2p-2f-coop, 2M env-steps, 128 envs,

@@ -15,10 +15,10 @@ Dispatch is by the device of the tensors and nothing else:
     `gru_sequence_reference` and `gru_sequence_backward_reference` (and, for the
     backward's three passes one by one, `gru_backward_gates_reference`,
     `gru_backward_recurrence_reference`, `gru_backward_reduce_reference`);
-  * CUDA tensors go to the hand-written kernels of `csrc/gru_sequence.cu`, built
-    with nvcc for sm_90a on first use into `build/kernels/` and bound with
-    ctypes. A CUDA tensor never falls back to a plain version: a build or launch
-    failure raises.
+  * CUDA tensors go to the hand-written kernels of `csrc/gru_sequence.cu` (the
+    package ships it), built with nvcc for sm_90a on first use into
+    `kernel_build_dir()` and bound with ctypes. A CUDA tensor never falls back
+    to a plain version: a build or launch failure raises.
 
 Which hand-written kernels a shape takes is `kernel_route(T, B, H)`, a pure
 function of the shape:
@@ -69,7 +69,6 @@ from torch.autograd.function import once_differentiable
 from torch.profiler import record_function
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "gru_sequence.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -455,6 +454,24 @@ def gru_backward_reduce_sum_stacked_reference(partials: torch.Tensor, h: int):
 
 
 # --------------------------------------------------------------------------- build and bind
+BUILD_DIR_VARIABLE = "MAVA_TPU_TORCH_BUILD_DIR"
+
+
+def kernel_build_dir() -> Path:
+    """Where the kernels are built: `$MAVA_TPU_TORCH_BUILD_DIR` when set; else
+    `build/kernels/` of the checkout that holds the package (its parent holds
+    `pyproject.toml`); else `${XDG_CACHE_HOME:-~/.cache}/mava_tpu_torch/kernels`,
+    as for an installed package."""
+    chosen = os.environ.get(BUILD_DIR_VARIABLE)
+    if chosen:
+        return Path(chosen)
+    checkout = Path(__file__).resolve().parents[2]
+    if (checkout / "pyproject.toml").is_file():
+        return checkout / "build" / "kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "mava_tpu_torch" / "kernels"
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -473,8 +490,9 @@ def build_kernels(step_clocks: bool = False) -> ctypes.CDLL:
         return _libs[step_clocks]
     flags = NVCC_FLAGS + (("-DGRU_STEP_CLOCKS",) if step_clocks else ())
     key = hashlib.sha256(_SOURCE.read_bytes() + " ".join(flags).encode())
-    out = BUILD_DIR / f"libgru_sequence_{key.hexdigest()[:16]}.so"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir = kernel_build_dir()
+    out = build_dir / f"libgru_sequence_{key.hexdigest()[:16]}.so"
+    build_dir.mkdir(parents=True, exist_ok=True)
     # One build for all the ranks of a data-parallel run: the first to take
     # the lock builds, the others find the library when they get it.
     with open(out.with_name(f"{out.name}.lock"), "w") as lock:

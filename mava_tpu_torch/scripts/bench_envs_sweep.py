@@ -10,7 +10,7 @@ default) with the loop the port's tools share. One JSON line a point: {"metric",
 "num_envs", "value", "unit", "device"}, `device` the card's name and power
 limit; then, where matplotlib imports, the curve in
 `results/plots/sps_vs_envs_torch.png` in the repo's chart style
-(`scripts/plot_results.py`).
+(`python -m mava_tpu_torch.scripts.plot_results`).
 """
 
 from __future__ import annotations

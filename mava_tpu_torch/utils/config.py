@@ -1,7 +1,8 @@
 """YAML config composition with group swaps and strict CLI overrides.
 
 Port of `mava_tpu/utils/config.py` without JAX: the same composition rules over
-the same YAML tree, `mava_tpu/configs/`, read as data by path.
+the port's own copy of the JAX package's YAML tree, `mava_tpu_torch/configs/`
+(file for file the same), read as data by path.
 
   * `configs/default_<system>.yaml` declares `defaults:` (group -> option); each
     option loads `configs/<group>/<option>.yaml` into `cfg.<group>`, and an env
@@ -25,7 +26,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import yaml
 
-CONFIG_DIR = Path(__file__).resolve().parents[2] / "mava_tpu" / "configs"
+CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs"
 
 
 class Config(dict):

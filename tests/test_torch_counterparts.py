@@ -9,6 +9,13 @@ the JAX package (a module of `advanced_usage/` or `systems/` that defines
 behaviour with `NotImplementedError` except those in `ALLOWED_REFUSALS`, which
 the JAX package refuses too. Read from the source files (`ast`), importing
 neither package.
+
+The port's data and the repo's tools too: every YAML file of
+`mava_tpu/configs/` has its copy at the same path under
+`mava_tpu_torch/configs/` (`tests/test_torch_configs.py` holds them equal),
+and every root `scripts/*.py` its counterpart in `mava_tpu_torch/scripts/`
+but those in `NOT_PORTED` (ROADMAP's "What is not ported": TPU tools;
+`scripts/tpu_queue/` is a directory and not walked).
 """
 
 import ast
@@ -28,6 +35,11 @@ RENAMED = {
 # unknown network kind in the config, which the JAX package's registry refuses
 # too (a KeyError there).
 ALLOWED_REFUSALS = {("networks/factory.py", "_lookup")}
+# Root scripts with no counterpart: the TPU queue's summary, the
+# `jax.distributed` smoke over CPU processes, and the TPU A/B scripts.
+NOT_PORTED = {"harvest_queue.py", "multiproc_smoke.py"}
+NOT_PORTED_PREFIX = "profile_"
+SCRIPTS = ROOT / "scripts"
 
 
 def modules(package: Path):
@@ -82,6 +94,30 @@ def test_every_jax_module_has_a_counterpart(module):
 @pytest.mark.parametrize("program", programs())
 def test_every_jax_program_has_a_main_in_the_port(program):
     assert defines_main(PORT / program), f"mava_tpu_torch/{program} defines no main()"
+
+
+def root_scripts():
+    return sorted(p.name for p in SCRIPTS.glob("*.py"))
+
+
+@pytest.mark.parametrize("config", sorted(p.relative_to(JAX).as_posix()
+                                          for p in (JAX / "configs").rglob("*.yaml")))
+def test_every_jax_config_has_its_copy_in_the_port(config):
+    assert (PORT / config).is_file(), f"mava_tpu/{config}: no mava_tpu_torch/{config}"
+
+
+@pytest.mark.parametrize("script", root_scripts())
+def test_every_root_script_has_a_counterpart(script):
+    if script in NOT_PORTED or script.startswith(NOT_PORTED_PREFIX):
+        assert not (PORT / "scripts" / script).exists(), f"{script} is ported: drop it from NOT_PORTED"
+        return
+    assert (PORT / "scripts" / script).is_file(), f"scripts/{script}: no mava_tpu_torch/scripts/{script}"
+
+
+def test_the_not_ported_scripts_exist():
+    """`NOT_PORTED` names scripts that are there; none is stale."""
+    assert NOT_PORTED <= set(root_scripts())
+    assert any(s.startswith(NOT_PORTED_PREFIX) for s in root_scripts())
 
 
 def test_the_renamed_modules_are_gone_from_the_port():

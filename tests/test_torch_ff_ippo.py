@@ -142,7 +142,7 @@ def test_stagger_resets_raises(system, error, match, fast_config_overrides):
 
 
 @pytest.mark.parametrize("system", sorted(SYSTEMS))
-def test_checkpointing_is_not_yet_ported(system, fast_config_overrides, tmp_path, monkeypatch):
+def test_checkpointing_writes_each_round(system, fast_config_overrides, tmp_path, monkeypatch):
     """Checkpointing is ported (`utils/checkpointing.py`): `save_model` writes
     the params of each round under checkpoints/<system>/<uid>/<step>/."""
     monkeypatch.chdir(tmp_path)

@@ -68,5 +68,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "mava_tpu_torch.scripts.common", "mava_tpu_torch.scripts.run_seeds",
                  "mava_tpu_torch.scripts.bench_suite", "mava_tpu_torch.scripts.bench_band",
                  "mava_tpu_torch.scripts.bench_envs_sweep",
-                 "mava_tpu_torch.scripts.bench_vmap_seeds", "mava_tpu_torch.scripts.bench_mfu"):
+                 "mava_tpu_torch.scripts.bench_vmap_seeds", "mava_tpu_torch.scripts.bench_mfu",
+                 # the last user tool
+                 "mava_tpu_torch.scripts.plot_results"):
         assert name in report["modules"]

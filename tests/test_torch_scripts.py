@@ -3,7 +3,8 @@ asked for the CPU (`--device cpu`, `+arch.device=cpu`): `run_seeds` against
 `run_experiment` seed by seed; the lines of `bench_suite`, `bench_band`,
 `bench_envs_sweep`, `bench_vmap_seeds` and `bench_mfu`; `bench_mfu`'s counts
 against a hand reckoning; the one timing loop; and the port's marl-eval JSON
-through the unchanged `scripts/plot_results.py`.
+through the port's `plot_results`, whose `collect` and `_series` equal those of
+the root `scripts/plot_results.py` on the same files.
 
 How the GRU kernels' FLOPs are checked here, where no kernel runs: on CPU
 tensors the op takes its plain versions and launches nothing, so
@@ -14,11 +15,13 @@ the same with the stack), by kernel and shape, into the op's own counters.
 `bench_mfu`'s GRU FLOPs must then equal those launches times `kernel_work`,
 and the launches per update those that `chip_smoke.py` holds the card to."""
 
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -33,6 +36,7 @@ from mava_tpu_torch.scripts import (
     bench_suite,
     bench_vmap_seeds,
     common,
+    plot_results,
     run_seeds,
 )
 from mava_tpu_torch.systems.ppo import ff_ippo
@@ -289,9 +293,52 @@ def test_json_logs_plot_through_plot_results(tmp_path):
             *MATRAX, f"env.scenario.task_name={task}", "logger.use_json=True",
             f"logger.base_exp_path={base}"])
         ff_ippo.run_experiment(cfg)
-    out = subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "plot_results.py"),
+    out = subprocess.run([sys.executable, "-m", "mava_tpu_torch.scripts.plot_results",
                           os.path.join(base, "json"), "--out", str(tmp_path / "plots")],
-                         capture_output=True, text=True, timeout=120, check=True)
+                         cwd=ROOT, capture_output=True, text=True, timeout=120, check=True)
     pngs = sorted(os.listdir(tmp_path / "plots"))
     assert len(pngs) == 2 and all(p.endswith("_mean_episode_return.png") for p in pngs)
     assert out.stdout.count("wrote ") == 2
+
+
+def root_plot_results():
+    """The root `scripts/plot_results.py`, loaded under another name."""
+    spec = importlib.util.spec_from_file_location(
+        "root_plot_results", os.path.join(ROOT, "scripts", "plot_results.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def plain(data):
+    """`collect`'s nested defaultdicts as plain dicts."""
+    return {env: {task: dict(algs) for task, algs in tasks.items()} for env, tasks in data.items()}
+
+
+def test_plot_results_twin_collects_and_series_as_the_root_script(tmp_path):
+    """The twin of `tests/test_plot_results.py`: on the same marl-eval files
+    (two algorithms, runs of two budgets, a metric missing at one step) the
+    port's `collect` and `_series` equal the root script's, and so do the
+    fixed colour slots."""
+    root = root_plot_results()
+    files = []
+    for i, (alg, seeds, steps) in enumerate([("ff_ippo", (0, 5), 5), ("rec_iql", (3,), 10)]):
+        runs = {f"run_{seed}": {f"step_{k}": {"step_count": (k + 1) * 1000,
+                                              "mean_episode_return": [float(seed + k), 1.0],
+                                              **({"win_rate": [float(10 * k)]} if k != 2 else {})}
+                                for k in range(steps)} for seed in seeds}
+        path = tmp_path / f"r{i}" / "metrics.json"
+        path.parent.mkdir()
+        path.write_text(json.dumps({"EnvA": {"task-1": {alg: runs}, "task-2": {alg: runs}}}))
+        files.append(str(path))
+    for paths in (files, [str(tmp_path)]):
+        mine, theirs = plot_results.collect(paths), root.collect(paths)
+        assert plain(mine) == plain(theirs)
+    for runs in plain(mine)["EnvA"]["task-1"].values():
+        for _, steps in runs:
+            for metric in ("mean_episode_return", "win_rate", "absent"):
+                for a, b in zip(plot_results._series(steps, metric), root._series(steps, metric)):
+                    np.testing.assert_array_equal(a, b)
+    assert plot_results._PALETTE == root._PALETTE and plot_results._ALG_SLOTS == root._ALG_SLOTS
+    assert [plot_results._color_for(a, 3) for a in ("rec_ippo", "other")] == \
+        [root._color_for(a, 3) for a in ("rec_ippo", "other")]
