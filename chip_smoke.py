@@ -7,7 +7,8 @@
 Run from the root of the repository. It
   1. prints the torch and CUDA versions and the card's name and power limit;
   2. builds the GRU kernels of `mava_tpu_torch/csrc/gru_sequence.cu` with nvcc,
-     twice in parallel: as the port runs them, and with per-phase clock marks;
+     twice, as the port runs them and with per-phase clock marks, and the
+     solve kernel of `mava_tpu_torch/csrc/batched_solve.cu`, all three at once;
   3. kernel phase: runs K1 (forward), K2p (gate recompute), K2a (reverse
      recurrence) and K2b (dWh / db_hn reduction: partial sums over slices of the
      rows, then their sum in slice order) against their plain PyTorch versions
@@ -86,11 +87,21 @@ Run from the root of the repository. It
      `torch.profiler` (spans `sac/act`, `sac/train`): env-steps/s, launches per
      update and per train step, the device's idle share; the same for one
      ff-ISAC update on MaReacher reacher-2x1 after one batch explored;
-  11. articulated phase: for each of MaSwimmer swimmer-2x1, MaHopper hopper-3x1,
+  11. articulated phase: the batched solve kernel (`csrc/batched_solve.cu`)
+     against its plain version `torch.linalg.solve_ex` at every env's system
+     size (n = 2 to 23) for 16, 320 and 2,560 systems (rtol = atol = 1e-4,
+     repeatable bit for bit), timed beside its bound; then for MaReacher
+     reacher-2x1 and each of MaSwimmer swimmer-2x1, MaHopper hopper-3x1,
      MaCheetah halfcheetah-6x1, MaWalker walker2d-2x3, MaAnt ant-4x2 and
-     MaHumanoid humanoid-9-8, one step of 16 envs on the card against the same
-     step on the CPU (rtol = atol = 1e-4), the step's host ms, launches and host
-     syncs (none allowed) and the trace time of its q̈; ff-ISAC on each through
+     MaHumanoid humanoid-9-8, one step of 16 envs on the card (the integrator
+     captured as a CUDA graph and replayed) against the same step on the CPU
+     (rtol = atol = 1e-4) and against the same step with the integrator run op
+     by op (bit for bit); the step's host ms, host API launches, device kernels
+     and host syncs (none allowed) both ways, the trace time of its q̈, the
+     capture's seconds and the bytes it added to the graphs' pool (MaHumanoid
+     also at 320 envs); the solve kernel's launch count set to 0 before the
+     runs that follow and read after them (a replay counts what it launches);
+     ff-ISAC on each through
      `run_experiment` (16 envs, rollout 2, 32 epochs, delay 4, batch 32, the
      1,000,000-item buffer on the card; cut in depth: one batch explored, one
      round of one update, episodes of 2 steps) with every parameter changed and
@@ -180,9 +191,11 @@ Run from the root of the repository. It
 the off-policy seed phase, `--distributed` only the distributed phase,
 `--programs` only the programs phase, `--standalone` only the standalone
 phase. `--dynamics` runs
-only two measurements of `envs/_dynamics.py` and exits:
-MaReacher with the checked solve of the parent against the unchecked one, and
-tracing a whole RK4 substep against tracing q̈ alone (`dynamics_ab`).
+only measurements for the articulated suite and exits: tracing a whole RK4
+substep against tracing q̈ alone (`dynamics_ab`), the host seconds of SAC
+updates at the learning anchors' configurations (`anchor_sizing`), and
+whether `torch.linalg.solve_ex` alone can be captured in a CUDA graph at each
+system size (`library_solve_captures`).
 It prints one JSON line with the kernels' records, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -1612,9 +1625,10 @@ def profiled_events(prof) -> list:
 
 
 def launches_and_syncs(fn) -> dict:
-    """`fn()` under torch.profiler: kernel launches, host syncs (stream, device
-    and event synchronizes beyond those of profiling nothing) and
-    device-to-host copies."""
+    """`fn()` under torch.profiler: host API launches (a `cudaGraphLaunch` is
+    one), device kernels (those a graph replays included), host syncs
+    (stream, device and event synchronizes beyond those of profiling nothing)
+    and device-to-host copies."""
     from torch.profiler import ProfilerActivity, profile
 
     def read(run):
@@ -1624,42 +1638,134 @@ def launches_and_syncs(fn) -> dict:
             torch.cuda.synchronize()
         events = profiled_events(prof)
         names = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+        on_card = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
         return {"launches": sum("launch" in n.lower() and n.startswith(("cuda", "cu"))
                                 for n in names),
+                "kernels": sum(not n.startswith(("Memcpy", "Memset")) for n in on_card),
                 "syncs": sum(n in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                                    "cudaEventSynchronize") for n in names),
-                "dtoh": sum(e.device_type == torch.autograd.DeviceType.CUDA and "DtoH" in e.name
-                            for e in events)}
+                "dtoh": sum("DtoH" in n for n in on_card)}
 
     nothing, got = read(lambda: None), read(fn)
     return {k: got[k] - nothing[k] for k in got}
+
+
+def pool_bytes(pool) -> int:
+    """Bytes the caching allocator holds in the memory pool `pool` (a CUDA
+    graph pool handle)."""
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == tuple(pool))
+
+
+# The envs whose step goes through `envs/_dynamics.py` `Integrator`: MaReacher
+# and the articulated suite.
+INTEGRATOR_ENVS = [("mareacher", "reacher-2x1"), *ARTICULATED]
+# The largest batch a step is captured at: an absolute-metric evaluation of
+# 320 episodes, on the largest body.
+LARGEST_CAPTURE = ("mahumanoid", 320)
+
+
+SOLVE_SOURCE = "mava_tpu_torch/csrc/batched_solve.cu"
+SOLVE_REPLACES = ("mava_tpu/envs/pointcloud3d.py:58 (jnp.linalg.solve, compiled by XLA: no TPU "
+                  "kernel; also mareacher.py:116, maswimmer.py:170, mahopper.py:192, "
+                  "macheetah.py:227)")
+# (n, batch): the system size of each env that integrates through the solve
+# (MaReacher 2, MaSwimmer 5, MaHopper 6, MaCheetah and MaWalker 9, MaAnt 14,
+# MaHumanoid 23) at a step of 16 envs, at the 320 episodes of an absolute
+# metric and at 8 stacked seeds of 320 (2,560 rows).
+SOLVE_SHAPES = [(n, b) for n in (2, 5, 6, 9, 14, 23) for b in (16, 320, 2560)]
+SOLVE_MAIN = (23, 16)  # MaHumanoid's step of 16 envs: 40 solves a step
+
+
+def solve_bound_ms(n: int, b: int) -> tuple:
+    """(ms, what bounds it) of b solves of n x n: M and b read once and x
+    written once, against 2n³/3 + 2n² FLOP a system."""
+    flops = b * (2 * n ** 3 / 3 + 2 * n ** 2)
+    nbytes = 4 * b * (n * n + 2 * n)
+    by_ops, by_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def solve_kernel_check(gpu: str) -> dict:
+    """The batched solve kernel (`ops/solve.py`) against its plain version,
+    `torch.linalg.solve_ex`, at every env's system size (`SOLVE_SHAPES`):
+    general matrices that need row swaps, rtol = atol = 1e-4, repeatable bit
+    for bit. Timed at each shape: the kernel device-only (`device_ms`) and
+    host-inclusive (`time_ms`), the plain version host-inclusive (a CUDA graph
+    cannot hold it at every shape, the reason the kernel exists) and, at
+    `SOLVE_MAIN`, device-only too."""
+    from mava_tpu_torch.ops import solve
+
+    start = time.perf_counter()
+    solve.build_solve_kernel()
+    built_s = time.perf_counter() - start
+    errs, times = {}, {}
+    for n, b in SOLVE_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(n * 10_000 + b)
+        m = torch.randn(b, n, n, generator=gen, device="cuda")
+        m += n * torch.eye(n, device="cuda").flip(0)
+        rhs = torch.rand(b, n, generator=gen, device="cuda") * 2 - 1
+        got, want = solve.batched_solve(m, rhs), solve.batched_solve_reference(m, rhs)
+        errs[(n, b)] = (got - want).abs().max().item()
+        check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+              f"the solve kernel at n={n} b={b} is {errs[(n, b)]:.2e} off its plain version")
+        check(torch.equal(solve.batched_solve(m, rhs), got),
+              f"the solve kernel at n={n} b={b} is not repeatable")
+        t = {"ms": device_ms(lambda: solve.batched_solve(m, rhs)),
+             "host_ms": time_ms(lambda: solve.batched_solve(m, rhs)),
+             "plain_host_ms": time_ms(lambda: solve.batched_solve_reference(m, rhs))}
+        if (n, b) == SOLVE_MAIN:
+            t["plain_ms"] = device_ms(lambda: solve.batched_solve_reference(m, rhs))
+        t["bound_ms"], t["bound_by"] = solve_bound_ms(n, b)
+        times[(n, b)] = t
+        print(f"  solve n={n} b={b}: max |err| {errs[(n, b)]:.1e}; kernel {t['ms']:.4f} ms "
+              f"device-only, {t['host_ms']:.4f} host-incl.; plain {t['plain_host_ms']:.4f} "
+              f"host-incl." + (f", {t['plain_ms']:.4f} device-only" if "plain_ms" in t else "")
+              + f"; bound {t['bound_ms']:.6f} ({t['bound_by']})")
+    print(f"  the solve kernel built in {built_s:.1f} s; on {gpu}")
+    return {"errs": errs, "times": times}
 
 
 def articulated_step(env_name: str, scenario: str, gpu: str) -> dict:
     """One step of 16 envs on the card against the same step on the CPU, from a
     state and actions made on the CPU (the shipped reset, the bodies moving at
     up to 1 unit/s into and off the ground): states, views, rewards, discounts
-    and step types to rtol = atol = 1e-4. Then what a step costs: host ms,
-    launches and host syncs (none allowed), and the trace of the 16-env q̈."""
+    and step types to rtol = atol = 1e-4. The integrator's step is captured as
+    a CUDA graph at the first step and replayed after; the same step with the
+    integrator run op by op (`Integrator.eager`, what a step ran until the
+    capture came) must give the same state bit for bit. Then what a step costs
+    both ways, in turns (op by op, replayed, replayed, op by op): host ms, host
+    API launches, device kernels and host syncs (none allowed); the trace time
+    of the 16-env q̈, the capture's seconds and the bytes it added to the
+    graphs' pool."""
+    import copy
+
     from mava_tpu_torch import envs
-    from mava_tpu_torch.envs._dynamics import BodyState
+    from mava_tpu_torch.envs._dynamics import graph_pool
     from mava_tpu_torch.utils.config import load_config
 
     cfg = load_config("default_ff_isac", [f"env={env_name}", f"env/scenario={scenario}",
                                           *ARTICULATED_CUT])
     cpu = inner_env(envs.make(cfg, "cpu")[0])
     card = inner_env(envs.make(cfg, torch.device("cuda"))[0])
+    eager = copy.copy(card)
+    eager.integrate = card.integrate.eager
+    pool = graph_pool(torch.device("cuda"))
     gen = torch.Generator().manual_seed(0)
     state, _ = cpu.reset(cpu.reset_noise(16, gen))
     state = state._replace(qd=torch.rand(state.q.shape, generator=gen) * 2 - 1)
     action = torch.rand(16, cpu.num_agents, cpu.action_dim, generator=gen) * 2.4 - 1.2
     want, want_ts = cpu.step(state, action)
-    on_card, action = BodyState(*(x.cuda() for x in state)), action.cuda()
+    on_card, action = type(state)(*(x.cuda() for x in state)), action.cuda()
     torch.cuda.synchronize()
     start = time.perf_counter()
-    got, got_ts = card.step(on_card, action)
+    by_ops, _ = eager.step(on_card, action)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - start
+    bytes_before = pool_bytes(pool)
+    got, got_ts = card.step(on_card, action)
+    torch.cuda.synchronize()
+    graph_bytes = pool_bytes(pool) - bytes_before
     pairs = {"q": (got.q, want.q), "qd": (got.qd, want.qd),
              "agents_view": (got_ts.observation.agents_view, want_ts.observation.agents_view),
              "reward": (got_ts.reward, want_ts.reward)}
@@ -1670,26 +1776,58 @@ def articulated_step(env_name: str, scenario: str, gpu: str) -> dict:
     for k in ("discount", "step_type"):
         check(torch.equal(getattr(got_ts, k).cpu(), getattr(want_ts, k)),
               f"{env_name}: the card's {k} differs from the CPU's")
-    seconds = []
-    for _ in range(2):
+    replay_err = max((got.q - by_ops.q).abs().max().item(),
+                     (got.qd - by_ops.qd).abs().max().item())
+    check(torch.equal(got.q, by_ops.q) and torch.equal(got.qd, by_ops.qd),
+          f"{env_name}: the replayed step is {replay_err:.2e} off the step run op by op")
+    seconds = {"eager": [], "graph": []}
+    for route in ("eager", "graph", "graph", "eager"):
+        env = eager if route == "eager" else card
         torch.cuda.synchronize()
         start = time.perf_counter()
-        card.step(got, action)
+        env.step(got, action)
         torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - start)
-    costs = launches_and_syncs(lambda: card.step(got, action))
-    check(costs["syncs"] == 0 and costs["dtoh"] == 0,
-          f"{env_name}: an env step reads back to the host: {costs}")
-    trace_s = {str(tuple(k[0][0])) + " " + str(k[0][2]): round(v, 2)
-               for k, v in card.integrate.trace_seconds().items()}
-    ms = sum(seconds) / len(seconds) * 1e3
+        seconds[route].append(time.perf_counter() - start)
+    costs = {route: launches_and_syncs(lambda: env.step(got, action))
+             for route, env in (("eager", eager), ("graph", card))}
+    for route, c in costs.items():
+        check(c["syncs"] == 0 and c["dtoh"] == 0,
+              f"{env_name}: an env step ({route}) reads back to the host: {c}")
+    graph_launches = launches_and_syncs(lambda: card.integrate(got.q, got.qd, got.qd))
+    check(costs["graph"]["launches"] < costs["eager"]["launches"],
+          f"{env_name}: the replayed step launches no less than the eager one: {costs}")
+    key = lambda k: str(tuple(k[0][0])) + " " + str(k[0][2])  # noqa: E731
+    trace_s = {key(k): round(v, 2) for k, v in card.integrate.trace_seconds().items()}
+    capture_s = {key(k): round(v, 2) for k, v in card.integrate.capture_seconds().items()}
+    ms = {route: sum(v) / len(v) * 1e3 for route, v in seconds.items()}
+    out = {"step_ms": ms["graph"], "eager_step_ms": ms["eager"], **costs["graph"],
+           "eager": costs["eager"], "integrator": graph_launches, "replay_err": replay_err,
+           "trace_s": trace_s, "capture_s": capture_s, "graph_bytes": graph_bytes, "errs": errs}
+    if env_name == LARGEST_CAPTURE[0]:
+        n = LARGEST_CAPTURE[1]
+        big, _ = card.reset(card.reset_noise(n, torch.Generator(device="cuda").manual_seed(1)))
+        bytes_before = pool_bytes(pool)
+        card.step(big, torch.zeros(n, card.num_agents, card.action_dim, device="cuda"))
+        torch.cuda.synchronize()
+        out["graph_bytes_largest"] = pool_bytes(pool) - bytes_before
+        out["capture_s_largest"] = card.integrate.capture_seconds()[
+            tuple((x.shape, x.dtype, x.device) for x in (big.q, big.qd, big.q))]
+        print(f"  {env_name} at {n} envs: captured in {out['capture_s_largest']:.2f} s, "
+              f"{out['graph_bytes_largest']} bytes added to the graphs' pool")
     print(f"  {env_name} {scenario}: card vs CPU max |err| "
           + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-          + f"; an env step of 16 envs {ms:.1f} ms host ("
-          + " ".join(f"{x * 1e3:.1f}" for x in seconds) + f"), {costs['launches']} launches, "
-          f"{costs['syncs']} host syncs, {costs['dtoh']} device-to-host copies; q̈ traced in "
-          f"{trace_s} s (the first step {first_s:.1f} s) on {gpu}")
-    return {"step_ms": ms, **costs, "trace_s": trace_s, "errs": errs}
+          + f"; replayed vs op by op {replay_err:.1e}; an env step of 16 envs, op by op "
+          f"{ms['eager']:.1f} ms host (" + " ".join(f"{x * 1e3:.1f}" for x in seconds["eager"])
+          + f"), {costs['eager']['launches']} launches, {costs['eager']['kernels']} kernels; "
+          f"replayed {ms['graph']:.2f} ms host ("
+          + " ".join(f"{x * 1e3:.2f}" for x in seconds["graph"])
+          + f"), {costs['graph']['launches']} launches, {costs['graph']['kernels']} kernels "
+          f"(the integrator alone {graph_launches['launches']} launches, "
+          f"{graph_launches['kernels']} kernels); {costs['graph']['syncs']} host syncs, "
+          f"{costs['graph']['dtoh']} device-to-host copies; q̈ traced in {trace_s} s (the first "
+          f"step op by op {first_s:.1f} s), the step captured in {capture_s} s, "
+          f"{graph_bytes} bytes added to the graphs' pool, on {gpu}")
+    return out
 
 
 def articulated_phase(gru, gpu: str, start: float) -> dict:
@@ -1699,10 +1837,15 @@ def articulated_phase(gru, gpu: str, start: float) -> dict:
     with env-steps/s, and a profiled update on MaHopper; ff-MASAC on
     MaHumanoid and MaHopper the same, unprofiled; continuous ff-IPPO on
     MaWalker."""
-    out = {}
-    for env_name, scenario in ARTICULATED:
+    from mava_tpu_torch.ops import solve
+
+    out = {"solve": solve_kernel_check(gpu)}
+    for env_name, scenario in INTEGRATOR_ENVS:
         out[env_name] = articulated_step(env_name, scenario, gpu)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
+    # The main path of the solve kernel: the runs below, every env step of
+    # which replays a captured step that holds 4 x substeps solves.
+    solve.reset_launch_count()
     sac = [("ff_isac", "default_ff_isac", False, env_name, scenario)
            for env_name, scenario in ARTICULATED]
     sac += [("ff_masac", "default_ff_masac", True, env_name, scenario)
@@ -1738,57 +1881,95 @@ def articulated_phase(gru, gpu: str, start: float) -> dict:
           f"the {before / 1e9:.3f} GB allocated before the run, on {gpu}")
     out[label] = {"env_steps_per_s": rate, "idle_share": prof["idle_share"], "peak_gb": peak_gb,
                   "launches_per_rollout_step": prof["launches_per_rollout_step"]}
+    out["solve_launches"] = solve.launches
+    check(solve.launches > 0, "the articulated runs launched no solve kernel")
+    print(f"  the articulated runs above launched the solve kernel {solve.launches} times")
+    return out
+
+
+def library_solve_captures(gpu: str) -> dict:
+    """`--dynamics`: whether `torch.linalg.solve_ex` alone can be captured in a
+    CUDA graph at each of `SOLVE_SHAPES` (each in a graph and pool of its own),
+    and if so whether its replay equals an eager call: why the captured
+    articulated step needs the hand-written solve kernel. Run last: a failed
+    capture can leave the card's error state behind."""
+    out = {}
+    for n, b in SOLVE_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(n * 10_000 + b)
+        m = torch.randn(b, n, n, generator=gen, device="cuda")
+        m += n * torch.eye(n, device="cuda").flip(0)
+        rhs = torch.rand(b, n, generator=gen, device="cuda") * 2 - 1
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            torch.linalg.solve_ex(m, rhs, check_errors=False)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                got = torch.linalg.solve_ex(m, rhs, check_errors=False)[0]
+            graph.replay()
+            torch.cuda.synchronize()
+            want = torch.linalg.solve_ex(m, rhs, check_errors=False)[0]
+            out[(n, b)] = f"captured, replay vs eager {(got - want).abs().max().item():.1e}"
+        except RuntimeError as error:
+            out[(n, b)] = f"not captured: {str(error).splitlines()[0]}"
+        print(f"  torch.linalg.solve_ex n={n} b={b}: {out[(n, b)]} on {gpu}")
+    return out
+
+
+# The SAC anchors' configurations (ROADMAP Queue 1, PERF.md §6, PR 16): the
+# shipped config with the anchor's env, num_envs and seed count.
+HOPPER_64 = ["env=mahopper", "env/scenario=hopper-3x1", "arch.num_envs=64",
+             "system.explore_steps=128"]
+ANCHOR_SIZING = [
+    ("ff-MASAC, 8 stacked seeds, MaReacher reacher-2x1, 16 envs",
+     lambda: sac_vmap_learner(8, True, ["env=mareacher", "system.explore_steps=64"])),
+    ("ff-MASAC, 8 stacked seeds, MaSwarm spread-3ag, 16 envs, reward_scale 0.1",
+     lambda: sac_vmap_learner(8, True, ["system.explore_steps=64", "system.reward_scale=0.1"])),
+    ("ff-ISAC, MaHopper hopper-3x1, 64 envs",
+     lambda: sac_learner("default_ff_isac", False, HOPPER_64)),
+    ("ff-ISAC, 4 stacked seeds, MaHopper hopper-3x1, 64 envs",
+     lambda: sac_vmap_learner(4, False, HOPPER_64)),
+    ("ff-MASAC, 4 stacked seeds, MaHopper hopper-3x1, 64 envs",
+     lambda: sac_vmap_learner(4, True, HOPPER_64)),
+    ("ff-ISAC, 4 stacked seeds, MaHumanoid humanoid-9-8, 64 envs",
+     lambda: sac_vmap_learner(4, False, ["env=mahumanoid", "env/scenario=humanoid-9-8",
+                                          "arch.num_envs=64", "system.explore_steps=128"])),
+]
+
+
+def anchor_sizing(gpu: str, timed: int = 3) -> dict:
+    """`--dynamics`: the host seconds of a SAC update (2 env steps and 32
+    train steps) at each of `ANCHOR_SIZING`, after the explore phase and one
+    warm-up update: what sizes a learning anchor's chip time."""
+    out = {}
+    for label, make in ANCHOR_SIZING:
+        cfg, explore, learn, state = make()
+        state, _ = explore(state)
+        seconds = []
+        for _ in range(timed + 1):
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            state = learn(state).learner_state
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - begin)
+        out[label] = seconds[1:]
+        print(f"  {label}: an update (warm-up, then timed) "
+              + " ".join(f"{x:.3f}" for x in seconds) + f" s, "
+              f"{cfg.system.rollout_length * cfg.arch.num_envs} env-steps a seed, on {gpu}")
     return out
 
 
 def dynamics_ab(gpu: str) -> None:
-    """`--dynamics`: two choices of `envs/_dynamics.py` measured on the card.
-    (1) MaReacher's solve as it stood until PR 8, `torch.linalg.solve` with its
-    error check, against `solve_ex` without it, run A B B A in one process:
-    an env step's launches, host syncs and ms, and an ff-ISAC update's
-    env-steps/s. (2) A whole RK4 substep traced as one graph against RK4 over
-    the traced q̈ (what a step runs) on MaHopper and MaCheetah: trace s and
-    ms a substep."""
-    import mava_tpu_torch.envs.mareacher as reacher
-    from mava_tpu_torch.envs import _dynamics
+    """`--dynamics`: a choice of `envs/_dynamics.py` measured on the card: a
+    whole RK4 substep traced as one graph against RK4 over the traced q̈ (what
+    a step runs, captured) on MaHopper and MaCheetah: trace s and ms a
+    substep, op by op. (Until the step was captured it also held MaReacher's
+    checked solve against the unchecked one: a capture holds no host read,
+    so the checked solve cannot be on the path at all.)"""
     from mava_tpu_torch.envs.mahopper import MaHopper
     from mava_tpu_torch.envs.macheetah import MaCheetah
 
-    solvers = {"linalg.solve (checked)": lambda m, b: torch.linalg.solve(m, b),
-               "solve_ex (unchecked)": _dynamics.solve}
-    for name in ("linalg.solve (checked)", "solve_ex (unchecked)", "solve_ex (unchecked)",
-                 "linalg.solve (checked)"):
-        reacher.solve = solvers[name]
-        try:
-            env = reacher.MaReacher(2, 1, device="cuda")
-            state, _ = env.reset(env.reset_noise(16, torch.Generator(device="cuda").manual_seed(0)))
-            action = torch.zeros(16, 2, 1, device="cuda")
-            env.step(state, action)  # traces q̈
-            seconds = []
-            for _ in range(5):
-                torch.cuda.synchronize()
-                begin = time.perf_counter()
-                env.step(state, action)
-                torch.cuda.synchronize()
-                seconds.append((time.perf_counter() - begin) * 1e3)
-            costs = launches_and_syncs(lambda: env.step(state, action))
-            cfg, explore, learn, sac = sac_learner("default_ff_isac", False,
-                                                   ["env=mareacher", "system.explore_steps=32"])
-            sac, _ = explore(sac)
-            rates = []
-            for _ in range(4):
-                torch.cuda.synchronize()
-                begin = time.perf_counter()
-                sac = learn(sac).learner_state
-                torch.cuda.synchronize()
-                rates.append(32 / (time.perf_counter() - begin))
-        finally:
-            reacher.solve = _dynamics.solve
-        print(f"  MaReacher reacher-2x1 with {name}: an env step of 16 envs "
-              + " ".join(f"{x:.1f}" for x in seconds) + f" ms, {costs['launches']} launches, "
-              f"{costs['syncs']} host syncs, {costs['dtoh']} device-to-host copies; ff-ISAC "
-              "updates after the first " + " ".join(f"{x:.1f}" for x in rates[1:])
-              + f" env-steps/s on {gpu}")
     for cls in (MaHopper, MaCheetah):
         env = cls(device="cuda")
         state, _ = env.reset(env.reset_noise(16, torch.Generator(device="cuda").manual_seed(0)))
@@ -2920,18 +3101,35 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     print(gpu)
     if "--dynamics" in sys.argv[1:]:
-        print("dynamics A/B (the solve's check; tracing q̈ or a whole substep):")
+        print("dynamics A/B (tracing q̈ or a whole substep):")
         dynamics_ab(gpu)
+        print("SAC updates at the anchors' configurations:")
+        anchor_sizing(gpu)
+        print("torch.linalg.solve_ex in a CUDA graph:")
+        library_solve_captures(gpu)
+        print(gpu)
         return 0
 
+    from mava_tpu_torch.ops import solve
+
     start = time.perf_counter()
-    marked = threading.Thread(target=gru.build_kernels, kwargs={"step_clocks": True})
-    marked.start()
+    # One nvcc a source and flag set, all at once: the GRU kernels with and
+    # without clock marks, and the articulated envs' solve kernel.
+    solve_build = {}
+    builds = [threading.Thread(target=gru.build_kernels, kwargs={"step_clocks": True}),
+              threading.Thread(target=lambda: solve_build.update(
+                  log=gru.build_library(solve.SOURCE)[1]))]
+    for thread in builds:
+        thread.start()
     gru.build_kernels()
-    marked.join()
+    for thread in builds:
+        thread.join()
+    solve.build_solve_kernel()
     print(f"build: {time.perf_counter() - start:.1f} s")
     if gru.build_log:
         print(gru.build_log.strip())
+    if solve_build.get("log"):
+        print(solve_build["log"].strip())
     if "--seeds" in sys.argv[1:]:
         print("seed phase (stacked kernels; rec-IPPO vmap seeds, ff-IPPO sweep, rec-IPPO PBT):")
         seed_phase(gru, gpu)
@@ -2981,7 +3179,7 @@ def main() -> int:
     sac_phase(gru, gpu)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     print("articulated phase (the six articulated envs; ff-ISAC, ff-MASAC, continuous ff-IPPO):")
-    articulated_phase(gru, gpu, start)
+    articulated = articulated_phase(gru, gpu, start)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     print("resume phase (rec-IPPO SMAX 3s5z full-state resume; ff-ISAC resume; stagger):")
     resume = resume_phase(gru, gpu)
@@ -3141,6 +3339,23 @@ def main() -> int:
                         "waves": pair["waves"]}} if counter == "fwd_stacked" else {}),
             },
         })
+    main_solve = articulated["solve"]["times"][SOLVE_MAIN]
+    record["kernels"].append({
+        "name": "batched_solve (LU with partial pivoting, one system a warp)", "route": "cuda",
+        "source": SOLVE_SOURCE, "replaces": SOLVE_REPLACES,
+        "launches": articulated["solve_launches"],
+        "launches_path": "the articulated phase's ff-ISAC, ff-MASAC and ff-IPPO runs (graph "
+                         "replays count what they launch)",
+        "max_abs_err": max(articulated["solve"]["errs"].values()),
+        "ms": main_solve["ms"], "plain_ms": main_solve["plain_ms"],
+        "bound_ms": main_solve["bound_ms"], "bound_by": main_solve["bound_by"],
+        "library_ms": main_solve["plain_ms"],
+        "library": "torch.linalg.solve_ex(check_errors=False), which is also the plain version",
+        "timed": "device-only: CUDA graph replays; *host_ms: eager calls",
+        "host_ms": main_solve["host_ms"], "plain_host_ms": main_solve["plain_host_ms"],
+        "shape": list(SOLVE_MAIN),
+        "path_shapes": {f"n={n} B={b}": t for (n, b), t in articulated["solve"]["times"].items()},
+    })
     print(f"total: {time.perf_counter() - start:.0f} s")
     print(gpu)
     print(json.dumps(record))

@@ -16,17 +16,28 @@ the same and takes about four times as long to trace.
 No op here reads a value back to the host: `solve` leaves its error check out,
 so a CUDA step queues its kernels without waiting for the device, and a
 singular M gives inf or NaN, as `jnp.linalg.solve` does.
+
+On CUDA tensors the whole integration (`substeps` RK4 substeps over the traced
+q̈, then the angle wrap) is one CUDA graph per batch shape, dtype and device
+(`CapturedStep`): the counterpart of the reference's `jax.jit` of the step. A
+step replays it, one graph launch in place of thousands of small launches;
+CPU tensors run the same substeps eagerly (`Integrator.eager`).
 """
 
 from __future__ import annotations
 
+import linecache
 import math
+import operator
+import re
 import time
+import traceback
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import jvp, vjp, vmap
 
+from mava_tpu_torch.ops import solve as solve_ops
 from mava_tpu_torch.types import StepType, TimeStep
 
 
@@ -99,9 +110,23 @@ def limit_torque(alpha: torch.Tensor, alpha_d: torch.Tensor, lo: torch.Tensor, h
     return -kp * excess - kd * alpha_d * (excess != 0.0)
 
 
+def route_solves_to_kernel(graph: torch.fx.GraphModule) -> None:
+    """Every `aten._linalg_solve_ex` of a graph traced on the card replaced by
+    the hand-written kernel (`ops/solve.py`): PyTorch's own batched solve
+    takes, at some sizes, a route that a CUDA graph capture does not permit."""
+    for node in graph.graph.nodes:
+        if node.op == "call_function" and node.target is torch.ops.aten._linalg_solve_ex.default:
+            if any(u.target is not operator.getitem or u.args[1] != 0 for u in node.users):
+                raise RuntimeError("a traced solve whose LU, pivots or info is read")
+            node.target = solve_ops.solve_ex_on_card
+    graph.recompile()
+
+
 class Traced:
     """`fn` traced with `make_fx` on its first call for each (shape, dtype,
-    device) of its tensor arguments; later calls run the traced graph.
+    device) of its tensor arguments; later calls run the traced graph. On the
+    card the graph's solves go to the hand-written kernel
+    (`route_solves_to_kernel`).
     The graph is functionalized (no op writes in place), so that the common
     subexpressions the transforms leave (the kinematics under jvp, jacfwd and
     vjp alike) can be merged: the same ops on the same inputs, computed once.
@@ -131,6 +156,16 @@ class Traced:
             graph = CSEPass()(graph).graph_module
             graph.graph.eliminate_dead_code()
             graph.recompile()
+            # Constants lifted on the host (a factory without a device) go to
+            # the inputs' device once, here: a copy to the card in every call
+            # would also be a host-to-device copy inside a graph capture.
+            device = args[0].device
+            for name in [n.target for n in graph.graph.nodes if n.op == "get_attr"]:
+                const = getattr(graph, name)
+                if isinstance(const, torch.Tensor) and const.device != device:
+                    setattr(graph, name, const.to(device))
+            if device.type == "cuda":
+                route_solves_to_kernel(graph)
             self.graphs[key] = graph
             self.seconds[key] = time.perf_counter() - start
         return graph(*args)
@@ -159,12 +194,90 @@ def wrap_angles(q: torch.Tensor, first: int) -> torch.Tensor:
     return torch.cat([q[:, :first], angles], dim=1) if first else angles
 
 
+# The memory pool of every captured step on a device: the graphs of all batch
+# shapes and envs draw their intermediates and outputs from one pool. That is
+# safe because each replay runs on the caller's stream, one after another, and
+# hands back copies of its outputs before any other graph can run.
+_GRAPH_POOLS: Dict[torch.device, Tuple[int, int]] = {}
+
+
+def graph_pool(device: torch.device) -> Tuple[int, int]:
+    """The shared memory pool of the captured steps on `device` ("cuda" is the
+    current card)."""
+    device = torch.device("cuda", torch.cuda.current_device() if device.index is None
+                          else device.index)
+    if device not in _GRAPH_POOLS:
+        with torch.cuda.device(device):
+            _GRAPH_POOLS[device] = torch.cuda.graph_pool_handle()
+    return _GRAPH_POOLS[device]
+
+
+def failing_op(error: BaseException) -> str:
+    """The ATen op on the line of a traced graph where `error`, or an error it
+    arose from, was raised; else a note that it was raised elsewhere."""
+    while error is not None:
+        for frame, lineno in reversed(list(traceback.walk_tb(error.__traceback__))):
+            filename = frame.f_code.co_filename
+            if filename.startswith("<eval_with_key>"):
+                op = re.search(r"torch\.ops\.([\w.]+)", linecache.getline(filename, lineno))
+                if op:
+                    return op.group(1)
+        error = error.__cause__ or error.__context__
+    return "an op outside the traced q̈"
+
+
+class CapturedStep:
+    """`fn(*args)` on CUDA tensors of fixed shapes captured once as a CUDA
+    graph and replayed at every call. The capture first runs `fn` once on a
+    side stream (which traces q̈ if it was not traced yet, and creates the
+    cuBLAS and cuSOLVER handles and workspaces its ops need), then captures
+    it on the same stream into the device's shared pool (`graph_pool`). A
+    call copies its arguments into the graph's static inputs, replays the
+    graph and returns copies of its static outputs, which the next replay
+    overwrites. A capture that fails raises with the failing op's name. The
+    solve kernel's launch count (`ops.solve.launches`) counts what a replay
+    launches, not what the capture recorded."""
+
+    def __init__(self, fn: Callable[..., Tuple[torch.Tensor, ...]], args: Tuple[torch.Tensor, ...],
+                 what: str):
+        device = args[0].device
+        start = time.perf_counter()
+        with torch.cuda.device(device):
+            self.inputs = tuple(a.detach().clone() for a in args)
+            stream = torch.cuda.Stream(device)
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                fn(*self.inputs)
+            self.graph = torch.cuda.CUDAGraph()
+            before = solve_ops.launches
+            try:
+                with torch.cuda.graph(self.graph, pool=graph_pool(device), stream=stream):
+                    self.outputs = fn(*self.inputs)
+            except RuntimeError as error:
+                raise RuntimeError(f"capturing {what} as a CUDA graph failed at "
+                                   f"{failing_op(error)}: {error}") from error
+            torch.cuda.current_stream(device).wait_stream(stream)
+        # A capture launches nothing; every replay launches what it recorded.
+        self.solve_launches = solve_ops.launches - before
+        solve_ops.launches = before
+        self.seconds = time.perf_counter() - start
+
+    def __call__(self, *args: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        for static, arg in zip(self.inputs, args):
+            static.copy_(arg)
+        self.graph.replay()
+        solve_ops.launches += self.solve_launches
+        return tuple(out.clone() for out in self.outputs)
+
+
 class Integrator:
     """`substeps` RK4 steps of h = dt / substeps of one env's
     `accel(q, q̇, τ) -> q̈`, batched over the envs, then the coordinates from
     `wrap_from` on wrapped. The step runs `rk4_substep` over the traced q̈
     (`accel`); `traced_substep`, the whole RK4 substep traced as one graph,
-    computes the same."""
+    computes the same. On CUDA tensors the whole step is captured once per
+    (shape, dtype, device) of its inputs (`captured`) and replayed; on CPU
+    tensors it runs eagerly (`eager`)."""
 
     def __init__(self, accel: Callable, dt: float, substeps: int, max_speed: float,
                  wrap_from: int):
@@ -176,6 +289,7 @@ class Integrator:
         self.accel = Traced(batched)
         self.traced_substep = Traced(
             lambda q, qd, tau: rk4_substep(batched, q, qd, tau, self.h, self.max_speed))
+        self.captured: Dict[Tuple, CapturedStep] = {}
 
     def substep(self, q: torch.Tensor, qd: torch.Tensor,
                 tau: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -185,8 +299,25 @@ class Integrator:
         """Seconds each trace of q̈ took, by its inputs' (shape, dtype, device)."""
         return dict(self.accel.seconds)
 
-    def __call__(self, q: torch.Tensor, qd: torch.Tensor,
-                 tau: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def capture_seconds(self) -> Dict[Tuple, float]:
+        """Seconds each capture of the step took (its warm-up, and the trace
+        of q̈ where that came first, included), by its inputs' key."""
+        return {key: step.seconds for key, step in self.captured.items()}
+
+    def eager(self, q: torch.Tensor, qd: torch.Tensor,
+              tau: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The step op by op: the substeps over the traced q̈, then the wrap."""
         for _ in range(self.substeps):
             q, qd = self.substep(q, qd, tau)
         return wrap_angles(q, self.wrap_from), qd
+
+    def __call__(self, q: torch.Tensor, qd: torch.Tensor,
+                 tau: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if q.device.type != "cuda":
+            return self.eager(q, qd, tau)
+        key = tuple((a.shape, a.dtype, a.device) for a in (q, qd, tau))
+        step = self.captured.get(key)
+        if step is None:
+            step = self.captured[key] = CapturedStep(
+                self.eager, (q, qd, tau), f"the integrator's step at q {tuple(q.shape)}")
+        return step(q, qd, tau)

@@ -479,7 +479,34 @@ def _nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the GRU kernels need the CUDA toolkit to build.")
+    raise RuntimeError("nvcc not found: the port's kernels need the CUDA toolkit to build.")
+
+
+def build_library(source: Path, flags: Tuple[str, ...] = NVCC_FLAGS) -> Tuple[Path, str]:
+    """Build the CUDA source `source` with nvcc into a shared library in
+    `kernel_build_dir()`, once per source hash and flag set; returns its path
+    and what nvcc printed ("" where the library was built before)."""
+    key = hashlib.sha256(source.read_bytes() + " ".join(flags).encode())
+    build_dir = kernel_build_dir()
+    out = build_dir / f"lib{source.stem}_{key.hexdigest()[:16]}.so"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    log = ""
+    # One build for all the ranks of a data-parallel run: the first to take
+    # the lock builds, the others find the library when they get it.
+    with open(out.with_name(f"{out.name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [_nvcc(), *flags, "-o", str(tmp), str(source)],
+                capture_output=True,
+                text=True,
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to build {source}:\n{proc.stderr}")
+            os.replace(tmp, out)
+            log = proc.stderr + proc.stdout
+    return out, log
 
 
 def build_kernels(step_clocks: bool = False) -> ctypes.CDLL:
@@ -488,27 +515,9 @@ def build_kernels(step_clocks: bool = False) -> ctypes.CDLL:
     global build_log
     if step_clocks in _libs:
         return _libs[step_clocks]
-    flags = NVCC_FLAGS + (("-DGRU_STEP_CLOCKS",) if step_clocks else ())
-    key = hashlib.sha256(_SOURCE.read_bytes() + " ".join(flags).encode())
-    build_dir = kernel_build_dir()
-    out = build_dir / f"libgru_sequence_{key.hexdigest()[:16]}.so"
-    build_dir.mkdir(parents=True, exist_ok=True)
-    # One build for all the ranks of a data-parallel run: the first to take
-    # the lock builds, the others find the library when they get it.
-    with open(out.with_name(f"{out.name}.lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not out.exists():
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *flags, "-o", str(tmp), str(_SOURCE)],
-                capture_output=True,
-                text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {_SOURCE}:\n{proc.stderr}")
-            os.replace(tmp, out)
-            if not step_clocks:
-                build_log = proc.stderr + proc.stdout
+    out, log = build_library(_SOURCE, NVCC_FLAGS + (("-DGRU_STEP_CLOCKS",) if step_clocks else ()))
+    if log and not step_clocks:
+        build_log = log
     lib = ctypes.CDLL(str(out))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, pointers, ints in (

@@ -9,6 +9,7 @@ from mava_tpu_torch.parallel.distributed import (
     put_replicated,
     put_sharded_rows,
     sharded_env_reset,
+    shutdown,
     tile_for_shards,
 )
 from mava_tpu_torch.parallel.mesh import (
@@ -34,5 +35,6 @@ __all__ = [
     "put_replicated",
     "put_sharded_rows",
     "sharded_env_reset",
+    "shutdown",
     "tile_for_shards",
 ]

@@ -8,7 +8,10 @@ One process per card, launched by torchrun:
 `initialize` (which `systems.anakin.start_experiment` calls) reads torchrun's
 variables and sets up the default process group, NCCL on the cards and gloo
 when the run was asked onto the CPU (`+arch.device=cpu`); without them it does
-nothing and the run is the stock single-process one.
+nothing and the run is the stock single-process one. A group that `initialize`
+brought up is taken down when the process exits (`shutdown`, registered with
+`atexit`), before the interpreter's own teardown, on every rank whose work
+ended without an uncaught error.
 
 The placement helpers give each rank its part of what a one-process run of the
 global batch would hold: its rows of a global tensor (`put_sharded_rows`), its
@@ -21,8 +24,10 @@ as does the recording program's vault (`gather_env_rows`).
 
 from __future__ import annotations
 
+import atexit
 import hashlib
 import os
+import sys
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -54,7 +59,24 @@ def initialize(device_type: str) -> bool:
         dist.init_process_group("gloo")
     else:
         raise ValueError(f"no process group backend for arch.device={device_type!r}")
+    atexit.register(_shutdown_at_exit)
     return True
+
+
+def shutdown() -> None:
+    """Take the default process group down, if one is up. Left to the
+    interpreter's teardown, the group's threads could end a rank that had
+    finished its work with an abort."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _shutdown_at_exit() -> None:
+    # A rank that ends with an uncaught error (which the interpreter records
+    # in `sys.last_exc` before the exit hooks run) exits with it: the group is
+    # left as it is, so that no teardown waits on a peer.
+    if getattr(sys, "last_exc", None) is None and getattr(sys, "last_value", None) is None:
+        shutdown()
 
 
 def rank_device(device: torch.device) -> torch.device:
