@@ -82,11 +82,17 @@ Run from the root of the repository. It
      shipped (16 envs, rollout 2, 32 epochs, delay 4, batch 32, the
      1,000,000-item buffer on the card) through their `run_experiment`: the
      4,992-step explore phase and two rounds of 4 updates, every parameter
-     changed, no GRU kernel launched (the SAC path runs only MLPs); then from a
-     fresh state the explore phase, 4 timed updates and one under
-     `torch.profiler` (spans `sac/act`, `sac/train`): env-steps/s, launches per
-     update and per train step, the device's idle share; the same for one
-     ff-ISAC update on MaReacher reacher-2x1 after one batch explored;
+     changed, no GRU kernel launched (the SAC path runs only MLPs); then the
+     train phase of an update, one CUDA graph on the card, against the same
+     phase run op by op (`learn.train.eager`), from one seed and the same
+     draws, for ff-ISAC and ff-MASAC on MaSwarm as shipped, ff-ISAC on
+     MaReacher reacher-2x1 and ff-MASAC over 8 stacked seeds on MaReacher:
+     3 updates bitwise equal (else within 1e-6 relative, the leaves printed),
+     one capture, no re-capture; an update's host ms both ways in turns; one
+     update each way under `torch.profiler`: host launches and device kernels
+     of the train span (at most 300 host launches replayed on MaSwarm), of
+     the update, and the idle share; the capture's seconds and the bytes it
+     added to the graphs' pool; env-steps/s;
   11. articulated phase: the batched solve kernel (`csrc/batched_solve.cu`)
      against its plain version `torch.linalg.solve_ex` at every env's system
      size (n = 2 to 23) for 16, 320 and 2,560 systems (rtol = atol = 1e-4,
@@ -182,8 +188,11 @@ Run from the root of the repository. It
      and the vault's bytes a round); one stacked `ff_ippo_vmap_sweep` update
      of 2 lrs with `arch.stagger_resets=True`, whose entries start from
      bitwise-equal staggered envs (a seed group of one rank: no all-reduce);
-     the group is destroyed
-     after it, so it runs last;
+     ff-ISAC on MaSwarm as shipped, data-parallel against the stock learner,
+     two updates each (the second replaying the captured train phase, its
+     all-reduces inside the graph), bitwise equal, with exactly 96
+     all-reduces an update (32 Q, 32 actor, 32 alpha steps); the group is
+     destroyed after it, so it runs last;
   18. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
      512 envs under `torch.profiler`: host ms, launches and kernel ms per span,
      launches per rollout step, per-kernel totals and the device's idle share.
@@ -193,9 +202,10 @@ the off-policy seed phase, `--distributed` only the distributed phase,
 phase. `--dynamics` runs
 only measurements for the articulated suite and exits: tracing a whole RK4
 substep against tracing q̈ alone (`dynamics_ab`), the host seconds of SAC
-updates at the learning anchors' configurations (`anchor_sizing`), and
-whether `torch.linalg.solve_ex` alone can be captured in a CUDA graph at each
-system size (`library_solve_captures`).
+updates at the learning anchors' configurations (`anchor_sizing`) and of
+their evaluations (`eval_sizing`), and whether `torch.linalg.solve_ex` alone
+can be captured in a CUDA graph at each system size
+(`library_solve_captures`).
 It prints one JSON line with the kernels' records, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -1430,7 +1440,6 @@ SAC_SYSTEMS = [("ff_isac", "default_ff_isac", False), ("ff_masac", "default_ff_m
 # two (the reference's range(4992, 5121, 128)), each with an evaluation.
 SAC_RUN = ["system.total_timesteps=5120", "arch.num_evaluation=40", "arch.num_eval_episodes=16",
            "arch.absolute_metric=False", "+arch.device=cuda"]
-SAC_TIMED_UPDATES = 4  # 8 until PR 8, cut to make room for the articulated phase
 
 
 def sac_learner(config_name: str, centralised: bool, overrides=()):
@@ -1547,19 +1556,163 @@ def sac_updates(label: str, config_name: str, centralised: bool, overrides, gpu:
             / cfg.system.rollout_length, "buffer_gb": buffer_gb}
 
 
+# The learners whose replayed train phase is held against the same phase run
+# op by op (`learn.train.eager`): the shipped configs, MaReacher's explore
+# phase cut to 4 batches.
+MAREACHER = ["env=mareacher", "env/scenario=reacher-2x1", "system.explore_steps=64"]
+SAC_GRAPH_LEARNERS = [
+    ("ff-ISAC, MaSwarm spread-3ag", "sac/train", lambda: sac_learner("default_ff_isac", False)),
+    ("ff-MASAC, MaSwarm spread-3ag", "sac/train",
+     lambda: sac_learner("default_ff_masac", True)),
+    ("ff-ISAC, MaReacher reacher-2x1", "sac/train",
+     lambda: sac_learner("default_ff_isac", False, MAREACHER)),
+    ("ff-MASAC, 8 stacked seeds, MaReacher reacher-2x1", "sac_vmap/train",
+     lambda: sac_vmap_learner(8, True, MAREACHER)),
+]
+SAC_GRAPH_UPDATES = 3
+SAC_GRAPH_RTOL = 1e-6  # where a replay is not bitwise, what it may differ by
+SAC_TRAIN_LAUNCHES = 300  # host launches of a replayed train phase on MaSwarm, at most
+
+
+def sac_leaves(out) -> dict:
+    """What one SAC update leaves behind, by name: the parameters (targets and
+    `log_alpha` included), the losses, the optimizers' moments and device
+    counts, the ring's storage and the generator's state."""
+    state = out.learner_state
+    leaves = {f"param {i}": p for i, p in enumerate(sac_params(state.params))}
+    leaves.update({f"loss {k}": v for k, v in out.train_metrics.items()})
+    for name, opt in zip(("actor", "q", "alpha"), state.opt_states):
+        leaves.update({f"{name} adam {i}": t
+                       for i, t in enumerate([*opt.mu, *opt.nu, opt.device_count])})
+    leaves.update({f"ring {i}": x
+                   for i, x in enumerate(pytree.tree_leaves(state.buffer_state.experience))})
+    leaves["generator"] = state.key.get_state()
+    return leaves
+
+
+def relative_differences(got: dict, want: dict) -> dict:
+    """name -> max |got - want| / max |want| of every leaf that is not bitwise
+    equal (inf where a non-float leaf differs)."""
+    out = {}
+    for name, w in want.items():
+        g = got[name]
+        if torch.equal(g, w):
+            continue
+        if not w.is_floating_point():
+            out[name] = float("inf")
+            continue
+        scale = w.double().abs().max().clamp_min(1e-30)
+        out[name] = ((g.double() - w.double()).abs().max() / scale).item()
+    return out
+
+
+def sac_graph_check(label: str, span: str, make, gpu: str) -> dict:
+    """Two learners of one config from one seed, explored alike: the train
+    phase captured and replayed (the main path; its first update runs the
+    phase for real and captures it), and the same phase op by op
+    (`learn.train.eager`). Over `SAC_GRAPH_UPDATES` updates every loss is
+    finite and every parameter, loss, Adam moment and count, the ring and the
+    generator agree bitwise (else within `SAC_GRAPH_RTOL`, printed); one
+    capture, no re-capture.
+    Then an update's host ms both ways in turns (op by op, replayed,
+    replayed, op by op) and one update each way under torch.profiler: host
+    launches and device kernels of the train span, the idle share. Returns
+    what was read."""
+    from mava_tpu_torch.utils.cuda_graphs import graph_pool
+
+    pool = graph_pool(torch.device("cuda"))
+    cfg, explore, learn, state = make()
+    _, explore_eager, learn_eager, state_eager = make()
+    learn_eager.train = learn_eager.train.eager
+    state, _ = explore(state)
+    state_eager, _ = explore_eager(state_eager)
+    learners = {"graph": [learn, state], "eager": [learn_eager, state_eager]}
+
+    def step(route):
+        run, st = learners[route]
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        out = run(st)
+        torch.cuda.synchronize()
+        learners[route][1] = out.learner_state
+        return out, time.perf_counter() - begin
+
+    bytes_before = pool_bytes(pool)
+    diffs = {}
+    for update in range(SAC_GRAPH_UPDATES):
+        out, seconds_graph = step("graph")
+        if update == 0:
+            graph_bytes, first_s = pool_bytes(pool) - bytes_before, seconds_graph
+        out_eager, _ = step("eager")
+        check(all(torch.isfinite(v).all().item() for v in out.train_metrics.values()),
+              f"{label}: a loss is not finite")
+        counts = [[o.count for o in x.learner_state.opt_states] for x in (out, out_eager)]
+        check(counts[0] == counts[1], f"{label}: host counts {counts[0]} vs {counts[1]}")
+        for name, d in relative_differences(sac_leaves(out), sac_leaves(out_eager)).items():
+            diffs[name] = max(d, diffs.get(name, 0.0))
+    worst = max(diffs.values(), default=0.0)
+    if diffs:
+        print(f"  {label}: replayed vs op by op NOT bitwise; max relative difference by leaf: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in sorted(diffs.items())[:12]))
+    check(worst <= SAC_GRAPH_RTOL, f"{label}: the replayed train phase is {worst:.2e} "
+                                   f"(relative) off the phase run op by op")
+    phase = learn.train
+    check(phase.captures == 1 and phase.recaptures == 0,
+          f"{label}: {phase.captures} captures, {phase.recaptures} re-captures")
+    seconds = {"eager": [], "graph": []}
+    for route in ("eager", "graph", "graph", "eager"):
+        seconds[route].append(step(route)[1])
+    steps_of = cfg.system.rollout_length * cfg.arch.num_envs
+    costs = {}
+    for route in ("eager", "graph"):
+        run, st = learners[route]
+        costs[route] = profile_update(f"{label} ({'op by op' if route == 'eager' else 'replayed'})",
+                                      lambda: run(st), steps_of, cfg.system.rollout_length)
+    ms = {route: 1e3 * sum(v) / len(v) for route, v in seconds.items()}
+    log_alpha = learners["graph"][1].params.log_alpha  # (1, A), stacked (S, 1, A)
+    entries = log_alpha.shape[0] if log_alpha.dim() == 3 else 1
+    steps = steps_of * entries
+    g, e = ({k: c[k] for k in ("launches", "kernels", "idle_share")}
+            | {"span_ms": c["span_ms"][span], "span_launches": c["span_launches"][span],
+               "span_kernels": c["span_kernels"][span]} for c in (costs["graph"], costs["eager"]))
+    print(f"  {label}: replayed vs op by op over {SAC_GRAPH_UPDATES} updates "
+          f"{'bitwise' if not diffs else f'max relative {worst:.2e}'}; an update, op by op "
+          f"{ms['eager']:.1f} ms host (" + " ".join(f"{x * 1e3:.1f}" for x in seconds["eager"])
+          + f"), replayed {ms['graph']:.1f} ms host ("
+          + " ".join(f"{x * 1e3:.1f}" for x in seconds["graph"])
+          + f"); {span}: op by op {e['span_ms']:.1f} ms host, {e['span_launches']} launches, "
+          f"{e['span_kernels']} kernels; replayed "
+          f"{g['span_ms']:.1f} ms host, {g['span_launches']} launches, {g['span_kernels']} "
+          f"kernels; an update's launches / kernels / idle share "
+          f"op by op {e['launches']} / {e['kernels']} / {e['idle_share']:.3f}, replayed "
+          f"{g['launches']} / {g['kernels']} / {g['idle_share']:.3f}; the first update "
+          f"{first_s:.2f} s, of which the phase run for real and captured "
+          f"{phase.capture_seconds[0]:.2f} s, {graph_bytes} bytes added to the graphs' "
+          f"pool, {phase.recaptures} "
+          f"re-captures; {steps / (ms['graph'] / 1e3):.1f} env-steps/s replayed, "
+          f"{steps / (ms['eager'] / 1e3):.1f} op by op, on {gpu}")
+    return {"worst": worst, "ms": ms, "costs": {"graph": g, "eager": e},
+            "capture_s": phase.capture_seconds[0],
+            "graph_bytes": graph_bytes, "recaptures": phase.recaptures,
+            "env_steps_per_s": steps / (ms["graph"] / 1e3)}
+
+
 def sac_phase(gru, gpu: str) -> dict:
     """ff-ISAC and ff-MASAC on MaSwarm spread-3ag at the shipped config with the
-    1,000,000-item buffer on the card: through `run_experiment` (no GRU kernel
-    launched), then timed and profiled updates; one ff-ISAC update on MaReacher
-    reacher-2x1. The SAC path runs only MLPs: no hand kernel is owed."""
+    1,000,000-item buffer on the card through `run_experiment` (no GRU kernel
+    launched); then the replayed train phase against the phase op by op
+    (`sac_graph_check`) for ff-ISAC and ff-MASAC on MaSwarm, ff-ISAC on
+    MaReacher reacher-2x1 and ff-MASAC over 8 stacked seeds on MaReacher. The
+    SAC path runs only MLPs: no hand kernel is owed."""
     out = {}
     for system, config_name, centralised in SAC_SYSTEMS:
         sac_run(gru, system, config_name, centralised)
-        out[system] = sac_updates(f"{system} on MaSwarm spread-3ag", config_name, centralised, [],
-                                  gpu, SAC_TIMED_UPDATES)
-    out["ff_isac_mareacher"] = sac_updates("ff_isac on MaReacher reacher-2x1", "default_ff_isac",
-                                           False, ["env=mareacher", "system.explore_steps=32"],
-                                           gpu, 1)
+    for label, span, make in SAC_GRAPH_LEARNERS:
+        out[label] = sac_graph_check(label, span, make, gpu)
+        if "MaSwarm" in label:
+            launches = out[label]["costs"]["graph"]["span_launches"]
+            check(launches <= SAC_TRAIN_LAUNCHES,
+                  f"{label}: the replayed train phase made {launches} host launches")
     return out
 
 
@@ -1741,7 +1894,7 @@ def articulated_step(env_name: str, scenario: str, gpu: str) -> dict:
     import copy
 
     from mava_tpu_torch import envs
-    from mava_tpu_torch.envs._dynamics import graph_pool
+    from mava_tpu_torch.utils.cuda_graphs import graph_pool
     from mava_tpu_torch.utils.config import load_config
 
     cfg = load_config("default_ff_isac", [f"env={env_name}", f"env/scenario={scenario}",
@@ -1917,11 +2070,18 @@ def library_solve_captures(gpu: str) -> dict:
     return out
 
 
-# The SAC anchors' configurations (ROADMAP Queue 1, PERF.md §6, PR 16): the
-# shipped config with the anchor's env, num_envs and seed count.
+# The SAC anchors' configurations (ROADMAP Queue 1, PERF.md §6): the shipped
+# config with the anchor's env, num_envs and seed count.
 HOPPER_64 = ["env=mahopper", "env/scenario=hopper-3x1", "arch.num_envs=64",
              "system.explore_steps=128"]
 ANCHOR_SIZING = [
+    ("ff-MASAC, MaReacher reacher-2x1, 16 envs",
+     lambda: sac_learner("default_ff_masac", True, ["env=mareacher", "system.explore_steps=64"])),
+    ("ff-ISAC, MaReacher reacher-2x1, 16 envs",
+     lambda: sac_learner("default_ff_isac", False, ["env=mareacher", "system.explore_steps=64"])),
+    ("ff-MASAC, MaSwarm spread-3ag, 16 envs, reward_scale 0.1",
+     lambda: sac_learner("default_ff_masac", True, ["system.explore_steps=64",
+                                                    "system.reward_scale=0.1"])),
     ("ff-MASAC, 8 stacked seeds, MaReacher reacher-2x1, 16 envs",
      lambda: sac_vmap_learner(8, True, ["env=mareacher", "system.explore_steps=64"])),
     ("ff-MASAC, 8 stacked seeds, MaSwarm spread-3ag, 16 envs, reward_scale 0.1",
@@ -1938,7 +2098,7 @@ ANCHOR_SIZING = [
 ]
 
 
-def anchor_sizing(gpu: str, timed: int = 3) -> dict:
+def anchor_sizing(gpu: str, timed: int = 8) -> dict:
     """`--dynamics`: the host seconds of a SAC update (2 env steps and 32
     train steps) at each of `ANCHOR_SIZING`, after the explore phase and one
     warm-up update: what sizes a learning anchor's chip time."""
@@ -1957,6 +2117,48 @@ def anchor_sizing(gpu: str, timed: int = 3) -> dict:
         print(f"  {label}: an update (warm-up, then timed) "
               + " ".join(f"{x:.3f}" for x in seconds) + f" s, "
               f"{cfg.system.rollout_length * cfg.arch.num_envs} env-steps a seed, on {gpu}")
+    return out
+
+
+# The stock anchors' evaluations: (label, config, centralised, overrides).
+ANCHOR_EVALS = [("ff-MASAC, MaReacher reacher-2x1", "default_ff_masac", True, ["env=mareacher"]),
+                ("ff-MASAC, MaSwarm spread-3ag", "default_ff_masac", True, [])]
+
+
+def eval_sizing(gpu: str) -> dict:
+    """`--dynamics`: the host seconds of one evaluation (`arch.num_eval_episodes`
+    episodes of `time_limit` steps) and of the absolute metric's
+    (`num_absolute_metric_eval_episodes`) at each of `ANCHOR_EVALS`, a fresh
+    actor on the shipped config, after one warm-up evaluation: the other part
+    of an anchor's chip time (`train_and_evaluate` makes one evaluation a
+    round)."""
+    from mava_tpu_torch import envs as environments
+    from mava_tpu_torch.evaluator import get_eval_fn, make_ff_eval_act_fn
+    from mava_tpu_torch.systems.sac import ff_isac
+    from mava_tpu_torch.utils.config import load_config
+
+    out = {}
+    device = torch.device("cuda")
+    for label, config_name, centralised, overrides in ANCHOR_EVALS:
+        cfg = load_config(config_name, ["+arch.device=cuda", *overrides])
+        cfg.arch.n_devices = 1
+        _, eval_env = environments.make(cfg, device, add_global_state=centralised)
+        actor = ff_isac.make_networks(eval_env, cfg, device, cfg.system.seed, centralised)[0]
+        gen = torch.Generator(device=device).manual_seed(0)
+        seconds = {}
+        for absolute in (False, True):
+            evaluate = get_eval_fn(eval_env, make_ff_eval_act_fn(cfg), cfg, absolute)
+            evaluate(actor, gen, {})
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            evaluate(actor, gen, {})
+            torch.cuda.synchronize()
+            seconds[absolute] = time.perf_counter() - begin
+        out[label] = seconds
+        print(f"  {label}: one evaluation of {cfg.arch.num_eval_episodes} episodes "
+              f"{seconds[False]:.3f} s, the absolute metric's "
+              f"{cfg.arch.num_absolute_metric_eval_episodes} {seconds[True]:.3f} s "
+              f"({cfg.env.kwargs.time_limit} steps an episode, {cfg.arch.num_envs} envs), on {gpu}")
     return out
 
 
@@ -2040,7 +2242,7 @@ def profile_update(label: str, run, steps: int, rollout_length: int) -> dict:
     # The stacked K1 is K1's kernel function; its launches sit in the wrapper's span.
     stacked_ids = {e.id for span in spans if span.name == "gru/fwd_stacked"
                    for e in launched_in(span)}
-    span_launches, span_ms = {}, {}
+    span_launches, span_ms, span_kernels = {}, {}, {}
     for span in sorted(spans, key=lambda e: e.start):
         if span.name.startswith("gru/"):
             continue
@@ -2052,8 +2254,11 @@ def profile_update(label: str, run, steps: int, rollout_length: int) -> dict:
         # call it is correlated with (the two share an id).
         inside = launched_in(span)
         span_launches[span.name] = span_launches.get(span.name, 0) + len(inside)
+        # A graph's replayed kernels share its `cudaGraphLaunch`'s id.
         ids = {e.id for e in inside}
-        ms = sum(k.end - k.start for k in kernels if k.id in ids) / 1e3
+        mine = [k for k in kernels if k.id in ids]
+        span_kernels[span.name] = span_kernels.get(span.name, 0) + len(mine)
+        ms = sum(k.end - k.start for k in mine) / 1e3
         per_step = (f" ({len(inside) / rollout_length:.1f} a rollout step)"
                     if span.name.endswith(("/rollout", "/act")) else "")
         print(f"  {span.name}: {(hi - lo) / 1e3:.1f} ms host, {len(inside)} launches{per_step}, "
@@ -2076,8 +2281,9 @@ def profile_update(label: str, run, steps: int, rollout_length: int) -> dict:
     per_step = (len([e for e in launches if rollout[0].start <= e.start <= rollout[0].end])
                 / rollout_length) if rollout else None
     return {"wall_ms": wall_ms, "busy_ms": busy / 1e3, "idle_share": idle,
-            "launches": len(launches), "launches_per_rollout_step": per_step,
-            "span_launches": span_launches, "span_ms": span_ms}
+            "launches": len(launches), "kernels": len(kernels),
+            "launches_per_rollout_step": per_step, "span_launches": span_launches,
+            "span_ms": span_ms, "span_kernels": span_kernels}
 
 
 # ------------------------------------------------------------------ resume phase
@@ -2957,6 +3163,70 @@ def distributed_learner(mesh, draws):
     return learn, state, cfg.system.rollout_length * cfg.arch.num_envs, cfg, env
 
 
+def distributed_sac_update(mesh, gpu: str) -> dict:
+    """ff-ISAC on MaSwarm spread-3ag at the shipped config (the 1,000,000-item
+    ring), data-parallel over `mesh` (NCCL, world 1), against the stock
+    learner from the same seed, both explored alike: two updates each (the
+    first runs the train phase for real and captures it, the second replays
+    it), bitwise equal (`sac_leaves`), with exactly one all-reduce a Q, actor
+    and alpha step in each data-parallel update (96 at the shipped config)
+    and none in the stock ones; a third data-parallel update under
+    torch.profiler: the NCCL kernels it replays and the all-reduces the host
+    makes (none: they are in the graph)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mava_tpu_torch import envs as environments
+    from mava_tpu_torch.parallel import Mesh
+    from mava_tpu_torch.parallel import mesh as mesh_module
+    from mava_tpu_torch.systems.sac import ff_isac
+    from mava_tpu_torch.utils.config import load_config
+
+    def make(on):
+        cfg = load_config("default_ff_isac", ["+arch.device=cuda"])
+        cfg.arch.n_devices = on.world_size
+        cfg.system.scan_steps = 1
+        device = torch.device("cuda", 0)
+        env, _ = environments.make(cfg, device)
+        gen = torch.Generator(device=device).manual_seed(cfg.system.seed)
+        explore, learn, _, state = ff_isac.learner_setup(env, gen, cfg, device, mesh=on)
+        return cfg, learn, explore(state)[0]
+
+    cfg, stock_learn, stock = make(Mesh())
+    _, dp_learn, dp = make(mesh)
+    epochs, delay = cfg.system.epochs, cfg.system.policy_update_delay
+    actor_steps = len(range(0, epochs, delay)) * delay
+    per_update = epochs + actor_steps * (2 if cfg.system.autotune else 1)
+    reduces = []
+    for _ in range(2):
+        before = mesh_module.all_reduces
+        out_stock = stock_learn(stock)
+        check(mesh_module.all_reduces == before, "the stock SAC update made an all-reduce")
+        out_dp = dp_learn(dp)
+        torch.cuda.synchronize()
+        reduces.append(mesh_module.all_reduces - before)
+        diffs = relative_differences(sac_leaves(out_dp), sac_leaves(out_stock))
+        check(not diffs, f"the data-parallel SAC update differs from the stock one: {diffs}")
+        stock, dp = out_stock.learner_state, out_dp.learner_state
+    check(reduces == [per_update, per_update],
+          f"all-reduces of the two data-parallel SAC updates: {reduces}, not {per_update} each")
+    check(dp_learn.train.captures == 1 and dp_learn.train.recaptures == 0,
+          f"data-parallel SAC: {dp_learn.train.captures} captures, "
+          f"{dp_learn.train.recaptures} re-captures")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dp_learn(dp)
+        torch.cuda.synchronize()
+    events = profiled_events(prof)
+    nccl = [e for e in events if "nccl" in e.name.lower()
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    host_reduces = [e for e in events if e.name == "c10d::allreduce_"]
+    print(f"  ff-ISAC on MaSwarm, data-parallel (NCCL world 1) vs stock, 2 updates (the second "
+          f"replayed): bitwise equal; all-reduces {reduces} ({epochs} Q, {actor_steps} actor, "
+          f"{actor_steps if cfg.system.autotune else 0} alpha steps an update; stock 0); a "
+          f"replayed update: {len(nccl)} NCCL kernels ({sum(e.end - e.start for e in nccl) / 1e3:.3f}"
+          f" device ms), {len(host_reduces)} c10d::allreduce_ on the host, on {gpu}")
+    return {"sac_all_reduces": reduces, "sac_nccl_kernels": len(nccl)}
+
+
 def distributed_phase(gru, gpu: str) -> dict:
     """rec-IPPO data-parallel under NCCL at world size 1 (one card): through
     torchrun as a user launches it, then one data-parallel update against one
@@ -3071,6 +3341,7 @@ def distributed_phase(gru, gpu: str) -> dict:
               f"{host_us / 1e3:.3f} host ms in c10d::allreduce_, against "
               f"{update_ms:.1f} host ms an update, on {gpu}")
 
+        sac = distributed_sac_update(mesh, gpu)
         recording = time.perf_counter()
         stored = store_in_process(mesh, vault)
         stored.update(staggered_sweep())
@@ -3079,7 +3350,7 @@ def distributed_phase(gru, gpu: str) -> dict:
         print(f"  phase: {time.perf_counter() - start:.1f} s")
         return {"launches": dp_launches, "all_reduces": len(reduce_ops),
                 "all_reduce_device_ms": device_us / 1e3, "all_reduce_host_ms": host_us / 1e3,
-                **stored}
+                **sac, **stored}
     finally:
         dist.destroy_process_group()
 
@@ -3105,6 +3376,8 @@ def main() -> int:
         dynamics_ab(gpu)
         print("SAC updates at the anchors' configurations:")
         anchor_sizing(gpu)
+        print("evaluations at the stock anchors' configurations:")
+        eval_sizing(gpu)
         print("torch.linalg.solve_ex in a CUDA graph:")
         library_solve_captures(gpu)
         print(gpu)

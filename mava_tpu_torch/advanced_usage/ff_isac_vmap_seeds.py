@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import copy
 import sys
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -64,11 +64,13 @@ from mava_tpu_torch.systems.sac.types import (
     QVals,
     QValsAndTarget,
     SacParams,
+    TrainDraws,
     Transition,
 )
 from mava_tpu_torch.types import ExperimentOutput
 from mava_tpu_torch.utils.centralised_training import get_joint_action, get_updated_joint_actions
 from mava_tpu_torch.utils.config import Config, load_config
+from mava_tpu_torch.utils.cuda_graphs import CapturedPhase
 from mava_tpu_torch.utils.training import make_swept_adam, soft_update
 
 ADAM_EPS = ff_isac.ADAM_EPS
@@ -97,7 +99,9 @@ def get_learner_fns(
     rows a step; by default every entry draws its own from the state's
     generator, or one entry's for all when `shared`. The Q, actor and alpha
     steps average their gradients and losses over `mesh`'s data group (by
-    default the process group's ranks), each entry's over its own."""
+    default the process group's ranks), each entry's over its own. The train
+    phase is `learner_fn.train`, the stock learner's split into its draws
+    and a body captured on CUDA (`ff_isac.get_learner_fns`)."""
     mesh = mesh or make_mesh()
     sys_cfg = config.system
     num_envs, num_agents, act = config.arch.num_envs, env.num_agents, env.action_dim
@@ -194,29 +198,39 @@ def get_learner_fns(
                 opt_states.alpha.step(grads)
         return {"actor_loss": actor_loss.detach(), "alpha_loss": alpha_loss.detach()}
 
-    def train(state: LearnerState, drawn: SacDraws, draw: Draws) -> List[Dict[str, torch.Tensor]]:
-        params, opt_states = state.params, state.opt_states
+    def draw_train(state: LearnerState, drawn: SacDraws) -> TrainDraws:
+        """The train phase's draws for every entry, epoch by epoch as the stock
+        learner makes them, with the entry axis after the epoch's."""
+        draw = Draws(num, shared, state.key, state.params.log_alpha.device)
         sample_shape = (batch, num_agents, act)
-        losses = []
+        rows, q_noise, actor_noise, alpha_noise = [], [], [], []
         for epoch in range(epochs):
-            rows = (buffer.sample_indices(state.buffer_state, draw) if drawn.rows is None
-                    else drawn.rows[:, epoch])
-            data = buffer.sample(state.buffer_state, rows)
-            data = data._replace(obs=expand_sampled_obs(data.obs, num_agents),
-                                 next_obs=expand_sampled_obs(data.next_obs, num_agents))
-            q_noise = drawn_or_new(drawn.q_noise, epoch, sample_shape, draw)
-            info = update_q(params, opt_states, data, q_noise)
+            rows.append(buffer.sample_indices(state.buffer_state, draw) if drawn.rows is None
+                        else drawn.rows[:, epoch])
+            q_noise.append(drawn_or_new(drawn.q_noise, epoch, sample_shape, draw))
             if epoch % delay == 0:  # on the epoch index, as the stock learner
                 shape = (delay, *sample_shape)
-                actor_noise = drawn_or_new(drawn.actor_noise, epoch, shape, draw)
-                alpha_noise = drawn_or_new(drawn.alpha_noise, epoch, shape, draw)
-                info.update(update_actor_and_alpha(params, opt_states, data, actor_noise,
-                                                   alpha_noise))
+                actor_noise.append(drawn_or_new(drawn.actor_noise, epoch, shape, draw))
+                alpha_noise.append(drawn_or_new(drawn.alpha_noise, epoch, shape, draw))
+        return TrainDraws(*(torch.stack(x) for x in (rows, q_noise, actor_noise, alpha_noise)))
+
+    def train_body(state: LearnerState, draws: TrainDraws) -> Dict[str, torch.Tensor]:
+        params, opt_states = state.params, state.opt_states
+        losses = []
+        for epoch in range(epochs):
+            data = buffer.sample(state.buffer_state, draws.rows[epoch])
+            data = data._replace(obs=expand_sampled_obs(data.obs, num_agents),
+                                 next_obs=expand_sampled_obs(data.next_obs, num_agents))
+            info = update_q(params, opt_states, data, draws.q_noise[epoch])
+            if epoch % delay == 0:
+                info.update(update_actor_and_alpha(params, opt_states, data,
+                                                   draws.actor_noise[epoch // delay],
+                                                   draws.alpha_noise[epoch // delay]))
             else:
                 zero = torch.zeros(num, device=params.log_alpha.device)
                 info.update(actor_loss=zero, alpha_loss=zero)
             losses.append(info)
-        return losses
+        return stack_trees(losses)
 
     def update_step(state: LearnerState, drawn: SacDraws) -> Tuple[LearnerState, Tuple]:
         draw = Draws(num, shared, state.key, state.params.log_alpha.device)
@@ -232,8 +246,8 @@ def get_learner_fns(
                 state, info = env_step(state, action, env_noise, draw)
                 metrics.append(info)
         with record_function("sac_vmap/train"):
-            losses = train(state, drawn, draw)
-        return state, (stack_trees(metrics), stack_trees(losses))
+            losses = learner_fn.train(state, drawn)
+        return state, (stack_trees(metrics), losses)
 
     def explore_fn(state: LearnerState, draws: Optional[SacDraws] = None):
         """`explore_steps // num_envs` steps of Uniform[-1, 1] actions for every
@@ -264,6 +278,9 @@ def get_learner_fns(
             train_metrics=train_metrics,
         )
 
+    learner_fn.train = CapturedPhase(draw_train, train_body,
+                                     ff_isac.train_state_tensors(entropy_target),
+                                     ff_isac.train_counters, "the stacked SAC train phase")
     return explore_fn, learner_fn
 
 

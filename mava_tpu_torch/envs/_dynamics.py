@@ -19,19 +19,17 @@ singular M gives inf or NaN, as `jnp.linalg.solve` does.
 
 On CUDA tensors the whole integration (`substeps` RK4 substeps over the traced
 q̈, then the angle wrap) is one CUDA graph per batch shape, dtype and device
-(`CapturedStep`): the counterpart of the reference's `jax.jit` of the step. A
-step replays it, one graph launch in place of thousands of small launches;
-CPU tensors run the same substeps eagerly (`Integrator.eager`).
+(`CapturedStep`, on `utils/cuda_graphs.py`): the counterpart of the
+reference's `jax.jit` of the step. A step replays it, one graph launch in
+place of thousands of small launches; CPU tensors run the same substeps
+eagerly (`Integrator.eager`).
 """
 
 from __future__ import annotations
 
-import linecache
 import math
 import operator
-import re
 import time
-import traceback
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -39,6 +37,7 @@ from torch.func import jvp, vjp, vmap
 
 from mava_tpu_torch.ops import solve as solve_ops
 from mava_tpu_torch.types import StepType, TimeStep
+from mava_tpu_torch.utils import cuda_graphs
 
 
 class BodyState(NamedTuple):
@@ -194,80 +193,37 @@ def wrap_angles(q: torch.Tensor, first: int) -> torch.Tensor:
     return torch.cat([q[:, :first], angles], dim=1) if first else angles
 
 
-# The memory pool of every captured step on a device: the graphs of all batch
-# shapes and envs draw their intermediates and outputs from one pool. That is
-# safe because each replay runs on the caller's stream, one after another, and
-# hands back copies of its outputs before any other graph can run.
-_GRAPH_POOLS: Dict[torch.device, Tuple[int, int]] = {}
-
-
-def graph_pool(device: torch.device) -> Tuple[int, int]:
-    """The shared memory pool of the captured steps on `device` ("cuda" is the
-    current card)."""
-    device = torch.device("cuda", torch.cuda.current_device() if device.index is None
-                          else device.index)
-    if device not in _GRAPH_POOLS:
-        with torch.cuda.device(device):
-            _GRAPH_POOLS[device] = torch.cuda.graph_pool_handle()
-    return _GRAPH_POOLS[device]
-
-
 def failing_op(error: BaseException) -> str:
     """The ATen op on the line of a traced graph where `error`, or an error it
-    arose from, was raised; else a note that it was raised elsewhere."""
-    while error is not None:
-        for frame, lineno in reversed(list(traceback.walk_tb(error.__traceback__))):
-            filename = frame.f_code.co_filename
-            if filename.startswith("<eval_with_key>"):
-                op = re.search(r"torch\.ops\.([\w.]+)", linecache.getline(filename, lineno))
-                if op:
-                    return op.group(1)
-        error = error.__cause__ or error.__context__
-    return "an op outside the traced q̈"
+    arose from, was raised; else where in the port it was raised; else a note
+    that it was raised elsewhere (`utils.cuda_graphs.failing_op`)."""
+    return cuda_graphs.failing_op(error, elsewhere="an op outside the traced q̈")
 
 
 class CapturedStep:
     """`fn(*args)` on CUDA tensors of fixed shapes captured once as a CUDA
-    graph and replayed at every call. The capture first runs `fn` once on a
-    side stream (which traces q̈ if it was not traced yet, and creates the
-    cuBLAS and cuSOLVER handles and workspaces its ops need), then captures
-    it on the same stream into the device's shared pool (`graph_pool`). A
-    call copies its arguments into the graph's static inputs, replays the
-    graph and returns copies of its static outputs, which the next replay
-    overwrites. A capture that fails raises with the failing op's name. The
-    solve kernel's launch count (`ops.solve.launches`) counts what a replay
-    launches, not what the capture recorded."""
+    graph and replayed at every call (`utils.cuda_graphs.Captured`). The
+    capture first runs `fn` once on a side stream (which traces q̈ if it was
+    not traced yet, and creates the cuBLAS and cuSOLVER handles and workspaces
+    its ops need), then captures it on the same stream into the device's
+    shared pool (`graph_pool`). A call copies its arguments into the graph's
+    static inputs, replays the graph and returns copies of its static outputs,
+    which the next replay overwrites. A capture that fails raises with the
+    failing op's name. The solve kernel's launch count (`ops.solve.launches`)
+    counts what a replay launches, not what the capture recorded."""
 
     def __init__(self, fn: Callable[..., Tuple[torch.Tensor, ...]], args: Tuple[torch.Tensor, ...],
                  what: str):
-        device = args[0].device
         start = time.perf_counter()
-        with torch.cuda.device(device):
-            self.inputs = tuple(a.detach().clone() for a in args)
-            stream = torch.cuda.Stream(device)
-            stream.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(stream):
-                fn(*self.inputs)
-            self.graph = torch.cuda.CUDAGraph()
-            before = solve_ops.launches
-            try:
-                with torch.cuda.graph(self.graph, pool=graph_pool(device), stream=stream):
-                    self.outputs = fn(*self.inputs)
-            except RuntimeError as error:
-                raise RuntimeError(f"capturing {what} as a CUDA graph failed at "
-                                   f"{failing_op(error)}: {error}") from error
-            torch.cuda.current_stream(device).wait_stream(stream)
-        # A capture launches nothing; every replay launches what it recorded.
-        self.solve_launches = solve_ops.launches - before
-        solve_ops.launches = before
+        self.inputs = tuple(a.detach().clone() for a in args)
+        self.graph = cuda_graphs.Captured(lambda: fn(*self.inputs), what, args[0].device,
+                                          counters=[(solve_ops, "launches")])
         self.seconds = time.perf_counter() - start
 
     def __call__(self, *args: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         for static, arg in zip(self.inputs, args):
             static.copy_(arg)
-        self.graph.replay()
-        solve_ops.launches += self.solve_launches
-        return tuple(out.clone() for out in self.outputs)
+        return tuple(out.clone() for out in self.graph.replay())
 
 
 class Integrator:

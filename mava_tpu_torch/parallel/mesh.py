@@ -32,6 +32,9 @@ DATA_AXIS = "data"
 SEED_AXIS = "seed"
 
 # All-reduces made by `all_reduce_mean` (one per optimizer step under a group).
+# Inside a captured CUDA graph (the SAC train phase) the collective is part of
+# the graph: the capture's count is rolled back and every replay adds it
+# (`utils/cuda_graphs.py`).
 all_reduces = 0
 
 

@@ -25,6 +25,18 @@ norm of both critics' gradients together).
 Every random draw of an update, and of the explore phase, can be handed in
 (`Draws`); by default they come from the learner state's generator.
 
+The train phase is the reference's compiled scan of `train` (:391-422, scanned
+at :469-471) in two parts: its draws (`TrainDraws`: the rows, then the Q
+step's normals, then on an actor epoch the actor's and alpha's, epoch by
+epoch, as the loop drew them), then a body that reads only device tensors and
+updates the parameters, the Adam moments and counts, `log_alpha` and the
+targets in place. On CUDA the body of all `epochs` train steps is one CUDA
+graph (`learner_fn.train`, a `utils.cuda_graphs.CapturedPhase`): the first
+update runs it for real and captures it, every later update copies its draws
+in and replays it; a state at other addresses (a restored checkpoint) is
+captured again. CPU tensors run it op by op. The act steps run op by op: a
+ring write moves the buffer's host index.
+
 Data-parallel over ranks (`parallel/`): each rank explores and acts on its own
 `arch.num_envs` envs into its own ring and samples its own items; the Q step,
 each actor step and each alpha step average their gradients and loss over
@@ -65,6 +77,7 @@ from mava_tpu_torch.parallel import (
     sharded_env_reset,
     tile_for_shards,
 )
+from mava_tpu_torch.parallel import mesh as mesh_module
 from mava_tpu_torch.parallel.distributed import gather_metrics, rank_generator
 from mava_tpu_torch.replay import ItemBuffer, StackedItemBuffer
 from mava_tpu_torch.systems.anakin import (
@@ -80,11 +93,13 @@ from mava_tpu_torch.systems.sac.types import (
     QVals,
     QValsAndTarget,
     SacParams,
+    TrainDraws,
     Transition,
 )
 from mava_tpu_torch.types import ExperimentOutput
 from mava_tpu_torch.utils.centralised_training import get_joint_action, get_updated_joint_actions
 from mava_tpu_torch.utils.config import Config, load_config
+from mava_tpu_torch.utils.cuda_graphs import CapturedPhase
 from mava_tpu_torch.utils.logger import LogEvent, MavaLogger
 from mava_tpu_torch.utils.timestep_checker import check_total_timesteps
 from mava_tpu_torch.utils.training import ClippedAdam, soft_update, warn_q_divergence
@@ -197,7 +212,9 @@ def get_learner_fns(
     explore phase and returns (state, episode metrics (steps, E)).
     `learner_fn(state, draws=None)` runs `system.scan_steps` updates,
     data-parallel over `mesh` (by default the process group's, if any);
-    `draws[u]` replaces what update u would draw (see `Draws`)."""
+    `draws[u]` replaces what update u would draw (see `Draws`).
+    `learner_fn.train` is the train phase (`CapturedPhase`: captured on CUDA;
+    `learner_fn.train.eager` runs it op by op)."""
     mesh = mesh or make_mesh()
     sys_cfg = config.system
     num_envs, num_agents, act = config.arch.num_envs, env.num_agents, env.action_dim
@@ -292,33 +309,45 @@ def get_learner_fns(
                 opt_states.alpha.step(grads)
         return {"actor_loss": actor_loss.detach(), "alpha_loss": alpha_loss.detach()}
 
-    def train(state: LearnerState, drawn: Draws) -> List[Dict[str, torch.Tensor]]:
-        gen, params, opt_states = state.key, state.params, state.opt_states
-        device = params.log_alpha.device
+    def draw_train(state: LearnerState, drawn: Draws) -> TrainDraws:
+        """Every draw of the train phase, epoch by epoch as the train steps
+        take them: the rows, the Q step's normals, and on an actor epoch the
+        actor's then alpha's; a handed-in field is read in its place."""
+        gen, device = state.key, state.params.log_alpha.device
         sample_shape = (batch, num_agents, act)
+        rows, q_noise, actor_noise, alpha_noise = [], [], [], []
+        for epoch in range(epochs):
+            rows.append(buffer.sample_indices(state.buffer_state, gen) if drawn.rows is None
+                        else drawn.rows[epoch])
+            q_noise.append(drawn_or_new(drawn.q_noise, epoch, sample_shape, gen, device))
+            if epoch % delay == 0:
+                shape = (delay, *sample_shape)
+                actor_noise.append(drawn_or_new(drawn.actor_noise, epoch, shape, gen, device))
+                alpha_noise.append(drawn_or_new(drawn.alpha_noise, epoch, shape, gen, device))
+        return TrainDraws(*(torch.stack(x) for x in (rows, q_noise, actor_noise, alpha_noise)))
+
+    def train_body(state: LearnerState, draws: TrainDraws) -> Dict[str, torch.Tensor]:
+        """The `epochs` train steps on device tensors only: the losses of each
+        epoch, stacked (reference :391-422)."""
+        params, opt_states = state.params, state.opt_states
         losses = []
         for epoch in range(epochs):
-            rows = (buffer.sample_indices(state.buffer_state, gen) if drawn.rows is None
-                    else drawn.rows[epoch])
-            data = buffer.sample(state.buffer_state, rows)
+            data = buffer.sample(state.buffer_state, draws.rows[epoch])
             data = data._replace(obs=expand_sampled_obs(data.obs, num_agents),
                                  next_obs=expand_sampled_obs(data.next_obs, num_agents))
-            q_noise = drawn_or_new(drawn.q_noise, epoch, sample_shape, gen, device)
-            info = update_q(params, opt_states, data, q_noise)
+            info = update_q(params, opt_states, data, draws.q_noise[epoch])
             # The delay is gated on the epoch index, as the reference does
             # (:401-407): upstream gates on the env-step count, which is the
             # same for every epoch of an update.
             if epoch % delay == 0:
-                shape = (delay, *sample_shape)
-                actor_noise = drawn_or_new(drawn.actor_noise, epoch, shape, gen, device)
-                alpha_noise = drawn_or_new(drawn.alpha_noise, epoch, shape, gen, device)
-                info.update(update_actor_and_alpha(params, opt_states, data, actor_noise,
-                                                   alpha_noise))
+                info.update(update_actor_and_alpha(params, opt_states, data,
+                                                   draws.actor_noise[epoch // delay],
+                                                   draws.alpha_noise[epoch // delay]))
             else:
-                zero = torch.zeros((), device=device)
+                zero = torch.zeros((), device=params.log_alpha.device)
                 info.update(actor_loss=zero, alpha_loss=zero)
             losses.append(info)
-        return losses
+        return stack_trees(losses)
 
     def update_step(state: LearnerState, drawn: Draws) -> Tuple[LearnerState, Tuple]:
         act_noise = drawn.act_noise
@@ -333,8 +362,8 @@ def get_learner_fns(
                 state, info = env_step(state, action, env_noise)
                 metrics.append(info)
         with record_function("sac/train"):
-            losses = train(state, drawn)
-        return state, (stack_trees(metrics), stack_trees(losses))
+            losses = learner_fn.train(state, drawn)
+        return state, (stack_trees(metrics), losses)
 
     def explore_fn(state: LearnerState, draws: Optional[Draws] = None) -> Tuple[LearnerState, Dict]:
         """`explore_steps // num_envs` steps of Uniform[-1, 1] actions (reference
@@ -368,7 +397,28 @@ def get_learner_fns(
             train_metrics=train_metrics,
         )
 
+    learner_fn.train = CapturedPhase(draw_train, train_body, train_state_tensors(entropy_target),
+                                     train_counters, "the SAC train phase")
     return explore_fn, learner_fn
+
+
+def train_state_tensors(entropy_target: torch.Tensor) -> Callable[[LearnerState], List]:
+    """The tensors the train phase reads or writes in place, beside its draws:
+    every network's parameters, `log_alpha`, the entropy target, the three
+    optimizers' state and the ring's storage (stock or stacked)."""
+    def tensors(state: LearnerState) -> List[torch.Tensor]:
+        params = state.params
+        nets = (params.actor, *params.q.online, *params.q.targets)
+        return [*(p for net in nets for p in net.parameters()), params.log_alpha, entropy_target,
+                *(t for opt in state.opt_states for t in opt.state_tensors()),
+                *pytree.tree_leaves(state.buffer_state.experience)]
+    return tensors
+
+
+def train_counters(state: LearnerState) -> List:
+    """The host counters a train phase advances: the three optimizers' counts
+    and the all-reduces of a data group."""
+    return [*((opt, "count") for opt in state.opt_states), (mesh_module, "all_reduces")]
 
 
 def learner_setup(

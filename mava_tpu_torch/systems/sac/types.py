@@ -80,3 +80,18 @@ class Draws(NamedTuple):
     actor_noise: Optional[torch.Tensor] = None
     alpha_noise: Optional[torch.Tensor] = None
     env_noise: Optional[list] = None
+
+
+class TrainDraws(NamedTuple):
+    """The random numbers of one update's train phase, made before it runs
+    (`get_learner_fns`' draw, in the order the epochs' loop draws them), so
+    that the train steps read only device tensors. `rows`: (epochs, [S,] B)
+    buffer rows; `q_noise`: (epochs, [S,] B, A, act); `actor_noise` and
+    `alpha_noise`: ([S,] delay, B, A, act) for each epoch that updates the
+    actor (`epoch % policy_update_delay == 0`), in order. [S,] is a stacked
+    learner's entry axis."""
+
+    rows: torch.Tensor
+    q_noise: torch.Tensor
+    actor_noise: torch.Tensor
+    alpha_noise: torch.Tensor

@@ -13,12 +13,17 @@ held in the optimizer's state (the reference's `scale_by_swept_lr`,
 `make_swept_optimizer`, `set_peak_lr` and `make_swept_adam`,
 `utils/training.py:90-163`, under `jax.vmap`): what the seed, sweep and PBT
 programs of `advanced_usage/` step.
+
+A step reads nothing from the host, so that it can be captured in a CUDA graph
+(the SAC systems' train phase): the count the bias corrections need is also
+kept on the parameters' device (`device_count`), which the step advances in
+place, beside the host `count` that schedules and checkpoints read.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.utils import _pytree as pytree
@@ -45,7 +50,10 @@ def make_learning_rate(init_lr: float, config) -> Union[float, Callable[[int], f
 class ClippedAdam:
     """Global-norm clip then Adam, updating `params` in place.
 
-    `count` is the number of updates applied so far (optax's Adam `count`).
+    `count` is the number of updates applied so far (optax's Adam `count`), a
+    host int; `device_count` holds the same number on the parameters' device
+    (float64, exact), and is what the bias corrections are formed from.
+    Setting `count` sets both; a step advances both.
     """
 
     def __init__(
@@ -63,7 +71,38 @@ class ClippedAdam:
         self.eps, self.b1, self.b2 = eps, b1, b2
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        dtype, dev = self.params[0].dtype, self.params[0].device
+        betas = torch.tensor([b1, b2], dtype=dtype, device=dev)
+        # b ** n as `tensor ** int` forms it: in float64, rounded to the
+        # parameters' dtype, but b * b * b at n = 3.
+        self._betas = betas.double()
+        self._betas_cubed = betas * betas * betas
+        self.device_count = torch.zeros((), dtype=torch.float64, device=dev)
         self.count = 0
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self._count = int(value)
+        self.device_count.fill_(self._count)
+
+    def _advance(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Both counts one on; the bias corrections (1 - b1^n, 1 - b2^n) of the
+        new count n, formed on the device."""
+        self._count += 1
+        self.device_count.add_(1)
+        powers = torch.pow(self._betas, self.device_count).to(self._betas_cubed.dtype)
+        powers = torch.where(self.device_count == 3, self._betas_cubed, powers)
+        bias = 1 - powers
+        return bias[0], bias[1]
+
+    def _refuse_capture(self, what: str) -> None:
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{what} reads the host count: a step with it cannot be "
+                               "captured in a CUDA graph.")
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
@@ -71,16 +110,23 @@ class ClippedAdam:
         keep = g_norm < self.max_grad_norm
         grads = [torch.where(keep, g, (g / g_norm) * self.max_grad_norm) for g in grads]
 
-        lr = self.lr(self.count) if callable(self.lr) else self.lr
-        self.count += 1
-        dtype, dev = self.params[0].dtype, self.params[0].device
-        bc1 = 1 - torch.tensor(self.b1, dtype=dtype, device=dev) ** self.count
-        bc2 = 1 - torch.tensor(self.b2, dtype=dtype, device=dev) ** self.count
+        if callable(self.lr):
+            self._refuse_capture("A scheduled learning rate")
+            lr = self.lr(self.count)
+        else:
+            lr = self.lr
+        bc1, bc2 = self._advance()
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
             mu.copy_((1 - self.b1) * g + self.b1 * mu)
             nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
             update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             p.add_(-lr * update)
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor a step reads or writes in place: parameters, moments,
+        counts and constants."""
+        return [*self.params, *self.mu, *self.nu, self.device_count, self._betas,
+                self._betas_cubed]
 
 
 def make_optimizer(params, lr, max_grad_norm: float) -> ClippedAdam:
@@ -123,6 +169,7 @@ class SweptClippedAdam(ClippedAdam):
         """(S,) float32: each entry's learning rate for the next step."""
         frac = 1.0
         if self.decay_updates is not None:
+            self._refuse_capture("A decayed learning rate")
             frac = max(0.0, 1.0 - self.count / self.decay_updates)
         return (self.peak_lr * frac).to(self.params[0].dtype)
 
@@ -136,15 +183,15 @@ class SweptClippedAdam(ClippedAdam):
         ]
 
         lr = self.learning_rates()
-        self.count += 1
-        dtype, dev = self.params[0].dtype, self.params[0].device
-        bc1 = 1 - torch.tensor(self.b1, dtype=dtype, device=dev) ** self.count
-        bc2 = 1 - torch.tensor(self.b2, dtype=dtype, device=dev) ** self.count
+        bc1, bc2 = self._advance()
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
             mu.copy_((1 - self.b1) * g + self.b1 * mu)
             nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
             update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             p.add_(-_per_entry(lr, p) * update)
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        return [*super().state_tensors(), self.peak_lr]
 
 
 def set_peak_lr(optimizer: SweptClippedAdam, peak_lr) -> SweptClippedAdam:
