@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py [--profile | --seeds | --offpolicy | --distributed | --programs |
-                           --standalone | --dynamics]
+                           --standalone | --dynamics [NAME,...] | --anchors NAME[,NAME...]]
 
 Run from the root of the repository. It
   1. prints the torch and CUDA versions and the card's name and power limit;
@@ -205,7 +205,15 @@ substep against tracing q̈ alone (`dynamics_ab`), the host seconds of SAC
 updates at the learning anchors' configurations (`anchor_sizing`) and of
 their evaluations (`eval_sizing`), and whether `torch.linalg.solve_ex` alone
 can be captured in a CUDA graph at each system size
-(`library_solve_captures`).
+(`library_solve_captures`); `--dynamics NAME[,NAME...]` sizes only the named
+anchors of `ANCHORS`, an update and the evaluations, each under its own
+overrides. `--anchors NAME[,NAME...]` runs the named SAC learning anchors
+(`ANCHORS`: the articulated suite's twelve under the reference jobs' overrides,
+MaSwarm under j200's and its 8-seed band, the shipped MaReacher and MaSwarm
+runs), each the stock CLI in
+a process of its own with its log in `chiprun_out/anchors/`, and prints a line
+an anchor: the absolute metric, its rule, pass or miss, the seconds. It exits
+non-zero if a run raised or printed no absolute metric; a miss is a reading.
 It prints one JSON line with the kernels' records, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -2098,12 +2106,13 @@ ANCHOR_SIZING = [
 ]
 
 
-def anchor_sizing(gpu: str, timed: int = 8) -> dict:
+def anchor_sizing(gpu: str, timed: int = 8, rows=ANCHOR_SIZING) -> dict:
     """`--dynamics`: the host seconds of a SAC update (2 env steps and 32
-    train steps) at each of `ANCHOR_SIZING`, after the explore phase and one
-    warm-up update: what sizes a learning anchor's chip time."""
+    train steps) at each of `rows` (by default `ANCHOR_SIZING`), after the
+    explore phase and one warm-up update: what sizes a learning anchor's chip
+    time."""
     out = {}
-    for label, make in ANCHOR_SIZING:
+    for label, make in rows:
         cfg, explore, learn, state = make()
         state, _ = explore(state)
         seconds = []
@@ -2125,10 +2134,11 @@ ANCHOR_EVALS = [("ff-MASAC, MaReacher reacher-2x1", "default_ff_masac", True, ["
                 ("ff-MASAC, MaSwarm spread-3ag", "default_ff_masac", True, [])]
 
 
-def eval_sizing(gpu: str) -> dict:
+def eval_sizing(gpu: str, rows=ANCHOR_EVALS) -> dict:
     """`--dynamics`: the host seconds of one evaluation (`arch.num_eval_episodes`
     episodes of `time_limit` steps) and of the absolute metric's
-    (`num_absolute_metric_eval_episodes`) at each of `ANCHOR_EVALS`, a fresh
+    (`num_absolute_metric_eval_episodes`) at each of `rows` (by default
+    `ANCHOR_EVALS`), a fresh
     actor on the shipped config, after one warm-up evaluation: the other part
     of an anchor's chip time (`train_and_evaluate` makes one evaluation a
     round)."""
@@ -2139,7 +2149,7 @@ def eval_sizing(gpu: str) -> dict:
 
     out = {}
     device = torch.device("cuda")
-    for label, config_name, centralised, overrides in ANCHOR_EVALS:
+    for label, config_name, centralised, overrides in rows:
         cfg = load_config(config_name, ["+arch.device=cuda", *overrides])
         cfg.arch.n_devices = 1
         _, eval_env = environments.make(cfg, device, add_global_state=centralised)
@@ -2200,6 +2210,200 @@ def dynamics_ab(gpu: str) -> None:
             f"{k} {v:.1f} s" for k, v in traces.items()) + "; ms a substep " + ", ".join(
             f"{k} " + " ".join(f"{x:.2f}" for x in v) for k, v in ms.items())
             + f"; max |diff| {err:.1e} on {gpu}")
+
+
+# ------------------------------------------------------------------ anchors
+class Anchor(NamedTuple):
+    """A SAC learning anchor: the stock CLI of `systems/sac/<module>` under
+    `overrides`, seed 1 (with `seeds`, that many stacked seeds of its
+    vmap-seeds program instead: a band, read and not ruled), beside the
+    uniform-random policy's return (the explore phase's ACTOR line) and the
+    JAX run's absolute metric, both from `source`. It passes where its
+    absolute metric closes 80 % of the gap from random to JAX (`rule`)."""
+    module: str
+    overrides: tuple
+    random: float
+    jax: float
+    source: str
+    seeds: int = 0
+
+    @property
+    def rule(self) -> float:
+        return self.random + 0.8 * (self.jax - self.random)
+
+
+# The reference's articulated jobs (scripts/tpu_queue/r3/j100-j122) ran at 64
+# envs with 20 evaluations (MaSwimmer, 200k) or 30 (the rest, 300k); j200 ran
+# MaSwarm at 64 envs, 50 evaluations, reward_scale 0.1. The last three rows run
+# as shipped (16 envs, 200 evaluations).
+J200 = ("system.total_timesteps=500000", "arch.num_envs=64", "arch.num_evaluation=50",
+        "system.reward_scale=0.1")
+ANCHORS = {
+    **{f"{system}_{env}": Anchor(
+        f"ff_{system}", (f"env={env}", f"system.total_timesteps={steps}", "arch.num_envs=64",
+                         f"arch.num_evaluation={evals}"),
+        random, jax, f"results/r3_queue/{job}_{system}_{env}.log")
+       for system, env, steps, evals, random, jax, job in [
+           ("isac", "maswimmer", 200000, 20, 0.010, 12.301, "j100"),
+           ("masac", "maswimmer", 200000, 20, 0.017, 24.244, "j102"),
+           ("isac", "mahopper", 300000, 30, 10.106, 311.535, "j104"),
+           ("masac", "mahopper", 300000, 30, 10.106, 287.494, "j106"),
+           ("isac", "macheetah", 300000, 30, -49.588, 73.266, "j108"),
+           ("masac", "macheetah", 300000, 30, -49.559, 91.721, "j110"),
+           ("isac", "mawalker", 300000, 30, 14.826, 575.119, "j112"),
+           ("masac", "mawalker", 300000, 30, 14.826, 437.134, "j114"),
+           ("isac", "maant", 300000, 30, -47.727, 238.536, "j116"),
+           ("masac", "maant", 300000, 30, -52.092, 250.616, "j118"),
+           ("isac", "mahumanoid", 300000, 30, 101.867, 364.311, "j120"),
+           ("masac", "mahumanoid", 300000, 30, 101.867, 282.111, "j122")]},
+    "masac_maswarm_j200": Anchor("ff_masac", J200, -256.0, -107.6,
+                                 "BASELINE.md:64, 248; results/r3_queue/j200_masac_maswarm_ablation.log"),
+    "masac_maswarm_j200_band": Anchor("ff_masac", J200, -256.0, -107.6,
+                                      "BASELINE.md:64, 248", seeds=8),
+    "masac_mareacher": Anchor("ff_masac", ("env=mareacher", "system.total_timesteps=200000"),
+                              -86.0, -29.0, "BASELINE.md:65-66"),
+    "isac_mareacher": Anchor("ff_isac", ("env=mareacher", "system.total_timesteps=200000"),
+                             -86.0, -34.8, "BASELINE.md:65"),
+    "masac_maswarm": Anchor("ff_masac", ("system.total_timesteps=500000", "system.reward_scale=0.1"),
+                            -256.0, -107.6, "BASELINE.md:64, 248"),
+}
+
+
+def seed_band(name: str) -> None:
+    """`--band NAME`: `ANCHORS[NAME].seeds` stacked seeds (system.seed + s) of
+    the vmap-seeds program under the anchor's overrides, its explore phase
+    then its rounds; after each round every seed's mean Q1 and one evaluation
+    of each seed's actor with the stock evaluator. Prints a section a seed
+    (`== port, stacked seed N`) with a TRAINER, an EVALUATOR and a MISC line a
+    round, which `mava_tpu_torch.examples.sac_anchors` reads."""
+    from mava_tpu_torch import envs as environments
+    from mava_tpu_torch.advanced_usage import ff_isac_vmap_seeds
+    from mava_tpu_torch.advanced_usage.common import entry_seeds, schedule_rounds
+    from mava_tpu_torch.evaluator import get_eval_fn, make_ff_eval_act_fn
+    from mava_tpu_torch.systems.anakin import eval_generator
+    from mava_tpu_torch.utils.config import load_config
+
+    anchor = ANCHORS[name]
+    centralised = anchor.module == "ff_masac"
+    cfg = load_config(f"default_{anchor.module}", ["+arch.device=cuda", *anchor.overrides])
+    cfg.arch.n_devices = 1
+    cfg, steps_per_round = schedule_rounds(cfg)
+    device = torch.device("cuda")
+    env, eval_env = environments.make(cfg, device, add_global_state=centralised)
+    gen = torch.Generator(device=device).manual_seed(cfg.system.seed)
+    explore, learn, _, state = ff_isac_vmap_seeds.learner_setup(env, gen, cfg, device,
+                                                               anchor.seeds, centralised)
+    evaluate = get_eval_fn(eval_env, make_ff_eval_act_fn(cfg), cfg, absolute_metric=False)
+    eval_gen = eval_generator(cfg, device)
+    state, _ = explore(state)
+    start = cfg.system.explore_steps // cfg.arch.num_envs * cfg.arch.num_envs
+    rounds = [t + steps_per_round for t in
+              range(start, int(cfg.system.total_timesteps) + 1, steps_per_round)]
+    lines = [[] for _ in range(anchor.seeds)]
+    for t in rounds:
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        out = learn(state)
+        torch.cuda.synchronize()
+        learn_s = time.perf_counter() - begin
+        state = out.learner_state
+        q1 = out.train_metrics["q1_a_vals"].reshape(anchor.seeds, -1).mean(1).tolist()
+        begin = time.perf_counter()
+        returns = [float(torch.as_tensor(evaluate(state.params.actor.entry(s), eval_gen, {})[
+            "episode_return"]).double().mean()) for s in range(anchor.seeds)]
+        eval_s = (time.perf_counter() - begin) / anchor.seeds
+        for s in range(anchor.seeds):
+            lines[s] += [f"TRAINER - Q1 a vals: {q1[s]:.3f}",
+                         f"EVALUATOR - Episode return mean: {returns[s]:.3f}",
+                         f"MISC - Time eval: {eval_s:.3f} | Time learn: {learn_s:.3f} | "
+                         f"Timestep: {t}"]
+    for seed, seed_lines in zip(entry_seeds(cfg, anchor.seeds, False), lines):
+        print(f"== port, stacked seed {seed}")
+        print("\n".join(seed_lines))
+
+
+def run_anchors(names, gpu: str, out_dir=None) -> int:
+    """`--anchors NAME[,NAME...]`: each named anchor of `ANCHORS` in a process of
+    its own (so that its graphs and pools are freed before the next), its
+    output in `out_dir` (by default `chiprun_out/anchors/`) as NAME.log; one
+    line an anchor: the absolute metric beside its rule, pass or miss, the
+    seconds, the evaluations at about each fifth of the run and the best, the
+    Q1 range, the learn and evaluation seconds (a band: each seed's reading).
+    Returns the number of runs that raised or printed no absolute metric; a
+    miss is a reading."""
+    from mava_tpu_torch.examples.sac_anchors import read_log, read_sections
+
+    root = Path(__file__).resolve().parent
+    out_dir = Path(out_dir or root / "chiprun_out" / "anchors")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    failed = 0
+    for name in names:
+        anchor = ANCHORS[name]
+        if anchor.seeds:
+            command = [sys.executable, str(Path(__file__).resolve()), "--band", name]
+        else:
+            command = [sys.executable, "-m", f"mava_tpu_torch.systems.sac.{anchor.module}",
+                       *anchor.overrides]
+        log = out_dir / f"{name}.log"
+        begin = time.perf_counter()
+        with open(log, "w") as out:
+            code = subprocess.run(command, stdout=out, stderr=subprocess.STDOUT,
+                                  cwd=root).returncode
+        seconds = time.perf_counter() - begin
+        head = f"anchor {name} ({' '.join(anchor.overrides)}; exit {code}; {seconds:.1f} s)"
+        if anchor.seeds:
+            runs = read_sections(str(log))
+            diverged = [h for h, run in runs.items() if run.diverged() is not None]
+            bests = [run.best()[0] for run in runs.values() if run.evals]
+            print(f"{head}: {len(diverged)} of {len(runs)} seeds pass |Q1| 100; best evaluations "
+                  + (f"{min(bests):.2f} to {max(bests):.2f}" if bests else "none") + f" on {gpu}")
+            for heading, run in runs.items():
+                print(f"  {heading}: {run.summary()}")
+            failed += code != 0 or len(runs) != anchor.seeds
+            continue
+        run = read_log(log.read_text().splitlines())
+        if code != 0 or run.absolute is None:
+            failed += 1
+            print(f"{head}: FAILED, no absolute metric (see {log}) on {gpu}")
+            continue
+        verdict = "pass" if run.absolute >= anchor.rule else "miss"
+        fifths = ", ".join(f"{r:.2f} ({t})" for t, r in run.at_fifths())
+        print(f"{head}: absolute {run.absolute:.3f} (rule >= {anchor.rule:.2f}: random "
+              f"{anchor.random:g}, JAX {anchor.jax:g}, {anchor.source}) {verdict}; "
+              f"{run.summary()}; evaluations {fifths} on {gpu}")
+    return failed
+
+
+def named_sizing(names) -> tuple:
+    """`ANCHOR_SIZING` and `ANCHOR_EVALS` rows of the named anchors of
+    `ANCHORS`, each under its own overrides (one explore batch of 128 items
+    before the timed updates)."""
+    sizing, evals = [], []
+    for name in names:
+        anchor = ANCHORS[name]
+        config_name, centralised = f"default_{anchor.module}", anchor.module == "ff_masac"
+        overrides = list(anchor.overrides)
+        if anchor.seeds:
+            sizing.append((name, lambda a=anchor, o=overrides: sac_vmap_learner(
+                a.seeds, a.module == "ff_masac", [*o, "system.explore_steps=128"])))
+        else:
+            sizing.append((name, lambda c=config_name, cen=centralised, o=overrides: sac_learner(
+                c, cen, [*o, "system.explore_steps=128"])))
+        evals.append((name, config_name, centralised, overrides))
+    return sizing, evals
+
+
+def flag_names(flag: str) -> list:
+    """The comma-separated names after `flag` on the command line, if any."""
+    argv = sys.argv[1:]
+    i = argv.index(flag)
+    if i + 1 < len(argv) and not argv[i + 1].startswith("--"):
+        names = argv[i + 1].split(",")
+        unknown = [n for n in names if n not in ANCHORS]
+        if unknown:
+            raise SystemExit(f"chip_smoke: no anchor {unknown}; the anchors: {', '.join(ANCHORS)}")
+        return names
+    return []
 
 
 # ------------------------------------------------------------------ profile
@@ -3371,7 +3575,25 @@ def main() -> int:
     gpu = card()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     print(gpu)
+    if "--band" in sys.argv[1:]:
+        seed_band(flag_names("--band")[0])
+        return 0
+    if "--anchors" in sys.argv[1:]:
+        names = flag_names("--anchors")
+        check(bool(names), "--anchors takes NAME[,NAME...] of: " + ", ".join(ANCHORS))
+        print("SAC learning anchors, each the stock CLI in a process of its own:")
+        failed = run_anchors(names, gpu)
+        print(gpu)
+        return 1 if failed else 0
     if "--dynamics" in sys.argv[1:]:
+        names = flag_names("--dynamics")
+        if names:
+            sizing, evals = named_sizing(names)
+            print("SAC updates and evaluations of the named anchors under their overrides:")
+            anchor_sizing(gpu, rows=sizing)
+            eval_sizing(gpu, rows=evals)
+            print(gpu)
+            return 0
         print("dynamics A/B (tracing q̈ or a whole substep):")
         dynamics_ab(gpu)
         print("SAC updates at the anchors' configurations:")

@@ -49,7 +49,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "mava_tpu_torch.advanced_usage.rec_mappo_vmap_sweep",
                  "mava_tpu_torch.advanced_usage.ff_ippo_pbt",
                  "mava_tpu_torch.advanced_usage.rec_ippo_pbt",
-                 "mava_tpu_torch.examples.seed_band",
+                 "mava_tpu_torch.examples.seed_band", "mava_tpu_torch.examples.sac_anchors",
                  # the off-policy seed axis, the vault and recorded experience
                  "mava_tpu_torch.advanced_usage.rec_iql_vmap_seeds",
                  "mava_tpu_torch.advanced_usage.rec_iql_vmap_sweep",

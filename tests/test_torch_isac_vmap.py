@@ -66,18 +66,37 @@ def _assert_close(got, want, what):
     np.testing.assert_allclose(_numpy(got), _numpy(want), err_msg=what, **TOL)
 
 
-@functools.lru_cache(maxsize=None)
-def jax_vmapped(centralised):
+def jax_vmapped(centralised, overrides=()):
     """The JAX vmapped learner's first state, its explore phase, the state after
-    a warm-up update and the output of the next one."""
-    cfg = _prepare(jax_load_config(SYSTEMS[centralised], TINY))
-    (jenv, _), _, (explore, update), state, _ = jvs.learner_setup(
-        cfg, make_mesh(jax.devices()[:1]), SEEDS, centralised)
-    first = jax.device_get(state)
-    explored = explore(state)
+    a warm-up update and the output of the next one, compiled once a config."""
+    return _jax_vmapped(centralised, tuple(overrides))
+
+
+def _jax_learner(centralised, overrides=()):
+    cfg = _prepare(jax_load_config(SYSTEMS[centralised], TINY + list(overrides)))
+    (jenv, _), _, fns, state, _ = jvs.learner_setup(cfg, make_mesh(jax.devices()[:1]), SEEDS,
+                                                    centralised)
+    return cfg, jenv.unwrapped, fns, state
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_explored(centralised):
+    """The shipped config's learner, first state and explore phase (its arrays
+    kept on the device, so that an update compiled for them is reused)."""
+    cfg, unwrapped, (explore, update), state = _jax_learner(centralised)
+    return cfg, unwrapped, update, jax.device_get(state), explore(state)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_vmapped(centralised, overrides):
+    # An override here leaves the explore phase as shipped (the reward scale
+    # scales only the TD target), so only the update is compiled for it.
+    cfg, unwrapped, update, first, explored = _jax_explored(centralised)
+    if overrides:
+        cfg, _, (_, update), _ = _jax_learner(centralised, overrides)
     warm, _ = update(explored[0])
     out = jax.device_get(update(warm))
-    return cfg, jenv.unwrapped, first, jax.device_get(explored), jax.device_get(warm), out
+    return cfg, unwrapped, first, jax.device_get(explored), jax.device_get(warm), out
 
 
 def port_config(centralised, overrides=()):
@@ -126,10 +145,10 @@ def stacked_draws(draws):
                  env_noise=env_noise)
 
 
-def stock_states_and_draws(centralised, cfg, env, entries=range(SEEDS)):
+def stock_states_and_draws(centralised, cfg, env, entries=range(SEEDS), overrides=()):
     """The port's stock learner state of each JAX entry after the warm-up, and
     the draws of its next update."""
-    jcfg, unwrapped, _, _, warm, out = jax_vmapped(centralised)
+    jcfg, unwrapped, _, _, warm, out = jax_vmapped(centralised, overrides)
     states, draws = [], []
     for s in entries:
         _, _, _, state = ff_isac.learner_setup(env, torch.Generator().manual_seed(0), cfg, CPU,
@@ -180,16 +199,16 @@ def check_stacked_explore(centralised):
         _assert_close(got, want, "explored obs")
 
 
-def check_stacked_update(centralised):
+def check_stacked_update(centralised, overrides=()):
     """Entry s of one stacked update against the JAX vmapped learner's entry s
     and the port's stock learner from entry s's state and draws."""
-    cfg = port_config(centralised)
+    cfg = port_config(centralised, overrides)
     env, _ = tenvs.make(cfg, CPU, add_global_state=centralised)
-    stocks, draws = stock_states_and_draws(centralised, cfg, env)
+    stocks, draws = stock_states_and_draws(centralised, cfg, env, overrides=overrides)
     _, learn, _, state = ff_isac_vmap_seeds.learner_setup(
         env, torch.Generator().manual_seed(0), cfg, CPU, SEEDS, centralised)
     out = learn(stack_states(state, stocks), [stacked_draws(draws)])
-    jnew, (jmetrics, jlosses) = jax_vmapped(centralised)[-1]
+    jnew, (jmetrics, jlosses) = jax_vmapped(centralised, overrides)[-1]
     new = out.learner_state
     p = new.params
     nets = (p.actor, *p.q.online, *p.q.targets)

@@ -19,14 +19,15 @@ import torch
 
 from mava_tpu_torch.systems.sac import ff_masac
 from mava_tpu_torch.utils.config import load_config
-from test_torch_sac import CLI, _setup, check_one_update
+from test_torch_sac import CLI, REWARD_SCALES, _setup, check_one_update
 from test_torch_sac_articulated import articulated_draws
 
 torch.set_num_threads(1)
 
 
-def test_one_masac_update_matches_jax_learner():
-    out = check_one_update("default_ff_masac", centralised=True)
+@REWARD_SCALES
+def test_one_masac_update_matches_jax_learner(overrides):
+    out = check_one_update("default_ff_masac", centralised=True, overrides=overrides)
     stored = out.learner_state.buffer_state.experience.obs.global_state
     assert stored.shape[1] == 1  # (max_length, 1, G): once per item
 

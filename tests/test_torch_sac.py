@@ -56,6 +56,7 @@ from test_torch_maswarm import auto_reset_draws, to_torch_state
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-5)
 DIST_TOL = dict(rtol=1e-6, atol=1e-6)
+ADAM_TOL = dict(rtol=1e-5, atol=1e-8)
 TINY = [
     "arch.num_envs=3",
     "system.rollout_length=2",
@@ -371,6 +372,64 @@ def _load_learner_state(state, jstate, to_state=to_torch_state):
                           t=int(np.asarray(s.t)))
 
 
+def update_leaves(out, jout):
+    """(name, port value, JAX value) of every leaf an update leaves: the
+    losses, every network's parameters, `log_alpha`, the three Adam states'
+    moments (named `adam ...`), the buffer and the episode metrics."""
+    jnew, (jmetrics, jlosses) = jout
+    new = out.learner_state
+    p = new.params
+    leaves = [(f"loss {name}", out.train_metrics[name], values) for name, values in jlosses.items()]
+    for label, net, tree, head in (
+            ("actor", p.actor, jnew.params.actor, "value_head"),
+            *((label, n, tr, "q_head") for label, n, tr in zip(
+                ("q1", "q2", "target q1", "target q2"), (*p.q.online, *p.q.targets),
+                (*jnew.params.q.online, *jnew.params.q.targets)))):
+        want = from_flax_params(tree, head=head)
+        leaves += [(f"{label} {name}", value, want[name]) for name, value in net.state_dict().items()]
+    leaves += [("log_alpha", p.log_alpha.detach(), jnew.params.log_alpha),
+               ("logged log_alpha", out.train_metrics["log_alpha"], jnew.params.log_alpha)]
+    for kind, opt, adam in zip(("actor", "q", "alpha"), new.opt_states,
+                               _adam_states(jnew.opt_states)):
+        for moment, moments, tree in (("mu", opt.mu, adam.mu), ("nu", opt.nu, adam.nu)):
+            leaves += [(f"adam {kind} {moment} {i}", m, w) for i, (m, w) in enumerate(
+                zip(moments, _adam_values(kind, p, tree), strict=True))]
+    leaves += [(f"buffer {i}", got, want) for i, (got, want) in enumerate(zip(
+        jax.tree.leaves(tuple(new.buffer_state.experience)),
+        jax.tree.leaves(jnew.buffer_state.experience), strict=True))]
+    leaves += [(f"episode {k}", out.episode_metrics[k], v) for k, v in jmetrics.items()]
+    return leaves
+
+
+def _numpy(x):
+    return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def assert_update_matches(out, jout, tol=TOL, adam_tol=ADAM_TOL):
+    """The port's update `out` against the JAX learner's `jout`: every leaf of
+    `update_leaves` within `tol` (the Adam moments within `adam_tol`), the
+    optimizers' counts, t and the buffer's index exactly. Returns the largest
+    relative difference, max |port - JAX| / max |JAX| over a leaf, and its leaf."""
+    worst = (0.0, "")
+    for name, got, want in update_leaves(out, jout):
+        got, want = _numpy(got), _numpy(want)
+        np.testing.assert_allclose(got, want, err_msg=name,
+                                   **(adam_tol if name.startswith("adam") else tol))
+        got, want = got.astype(np.float64), want.astype(np.float64)
+        scale = np.abs(want).max(initial=0.0)
+        if scale > 0:
+            worst = max(worst, (float(np.abs(got - want).max() / scale), name))
+    jnew = jout[0]
+    new = out.learner_state
+    for kind, opt, adam in zip(("actor", "q", "alpha"), new.opt_states,
+                               _adam_states(jnew.opt_states)):
+        assert opt.count == int(np.asarray(adam.count)), kind
+    assert new.t == int(np.asarray(jnew.t))
+    assert (new.buffer_state.current_index, new.buffer_state.is_full) == (
+        int(np.asarray(jnew.buffer_state.current_index)), bool(np.asarray(jnew.buffer_state.is_full)))
+    return worst
+
+
 def check_one_update(system: str, centralised: bool, overrides=(),
                      reset_noise=_maswarm_reset_noise, to_state=to_torch_state,
                      key_after_reset=_maswarm_key_after_reset):
@@ -397,45 +456,21 @@ def check_one_update(system: str, centralised: bool, overrides=(),
     state = _load_learner_state(state, jstate, to_state)
     out = learn(state, [draws])
 
-    jnew, (jmetrics, jlosses) = jout
-    for name, values in jlosses.items():
-        np.testing.assert_allclose(out.train_metrics[name].numpy(), np.asarray(values),
-                                   err_msg=name, **TOL)
-    new = out.learner_state
-    p = new.params
-    for net, tree, head in ((p.actor, jnew.params.actor, "value_head"),
-                            *((n, tr, "q_head") for n, tr in zip(
-                                (*p.q.online, *p.q.targets),
-                                (*jnew.params.q.online, *jnew.params.q.targets)))):
-        want = from_flax_params(tree, head=head)
-        for name, value in net.state_dict().items():
-            np.testing.assert_allclose(value.numpy(), want[name].numpy(), err_msg=name, **TOL)
-    np.testing.assert_allclose(p.log_alpha.detach().numpy(), np.asarray(jnew.params.log_alpha),
-                               **TOL)
-    np.testing.assert_allclose(out.train_metrics["log_alpha"].numpy(),
-                               np.asarray(jnew.params.log_alpha), **TOL)
-    for kind, opt, adam in zip(("actor", "q", "alpha"), new.opt_states,
-                               _adam_states(jnew.opt_states)):
-        assert opt.count == int(np.asarray(adam.count)), kind
-        for moments, tree in ((opt.mu, adam.mu), (opt.nu, adam.nu)):
-            for m, w in zip(moments, _adam_values(kind, p, tree), strict=True):
-                np.testing.assert_allclose(m.numpy(), w.numpy(), err_msg=kind, rtol=1e-5, atol=1e-8)
-    assert new.t == int(np.asarray(jnew.t))
-    assert (new.buffer_state.current_index, new.buffer_state.is_full) == (
-        int(np.asarray(jnew.buffer_state.current_index)), bool(np.asarray(jnew.buffer_state.is_full)))
-    for got, want in zip(jax.tree.leaves(tuple(new.buffer_state.experience)),
-                         jax.tree.leaves(jnew.buffer_state.experience)):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    for k, v in jmetrics.items():
-        np.testing.assert_allclose(out.episode_metrics[k].numpy(), np.asarray(v), err_msg=k, **TOL)
+    assert_update_matches(out, jout)
     # The actor and alpha ran on epochs 0 and 2, twice each (see TINY).
     actor_loss = out.train_metrics["actor_loss"][0]
     assert (actor_loss[1::2] == 0).all() and (actor_loss[0::2] != 0).all()
     return out
 
 
-def test_one_isac_update_matches_jax_learner():
-    check_one_update("default_ff_isac", centralised=False)
+# The TD target's reward scale: 1 as shipped, 0.1 as the MaSwarm anchor runs it.
+REWARD_SCALES = pytest.mark.parametrize("overrides", [[], ["system.reward_scale=0.1"]],
+                                        ids=["reward_scale_1", "reward_scale_0.1"])
+
+
+@REWARD_SCALES
+def test_one_isac_update_matches_jax_learner(overrides):
+    check_one_update("default_ff_isac", centralised=False, overrides=overrides)
 
 
 def test_explore_phase_matches_jax_learner():
