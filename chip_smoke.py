@@ -67,8 +67,15 @@ Run from the root of the repository. It
      `rec_iql.run_experiment`, 50 updates with exactly 2 stacked forwards (the
      fused double-DQN target pass, S = 2, T = 20, B = 256), 2 forwards and 2 of
      each backward kernel an update; the fused target pass against the unfused
-     one on the same sampled sequences; env-steps/s and mean Q; one update under
-     `torch.profiler`;
+     one on the same sampled sequences; env-steps/s and mean Q; one update
+     under `torch.profiler`. Then the update as one CUDA graph (its act steps
+     and its train phase, the GRU kernels inside) at the anchors' configuration, SMAX
+     3s_vs_5z at 64 envs: on a ring of 24 steps, 14 updates replayed against 14
+     op by op (`learn.update.eager`), every leaf bitwise, the ring wrapping,
+     exactly those launches an update both ways, one capture, and a replayed
+     update with no host sync (`launches_and_syncs`); on the shipped ring an
+     update's host ms both ways in turns, env-steps/s, and one update each way
+     under `torch.profiler` (host launches, kernels, idle share);
   9. grid phase: rec-MAPPO with `network=rcnn` (CNN [32, 32] 3x3 -> GRU H =
      128 -> MLP [128]) on MaConnector con-10x10x10a at the shipped system
      config, 2 updates through `rec_mappo.run_experiment` with exactly 17
@@ -158,7 +165,8 @@ Run from the root of the repository. It
   15. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
      updates each through their `run_experiment` with the same health checks
      (they reach no hand-written kernel), three timed ff-IPPO updates, ff-IPPO on
-     Matrax Penalty-25 for 30 updates with its eval return, and a short run of
+     Matrax Penalty-25 for 10 updates with its eval return,
+     and a short run of
      the bench program (`bench_torch.run` at 512 envs);
   16. programs phase: the quickstart (`examples/quickstart.py`'s `main()` at
      its defaults, LBF 2s-8x8-2p-2f-coop at 128 envs, cut in depth to 131,072
@@ -207,10 +215,11 @@ their evaluations (`eval_sizing`), and whether `torch.linalg.solve_ex` alone
 can be captured in a CUDA graph at each system size
 (`library_solve_captures`); `--dynamics NAME[,NAME...]` sizes only the named
 anchors of `ANCHORS`, an update and the evaluations, each under its own
-overrides. `--anchors NAME[,NAME...]` runs the named SAC learning anchors
-(`ANCHORS`: the articulated suite's twelve under the reference jobs' overrides,
-MaSwarm under j200's and its 8-seed band, the shipped MaReacher and MaSwarm
-runs), each the stock CLI in
+overrides (a rec-IQL anchor: its update replayed and op by op). `--anchors NAME[,NAME...]` runs the named learning
+anchors (`ANCHORS`: the articulated suite's twelve SAC runs under the
+reference jobs' overrides, MaSwarm under j200's and its 8-seed band, the
+shipped MaReacher and MaSwarm runs; rec-IQL on SMAX 3s_vs_5z over three seeds
+and 2s3z under j170-j172's and j976's, ruled on the win rate), each the stock CLI in
 a process of its own with its log in `chiprun_out/anchors/`, and prints a line
 an anchor: the absolute metric, its rule, pass or miss, the seconds. It exits
 non-zero if a run raised or printed no absolute metric; a miss is a reading.
@@ -1250,7 +1259,11 @@ def iql_phase(gru, gpu: str) -> dict:
     """rec-IQL on SMAX 3s5z at the shipped config: the stacked K1 on the fused
     target pass, K1 and the backward kernels on the loss pass. Then the fused
     target pass against the unfused pair on the same sequences, and the loss
-    pass and its gradient against the plain GRU."""
+    pass and its gradient against the plain GRU, and one update under
+    torch.profiler (`profile_phase`). Then the whole update as one
+    CUDA graph at the anchors' configuration: bitwise its op-by-op run
+    (`iql_graph_bitwise`), and its host cost both ways (`iql_update_costs`,
+    which also profiles an update each way)."""
     from mava_tpu_torch.systems.q_learning import rec_iql
 
     overrides = SMAX + [f"system.num_updates={IQL_UPDATES}"]
@@ -1287,7 +1300,9 @@ def iql_phase(gru, gpu: str) -> dict:
           "the fused and unfused target passes disagree")
     iql_against_plain(gru, rec_iql, state.params, data, config.system.gamma)
     profile = profile_phase("rec_iql", overrides, config.system.rollout_length)
-    return {"launches": launches, "profile": profile}
+    graph = iql_graph_bitwise(gru, IQL_ANCHOR_RUN)
+    costs = iql_update_costs(IQL_ANCHOR_RUN, gpu, "rec-IQL SMAX 3s_vs_5z, 64 envs")
+    return {"launches": launches, "profile": profile, "graph": graph, "costs": costs}
 
 
 def iql_against_plain(gru, rec_iql, params, data, gamma: float) -> None:
@@ -1329,6 +1344,171 @@ def iql_against_plain(gru, rec_iql, params, data, gamma: float) -> None:
     check(grad_err <= 1e-4, "rec_iql: the kernel and plain gradients disagree")
 
 
+# rec-IQL's update as one CUDA graph: at the anchors' configuration (SMAX
+# 3s_vs_5z, 64 envs), replayed against op by op. The bitwise check runs on a
+# ring of 24 steps, which 12 updates of 2 act steps fill: its updates write and
+# sample across a wrap. Then an update's host cost both ways on the shipped ring.
+IQL_ANCHOR_RUN = ["env=smax", "env/scenario=3s_vs_5z", "arch.num_envs=64"]
+IQL_GRAPH_RING = ["system.buffer_size=24"]
+IQL_GRAPH_UPDATES = 14
+IQL_GRAPH_TIMED = 4  # updates timed a turn, in the turns op by op, replayed, replayed, op by op
+
+
+def iql_learner(overrides):
+    """(config, learn, state, eval env, Q-network) of the stock rec-IQL learner on
+    the card under `overrides`, one update a call."""
+    from mava_tpu_torch import envs as environments
+    from mava_tpu_torch.systems.q_learning import rec_iql
+    from mava_tpu_torch.utils.config import load_config
+
+    cfg = load_config("default_rec_iql", ["+arch.device=cuda", *overrides])
+    cfg.arch.n_devices = 1
+    cfg.system.num_updates_per_eval = 1
+    device = torch.device("cuda")
+    env, eval_env = environments.make(cfg, device)
+    learn, q_net, state = rec_iql.learner_setup(
+        env, torch.Generator(device=device).manual_seed(cfg.system.seed), cfg, device)
+    return cfg, learn, state, eval_env, q_net
+
+
+def iql_leaves(out) -> dict:
+    """What one rec-IQL update leaves behind, by name: both networks'
+    parameters, the losses and episode metrics, Adam's moments and device
+    count, the ring, the carry (observation, flags, hidden and env state) and
+    the generator's state."""
+    state = out.learner_state
+    leaves = {f"param {i}": p.detach()
+              for i, p in enumerate(p for net in state.params for p in net.parameters())}
+    leaves.update({f"loss {k}": v for k, v in out.train_metrics.items()})
+    leaves.update({f"metric {k}": v for k, v in out.episode_metrics.items()})
+    opt = state.opt_state
+    leaves.update({f"adam {i}": t for i, t in enumerate([*opt.mu, *opt.nu, opt.device_count])})
+    leaves.update({f"ring {i}": x
+                   for i, x in enumerate(pytree.tree_leaves(state.buffer_state.experience))})
+    carry = (state.obs, state.terminal, state.term_or_trunc, state.hidden_state, state.env_state)
+    leaves.update({f"carry {i}": x for i, x in enumerate(pytree.tree_leaves(carry))})
+    leaves["generator"] = state.key.get_state()
+    return leaves
+
+
+def iql_host_counts(state) -> tuple:
+    return (state.time_steps, state.train_steps, state.buffer_state.current_index,
+            state.buffer_state.is_full, state.opt_state.count)
+
+
+def iql_graph_bitwise(gru, overrides) -> dict:
+    """Two rec-IQL learners from one seed on a ring of 24 steps: the update
+    replayed (the main path; its first update runs the update for real and
+    captures it) and op by op (`learn.update.eager`), `IQL_GRAPH_UPDATES`
+    updates each, the launch counts set to 0 before each update. Every update:
+    every leaf bitwise equal, the host counts and generators alike, exactly
+    `IQL_PER_UPDATE` launches both ways. The ring wraps; one capture. Then
+    one replayed update under the profiler: no host sync, no device-to-host
+    copy."""
+    cfg, learn, state, _, _ = iql_learner([*overrides, *IQL_GRAPH_RING])
+    _, learn_eager, state_eager, _, _ = iql_learner([*overrides, *IQL_GRAPH_RING])
+    learn_eager.update = learn_eager.update.eager
+    want = {**dict.fromkeys(gru.KERNELS, 0), **IQL_PER_UPDATE}
+    diffs, wraps = {}, 0
+    for _ in range(IQL_GRAPH_UPDATES):
+        counts = []
+        for run, st in ((learn, state), (learn_eager, state_eager)):
+            gru.reset_launch_counts()
+            out = run(st)
+            torch.cuda.synchronize()
+            counts.append((dict(gru.kernel_launches), gru.fwd_launches, gru.bwd_launches))
+            if run is learn:
+                index = out.learner_state.buffer_state.current_index
+                wraps += index < st.buffer_state.current_index
+                graph = out
+            else:
+                eager = out
+        check(counts[0] == counts[1] and counts[0][0] == want,
+              f"rec-IQL update: replayed launched {counts[0]}, op by op {counts[1]}, not {want}")
+        check(iql_host_counts(graph.learner_state) == iql_host_counts(eager.learner_state),
+              "rec-IQL update: the host counts differ replayed and op by op")
+        for name, d in relative_differences(iql_leaves(graph), iql_leaves(eager)).items():
+            diffs[name] = max(d, diffs.get(name, 0.0))
+        state, state_eager = graph.learner_state, eager.learner_state
+    if diffs:
+        print("  rec-IQL update: replayed vs op by op NOT bitwise; max relative difference by "
+              "leaf: " + ", ".join(f"{k} {v:.2e}" for k, v in sorted(diffs.items())[:12]))
+    check(not diffs, "the replayed rec-IQL update is not bitwise the update op by op")
+    check(wraps >= 1, f"rec-IQL update: the ring of {cfg.system.buffer_size} did not wrap")
+    phase = learn.update
+    check(phase.captures == 1 and phase.recaptures == 0,
+          f"rec-IQL update: {phase.captures} captures, {phase.recaptures} re-captures")
+    box = [state]
+
+    def one():
+        box[0] = learn(box[0]).learner_state
+
+    syncs = launches_and_syncs(one)
+    check(syncs["syncs"] == 0 and syncs["dtoh"] == 0,
+          f"a replayed rec-IQL update synchronised with the host: {syncs}")
+    print(f"  rec-IQL update ({' '.join(overrides)}, ring {cfg.system.buffer_size}): replayed vs "
+          f"op by op over {IQL_GRAPH_UPDATES} updates bitwise, the ring wrapped {wraps} times, "
+          f"{IQL_PER_UPDATE} launches an update both ways, 1 capture; a replayed update under "
+          f"the profiler: {syncs['launches']} host launches, {syncs['kernels']} kernels, "
+          f"{syncs['syncs']} host syncs, {syncs['dtoh']} device-to-host copies")
+    return {"updates": IQL_GRAPH_UPDATES, "wraps": wraps, "syncs": syncs}
+
+
+def iql_update_costs(overrides, gpu: str, label: str) -> dict:
+    """A rec-IQL update's host ms replayed and op by op, in turns (op by op,
+    replayed, replayed, op by op; `IQL_GRAPH_TIMED` updates a turn) after 3
+    warm-up updates each way, then one update each way under torch.profiler:
+    host launches, device kernels, idle share. Returns what was read."""
+    from mava_tpu_torch.utils.cuda_graphs import graph_pool
+
+    pool = graph_pool(torch.device("cuda"))
+    cfg, learn, state, _, _ = iql_learner(overrides)
+    _, learn_eager, state_eager, _, _ = iql_learner(overrides)
+    learn_eager.update = learn_eager.update.eager
+    learners = {"graph": [learn, state], "eager": [learn_eager, state_eager]}
+
+    def step(route):
+        run, st = learners[route]
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        out = run(st)
+        torch.cuda.synchronize()
+        learners[route][1] = out.learner_state
+        return time.perf_counter() - begin
+
+    bytes_before = pool_bytes(pool)
+    first_s = step("graph")
+    graph_bytes = pool_bytes(pool) - bytes_before
+    for _ in range(2):
+        step("graph")
+    for _ in range(3):
+        step("eager")
+    seconds = {"eager": [], "graph": []}
+    for route in ("eager", "graph", "graph", "eager"):
+        seconds[route] += [step(route) for _ in range(IQL_GRAPH_TIMED)]
+    steps = cfg.system.rollout_length * cfg.arch.num_envs
+    costs = {}
+    for route in ("eager", "graph"):
+        run, st = learners[route]
+        costs[route] = profile_update(f"{label} ({'op by op' if route == 'eager' else 'replayed'})",
+                                      lambda: run(st), steps, cfg.system.rollout_length)
+    ms = {route: 1e3 * sum(v) / len(v) for route, v in seconds.items()}
+    rate = {route: steps / (ms[route] / 1e3) for route in ms}
+    g, e = costs["graph"], costs["eager"]
+    print(f"  {label}: an update of {steps} env-steps, op by op {ms['eager']:.2f} ms host ("
+          + " ".join(f"{x * 1e3:.1f}" for x in seconds["eager"]) + f"), replayed "
+          f"{ms['graph']:.2f} ms host (" + " ".join(f"{x * 1e3:.2f}" for x in seconds["graph"])
+          + f"): {rate['eager']:.1f} and {rate['graph']:.1f} env-steps/s; launches / kernels / "
+          f"idle share profiled op by op {e['launches']} / {e['kernels']} / "
+          f"{e['idle_share']:.3f}, replayed {g['launches']} / {g['kernels']} / "
+          f"{g['idle_share']:.3f} (device busy {e['busy_ms']:.2f} and {g['busy_ms']:.2f} ms); "
+          f"the first update {first_s:.2f} s, of which the update run for real and captured "
+          f"{learn.update.capture_seconds[0]:.2f} s, {graph_bytes} bytes added to the graphs' "
+          f"pool; on {gpu}")
+    return {"ms": ms, "env_steps_per_s": rate, "capture_s": learn.update.capture_seconds[0],
+            "graph_bytes": graph_bytes}
+
+
 def feedforward_phase(gru, gpu: str) -> None:
     """ff-IPPO and ff-MAPPO on RWARE, ff-IPPO on Matrax, and the bench program,
     short. None of them reaches a hand-written kernel, and the counts say so."""
@@ -1342,7 +1522,7 @@ def feedforward_phase(gru, gpu: str) -> None:
 
     train("ff_ippo", gru, [
         "env=matrax", "env.scenario.task_name=Penalty-25-stateless-v0", "env.kwargs.time_limit=10",
-        "arch.num_envs=16", "system.rollout_length=128", "system.num_updates=30",
+        "arch.num_envs=16", "system.rollout_length=128", "system.num_updates=10",
         "arch.num_eval_episodes=32",
     ])
 
@@ -2107,10 +2287,10 @@ ANCHOR_SIZING = [
 
 
 def anchor_sizing(gpu: str, timed: int = 8, rows=ANCHOR_SIZING) -> dict:
-    """`--dynamics`: the host seconds of a SAC update (2 env steps and 32
-    train steps) at each of `rows` (by default `ANCHOR_SIZING`), after the
-    explore phase and one warm-up update: what sizes a learning anchor's chip
-    time."""
+    """`--dynamics`: the host seconds of an update (SAC: 2 env steps and 32
+    train steps; rec-IQL: 2 act steps and 2 train steps) at each of `rows` (by
+    default `ANCHOR_SIZING`), after the explore phase and one warm-up update:
+    what sizes a learning anchor's chip time."""
     out = {}
     for label, make in rows:
         cfg, explore, learn, state = make()
@@ -2129,9 +2309,46 @@ def anchor_sizing(gpu: str, timed: int = 8, rows=ANCHOR_SIZING) -> dict:
     return out
 
 
-# The stock anchors' evaluations: (label, config, centralised, overrides).
-ANCHOR_EVALS = [("ff-MASAC, MaReacher reacher-2x1", "default_ff_masac", True, ["env=mareacher"]),
-                ("ff-MASAC, MaSwarm spread-3ag", "default_ff_masac", True, [])]
+def sac_eval_actor(config_name: str, centralised: bool, overrides=()) -> tuple:
+    """(config, eval env, a fresh actor, its eval act fn, its carry by
+    `absolute`) of a SAC system on the card under `overrides`."""
+    from mava_tpu_torch import envs as environments
+    from mava_tpu_torch.evaluator import make_ff_eval_act_fn
+    from mava_tpu_torch.systems.sac import ff_isac
+    from mava_tpu_torch.utils.config import load_config
+
+    device = torch.device("cuda")
+    cfg = load_config(config_name, ["+arch.device=cuda", *overrides])
+    cfg.arch.n_devices = 1
+    _, eval_env = environments.make(cfg, device, add_global_state=centralised)
+    actor = ff_isac.make_networks(eval_env, cfg, device, cfg.system.seed, centralised)[0]
+    return cfg, eval_env, actor, make_ff_eval_act_fn(cfg), lambda absolute: {}
+
+
+def iql_eval_actor(overrides) -> tuple:
+    """`sac_eval_actor`'s tuple for the stock rec-IQL learner's Q-network; its
+    carry is the GRU's hidden state for each evaluation env."""
+    from mava_tpu_torch.evaluator import get_num_eval_envs
+    from mava_tpu_torch.networks import ScannedRNN
+    from mava_tpu_torch.systems.q_learning import rec_iql
+
+    cfg, _, _, eval_env, q_net = iql_learner(overrides)
+
+    def carry(absolute):
+        return {"hidden_state": ScannedRNN.initialize_carry(
+            (get_num_eval_envs(cfg, absolute), cfg.system.num_agents),
+            cfg.network.hidden_state_dim, torch.device("cuda"))}
+
+    return cfg, eval_env, q_net, rec_iql.make_eval_act_fn(), carry
+
+
+# The stock anchors' evaluations: (label, a function of no argument that gives
+# `sac_eval_actor`'s tuple).
+ANCHOR_EVALS = [
+    ("ff-MASAC, MaReacher reacher-2x1",
+     lambda: sac_eval_actor("default_ff_masac", True, ["env=mareacher"])),
+    ("ff-MASAC, MaSwarm spread-3ag", lambda: sac_eval_actor("default_ff_masac", True)),
+]
 
 
 def eval_sizing(gpu: str, rows=ANCHOR_EVALS) -> dict:
@@ -2142,33 +2359,26 @@ def eval_sizing(gpu: str, rows=ANCHOR_EVALS) -> dict:
     actor on the shipped config, after one warm-up evaluation: the other part
     of an anchor's chip time (`train_and_evaluate` makes one evaluation a
     round)."""
-    from mava_tpu_torch import envs as environments
-    from mava_tpu_torch.evaluator import get_eval_fn, make_ff_eval_act_fn
-    from mava_tpu_torch.systems.sac import ff_isac
-    from mava_tpu_torch.utils.config import load_config
+    from mava_tpu_torch.evaluator import get_eval_fn
 
     out = {}
-    device = torch.device("cuda")
-    for label, config_name, centralised, overrides in rows:
-        cfg = load_config(config_name, ["+arch.device=cuda", *overrides])
-        cfg.arch.n_devices = 1
-        _, eval_env = environments.make(cfg, device, add_global_state=centralised)
-        actor = ff_isac.make_networks(eval_env, cfg, device, cfg.system.seed, centralised)[0]
-        gen = torch.Generator(device=device).manual_seed(0)
+    for label, make in rows:
+        cfg, eval_env, actor, act_fn, carry = make()
+        gen = torch.Generator(device="cuda").manual_seed(0)
         seconds = {}
         for absolute in (False, True):
-            evaluate = get_eval_fn(eval_env, make_ff_eval_act_fn(cfg), cfg, absolute)
-            evaluate(actor, gen, {})
+            evaluate = get_eval_fn(eval_env, act_fn, cfg, absolute)
+            evaluate(actor, gen, carry(absolute))
             torch.cuda.synchronize()
             begin = time.perf_counter()
-            evaluate(actor, gen, {})
+            evaluate(actor, gen, carry(absolute))
             torch.cuda.synchronize()
             seconds[absolute] = time.perf_counter() - begin
         out[label] = seconds
         print(f"  {label}: one evaluation of {cfg.arch.num_eval_episodes} episodes "
               f"{seconds[False]:.3f} s, the absolute metric's "
               f"{cfg.arch.num_absolute_metric_eval_episodes} {seconds[True]:.3f} s "
-              f"({cfg.env.kwargs.time_limit} steps an episode, {cfg.arch.num_envs} envs), on {gpu}")
+              f"({eval_env.time_limit} steps an episode, {cfg.arch.num_envs} envs), on {gpu}")
     return out
 
 
@@ -2214,18 +2424,21 @@ def dynamics_ab(gpu: str) -> None:
 
 # ------------------------------------------------------------------ anchors
 class Anchor(NamedTuple):
-    """A SAC learning anchor: the stock CLI of `systems/sac/<module>` under
-    `overrides`, seed 1 (with `seeds`, that many stacked seeds of its
-    vmap-seeds program instead: a band, read and not ruled), beside the
-    uniform-random policy's return (the explore phase's ACTOR line) and the
-    JAX run's absolute metric, both from `source`. It passes where its
-    absolute metric closes 80 % of the gap from random to JAX (`rule`)."""
+    """A learning anchor: the stock CLI of `systems/<system>/<module>` under
+    `overrides`, seed 1 unless they say otherwise (a SAC anchor with `seeds`:
+    that many stacked seeds of its vmap-seeds program instead, a band, read
+    and not ruled), beside the random policy's metric (SAC: the explore
+    phase's ACTOR line, the return; rec-IQL: a win rate of 0) and the JAX
+    run's absolute metric (the win rate where the log has one, else the
+    return), from `source`. It passes where its absolute metric
+    closes 80 % of the gap from random to JAX (`rule`)."""
     module: str
     overrides: tuple
     random: float
     jax: float
     source: str
     seeds: int = 0
+    system: str = "sac"
 
     @property
     def rule(self) -> float:
@@ -2238,6 +2451,10 @@ class Anchor(NamedTuple):
 # as shipped (16 envs, 200 evaluations).
 J200 = ("system.total_timesteps=500000", "arch.num_envs=64", "arch.num_evaluation=50",
         "system.reward_scale=0.1")
+# j170's overrides around its scenario: env=smax, then arch.num_envs=64
+# system.total_timesteps=10000000 arch.num_evaluation=40.
+IQL_J170 = ("env=smax", "arch.num_envs=64", "system.total_timesteps=10000000",
+            "arch.num_evaluation=40")
 ANCHORS = {
     **{f"{system}_{env}": Anchor(
         f"ff_{system}", (f"env={env}", f"system.total_timesteps={steps}", "arch.num_envs=64",
@@ -2266,6 +2483,20 @@ ANCHORS = {
                              -86.0, -34.8, "BASELINE.md:65"),
     "masac_maswarm": Anchor("ff_masac", ("system.total_timesteps=500000", "system.reward_scale=0.1"),
                             -256.0, -107.6, "BASELINE.md:64, 248"),
+    # rec-IQL on SMAX at the reference jobs' settings (scripts/tpu_queue/r3/j170-j172;
+    # j976 from its log: 78,125 updates of 64 envs, 40 evaluations), ruled on the
+    # absolute win rate in %, random taken as 0.
+    **{name: Anchor("rec_iql", IQL_J170[:1] + (f"env/scenario={scenario}",) + IQL_J170[1:] + seed,
+                    0.0, jax, source, system="q_learning")
+       for name, scenario, seed, jax, source in [
+           ("iql_3s_vs_5z", "3s_vs_5z", (), 99.688,
+            "BASELINE.md:57, 213; results/r3_queue/j170_rec_iql_3s_vs_5z.log"),
+           ("iql_2s3z", "2s3z", (), 91.25,
+            "BASELINE.md:59, 300; results/r4_queue/j976_iql_fused_10m.log"),
+           ("iql_3s_vs_5z_seed7", "3s_vs_5z", ("system.seed=7",), 99.375,
+            "BASELINE.md:214; results/r3_queue/j171_rec_iql_3s_vs_5z_seed7.log"),
+           ("iql_3s_vs_5z_seed123", "3s_vs_5z", ("system.seed=123",), 100.0,
+            "BASELINE.md:214; results/r3_queue/j172_rec_iql_3s_vs_5z_seed123.log")]},
 }
 
 
@@ -2328,7 +2559,7 @@ def run_anchors(names, gpu: str, out_dir=None) -> int:
     output in `out_dir` (by default `chiprun_out/anchors/`) as NAME.log; one
     line an anchor: the absolute metric beside its rule, pass or miss, the
     seconds, the evaluations at about each fifth of the run and the best, the
-    Q1 range, the learn and evaluation seconds (a band: each seed's reading).
+    Q range, the learn and evaluation seconds (a band: each seed's reading).
     Returns the number of runs that raised or printed no absolute metric; a
     miss is a reading."""
     from mava_tpu_torch.examples.sac_anchors import read_log, read_sections
@@ -2342,7 +2573,8 @@ def run_anchors(names, gpu: str, out_dir=None) -> int:
         if anchor.seeds:
             command = [sys.executable, str(Path(__file__).resolve()), "--band", name]
         else:
-            command = [sys.executable, "-m", f"mava_tpu_torch.systems.sac.{anchor.module}",
+            command = [sys.executable, "-m",
+                       f"mava_tpu_torch.systems.{anchor.system}.{anchor.module}",
                        *anchor.overrides]
         log = out_dir / f"{name}.log"
         begin = time.perf_counter()
@@ -2376,21 +2608,37 @@ def run_anchors(names, gpu: str, out_dir=None) -> int:
 
 def named_sizing(names) -> tuple:
     """`ANCHOR_SIZING` and `ANCHOR_EVALS` rows of the named anchors of
-    `ANCHORS`, each under its own overrides (one explore batch of 128 items
-    before the timed updates)."""
+    `ANCHORS`, each under its own overrides (a SAC anchor: one explore batch
+    of 128 items before the timed updates; a rec-IQL anchor, which has no
+    explore phase: its update replayed, then op by op in a row of its own)."""
     sizing, evals = [], []
     for name in names:
         anchor = ANCHORS[name]
         config_name, centralised = f"default_{anchor.module}", anchor.module == "ff_masac"
         overrides = list(anchor.overrides)
+        if anchor.module == "rec_iql":
+            for label, eager in ((name, False), (f"{name}, op by op", True)):
+                sizing.append((label, lambda o=overrides, e=eager: iql_sizing_learner(o, e)))
+            evals.append((name, lambda o=overrides: iql_eval_actor(o)))
+            continue
         if anchor.seeds:
             sizing.append((name, lambda a=anchor, o=overrides: sac_vmap_learner(
                 a.seeds, a.module == "ff_masac", [*o, "system.explore_steps=128"])))
         else:
             sizing.append((name, lambda c=config_name, cen=centralised, o=overrides: sac_learner(
                 c, cen, [*o, "system.explore_steps=128"])))
-        evals.append((name, config_name, centralised, overrides))
+        evals.append((name, lambda c=config_name, cen=centralised, o=overrides: sac_eval_actor(
+            c, cen, o)))
     return sizing, evals
+
+
+def iql_sizing_learner(overrides, eager: bool) -> tuple:
+    """`sac_learner`'s (config, explore, learn, state) for the stock rec-IQL
+    learner: no explore phase; its update replayed, or op by op with `eager`."""
+    cfg, learn, state, _, _ = iql_learner(overrides)
+    if eager:
+        learn.update = learn.update.eager
+    return cfg, lambda st: (st, None), learn, state
 
 
 def flag_names(flag: str) -> list:
@@ -3581,7 +3829,7 @@ def main() -> int:
     if "--anchors" in sys.argv[1:]:
         names = flag_names("--anchors")
         check(bool(names), "--anchors takes NAME[,NAME...] of: " + ", ".join(ANCHORS))
-        print("SAC learning anchors, each the stock CLI in a process of its own:")
+        print("learning anchors, each the stock CLI in a process of its own:")
         failed = run_anchors(names, gpu)
         print(gpu)
         return 1 if failed else 0
@@ -3589,7 +3837,7 @@ def main() -> int:
         names = flag_names("--dynamics")
         if names:
             sizing, evals = named_sizing(names)
-            print("SAC updates and evaluations of the named anchors under their overrides:")
+            print("updates and evaluations of the named anchors under their overrides:")
             anchor_sizing(gpu, rows=sizing)
             eval_sizing(gpu, rows=evals)
             print(gpu)
@@ -3664,7 +3912,7 @@ def main() -> int:
     print("SMAX phase (rec-MAPPO on 3s5z):")
     smax = smax_phase(gru, gpu)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
-    print("rec-IQL phase (SMAX 3s5z):")
+    print("rec-IQL phase (SMAX 3s5z; the update replayed on 3s_vs_5z, 64 envs):")
     iql = iql_phase(gru, gpu)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     print("grid phase (rec-MAPPO rcnn on MaConnector; Cleaner, LBF, Gigastep):")

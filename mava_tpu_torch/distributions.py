@@ -101,7 +101,10 @@ class MaskedEpsGreedy(Categorical):
         mask_f = mask.to(q_values.dtype)
         uniform = mask_f / mask_f.sum(-1, keepdim=True)
         self._greedy = masked_greedy(q_values, mask)
-        greedy = torch.nn.functional.one_hot(self._greedy, q_values.shape[-1]).to(q_values.dtype)
+        # A one-hot by comparison: `one_hot` reads the indices' range back to
+        # the host on CPU tensors.
+        actions = torch.arange(q_values.shape[-1], device=q_values.device)
+        greedy = (self._greedy[..., None] == actions).to(q_values.dtype)
         probs = epsilon * uniform + (1.0 - epsilon) * greedy
         super().__init__(torch.log(torch.clamp(probs, min=1e-12)))
 

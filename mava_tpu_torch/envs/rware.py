@@ -146,7 +146,8 @@ class RobotWarehouse(DiscreteEnvSpecs):
 
         eq_agent = flat_q[..., None] == flat_agent[:, None, None, :]  # (E, A, K, A)
         eq_shelf = flat_q[..., None] == flat_shelf[:, None, None, :]  # (E, A, K, S)
-        dir_onehot = torch.nn.functional.one_hot(state.agent_dir, 4).float()  # (E, A, 4)
+        # (E, A, 4), by comparison: `one_hot` reads its range back on CPU tensors.
+        dir_onehot = (state.agent_dir[..., None] == torch.arange(4, device=self.device)).float()
 
         agent_f = eq_agent.any(-1).float()
         dir_f = torch.einsum("eqka,ead->eqkd", eq_agent.float(), dir_onehot)

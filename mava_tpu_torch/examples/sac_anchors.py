@@ -1,18 +1,21 @@
-"""Read the logs of SAC learning runs: the anchors and the MaSwarm divergence.
+"""Read the logs of learning runs: the SAC and rec-IQL anchors and the MaSwarm
+divergence.
 
     python -m mava_tpu_torch.examples.sac_anchors [PERF_maswarm_masac_logs.txt]
+    python -m mava_tpu_torch.examples.sac_anchors PERF_rec_iql_logs.txt
 
-A log is the console output of a SAC CLI of either package (`mava_tpu` or
-`mava_tpu_torch`; colour codes are dropped), or one section of a logs file
-that holds several runs, each under a heading line `== <what ran>`. Of each
-run it reads every round's `Q1 a vals` (TRAINER line), evaluation return
-(EVALUATOR), env-step count and learn and evaluation seconds (MISC), and the
-absolute metric (ABSOLUTE). A run diverges where a round's logged Q1 (the mean
-over the round's train steps of the batch mean) passes `DIVERGED` in absolute
-value: the rule for MaSwarm, whose Q values stay within about [-20, 10] while
-its critics hold; on the articulated envs, whose returns run to the hundreds,
-the same reading is only where |Q1| first passes 100. `main` prints one line a
-section.
+A log is the console output of a SAC or rec-IQL CLI of either package
+(`mava_tpu` or `mava_tpu_torch`; colour codes are dropped), or one section of a
+logs file that holds several runs, each under a heading line `== <what ran>`.
+Of each run it reads every round's mean Q (TRAINER line: SAC's `Q1 a vals`,
+rec-IQL's `Mean q`), evaluation metric (EVALUATOR: the win rate where the line
+logs one, else the mean return), env-step count and learn and evaluation
+seconds (MISC), and the absolute metric (ABSOLUTE, read as EVALUATOR). A run diverges where a
+round's logged Q (the mean over the round's train steps of the batch mean)
+passes `DIVERGED` in absolute value: the rule for MaSwarm, whose Q values stay
+within about [-20, 10] while its critics hold; on the articulated envs, whose
+returns run to the hundreds, the same reading is only where |Q1| first passes
+100. `main` prints one line a section.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ class Run:
     eval_s: float = 0.0
     absolute: Optional[float] = None
     random: Optional[float] = None  # the first ACTOR line: the explore phase's return
+    q_name: str = "Q1"  # SAC's Q1, or rec-IQL's Q
 
     def diverged(self) -> Optional[int]:
         """The env-step count of the first round whose |Q1| passes `DIVERGED`."""
@@ -73,11 +77,21 @@ class Run:
         text = (f"{len(self.evals)} rounds; absolute "
                 + ("none" if self.absolute is None else f"{self.absolute:.3f}")
                 + f"; best eval {best:.2f} ({best_t}), final {self.evals[-1]:.2f} "
-                f"({self.steps[-1] if self.steps else -1}); Q1 within [{min(self.q1):.2f}, "
-                f"{max(self.q1):.2f}]; "
-                + ("no round past |Q1| 100" if onset is None else f"|Q1| past 100 from {onset}")
+                f"({self.steps[-1] if self.steps else -1}); {self.q_name} within "
+                f"[{min(self.q1):.2f}, {max(self.q1):.2f}]; "
+                + (f"no round past |{self.q_name}| 100" if onset is None
+                   else f"|{self.q_name}| past 100 from {onset}")
                 + f"; learn {self.learn_s:.1f} s, eval {self.eval_s:.1f} s")
         return text
+
+
+RETURN, WIN_RATE = "Episode return mean", "Win rate"
+
+
+def metric_of(line: str) -> str:
+    """What an EVALUATOR or ABSOLUTE line is read on: `WIN_RATE` where it logs
+    one, else `RETURN`."""
+    return WIN_RATE if WIN_RATE in line else RETURN
 
 
 def read_log(lines: Iterable[str]) -> Run:
@@ -87,10 +101,13 @@ def read_log(lines: Iterable[str]) -> Run:
         line = _ANSI.sub("", raw)
         if line.startswith("TRAINER") and "Q1 a vals" in line:
             run.q1.append(_field(line, "Q1 a vals"))
+        elif line.startswith("TRAINER") and "Mean q" in line:
+            run.q1.append(_field(line, "Mean q"))
+            run.q_name = "Q"
         elif line.startswith("EVALUATOR"):
-            run.evals.append(_field(line, "Episode return mean"))
+            run.evals.append(_field(line, metric_of(line)))
         elif line.startswith("ABSOLUTE"):
-            run.absolute = _field(line, "Episode return mean")
+            run.absolute = _field(line, metric_of(line))
         elif line.startswith("ACTOR") and run.random is None:
             run.random = _field(line, "Episode return mean")
         elif line.startswith("MISC") and "Timestep" in line:

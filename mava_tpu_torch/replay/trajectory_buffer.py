@@ -10,6 +10,12 @@ counters are host integers, since they move the same way in every run.
 spans the write head. The pairs are drawn apart from the gather
 (`sample_indices`), so that a test can hand in the reference's.
 
+A captured program (rec-IQL's update, one CUDA graph) cannot read the host
+counters inside its graph: it takes the parts apart. `write_positions` and
+`advance` are what `add` does with the counters, `write` the write at given
+ring positions; `physical_starts` turns logical starts into ring positions
+from the counters, and `gather` reads the sequences at those positions.
+
 As in the reference, a buffer that holds fewer steps than a sequence still
 samples: `max(size - L + 1, 1)` starts, and the sequence reads the ring's
 zero-filled rows beyond what was written.
@@ -67,14 +73,27 @@ class TrajectoryBuffer:
         if leaves[0].shape[0] != self.add_batch_size:
             raise ValueError(
                 f"add expects leading dim {self.add_batch_size}, got {leaves[0].shape[0]}")
-        idx = state.current_index
-        device = leaves[0].device
-        positions = (idx + torch.arange(t_add, device=device)) % self.max_length_time_axis
+        self.write(state, batch, self.write_positions(state, t_add, leaves[0].device))
+        return self.advance(state, t_add)
+
+    def write_positions(self, state: TrajectoryBufferState, t_add: int,
+                        device: torch.device) -> torch.Tensor:
+        """The ring positions (t_add,) that the next `t_add` steps are written at."""
+        steps = torch.arange(t_add, device=device)
+        return (state.current_index + steps) % self.max_length_time_axis
+
+    def write(self, state: TrajectoryBufferState, batch: Any, positions: torch.Tensor) -> None:
+        """Writes `batch` (leaves (add_batch_size, T_add, ...)) at the ring
+        `positions` (T_add,), in place; the counters are left as they are."""
 
         def write(buf: torch.Tensor, x: torch.Tensor) -> None:
             buf[:, positions] = x.to(buf.dtype)
 
         pytree.tree_map(write, state.experience, batch)
+
+    def advance(self, state: TrajectoryBufferState, t_add: int) -> TrajectoryBufferState:
+        """The counters after `t_add` more steps were written."""
+        idx = state.current_index
         return TrajectoryBufferState(
             state.experience,
             (idx + t_add) % self.max_length_time_axis,
@@ -107,9 +126,19 @@ class TrajectoryBuffer:
     ) -> Any:
         """The experience of the sequences at (rows, logical_starts): leaves
         (sample_batch_size, sample_sequence_length, ...)."""
+        return self.gather(state, rows, self.physical_starts(state, logical_starts))
+
+    def physical_starts(self, state: TrajectoryBufferState,
+                        logical_starts: torch.Tensor) -> torch.Tensor:
+        """The ring positions of logical starts (counted from the oldest step)."""
         oldest = state.current_index if state.is_full else 0
-        physical = (oldest + logical_starts.long()) % self.max_length_time_axis
-        steps = torch.arange(self.sample_sequence_length, device=physical.device)
-        time_idx = (physical[:, None] + steps) % self.max_length_time_axis
+        return (oldest + logical_starts.long()) % self.max_length_time_axis
+
+    def gather(self, state: TrajectoryBufferState, rows: torch.Tensor,
+               physical_starts: torch.Tensor) -> Any:
+        """The experience of the sequences at (rows, ring positions of their
+        first steps): leaves (sample_batch_size, sample_sequence_length, ...)."""
+        steps = torch.arange(self.sample_sequence_length, device=physical_starts.device)
+        time_idx = (physical_starts[:, None] + steps) % self.max_length_time_axis
         row_idx = rows.long()[:, None]
         return pytree.tree_map(lambda buf: buf[row_idx, time_idx], state.experience)

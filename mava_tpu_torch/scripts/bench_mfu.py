@@ -10,7 +10,9 @@ The PPO configs run a rollout of 128 and 4 updates a call. For each config it
 builds the real learner and, after one warm-up call,
   1. counts the FLOPs of one call, untimed: the matrix products and
      convolutions that run as aten ops, forward and backward, under
-     `torch.utils.flop_counter.FlopCounterMode` (`matmul_flops_per_call`); and
+     `torch.utils.flop_counter.FlopCounterMode` (`matmul_flops_per_call`; a
+     phase captured as a CUDA graph, such as the rec-IQL update, runs op by
+     op under the mode, which a replay would hide its products from); and
      the GRU kernels', which that mode cannot see, because `ops/gru.py`
      launches them through ctypes and not through aten: the launches of that
      call by kernel and shape (`gru.launch_shapes`, set to 0 just before),

@@ -18,6 +18,22 @@ Every random draw of an update can be handed in (`Draws`): the Gumbel noise of
 the epsilon-greedy samples, the env's step noise and the buffer's
 (rows, starts); by default they come from the learner state's generator.
 
+The reference compiles an update into one program (the act steps a `lax.scan`,
+:258, the epochs another, :271). Here an update is two parts: its inputs
+(`UpdateInputs`: the draws, in the order the act steps and epochs take them;
+each act step's epsilon, ring position and each epoch's hard-update flag from
+the host counters; the sequences' starts as ring positions; and the carry,
+the observation, flags, hidden state and env state, by value), then a body on
+device tensors only, which runs the act steps with their ring writes and the
+epochs' Q steps and updates the parameters, Adam's moments and the ring in
+place. On CUDA the body is one CUDA graph (`learner_fn.update`, a
+`utils.cuda_graphs.CapturedPhase`), the GRU kernels inside it: the first
+update runs it for real and captures it, every later update copies its inputs
+in, replays, and takes copies of the new carry, the metrics and the losses; a
+state at other addresses (a restored checkpoint) is captured again. The ring's
+counters, the env-step and train-step counts stay on the host and advance
+after the body. CPU tensors run the body op by op.
+
 Data-parallel over ranks (`parallel/`): each rank acts on its own
 `arch.num_envs` envs into its own ring (its counters move in lockstep with
 every other rank's), samples its own sequences, and every Q step averages the
@@ -48,6 +64,7 @@ from mava_tpu_torch.envs.wrappers import obs_shape
 from mava_tpu_torch.evaluator import get_num_eval_envs
 from mava_tpu_torch.networks import RecQNetwork, ScannedRNN
 from mava_tpu_torch.networks.factory import make_torso
+from mava_tpu_torch.ops import gru as gru_ops
 from mava_tpu_torch.parallel import (
     Mesh,
     all_reduce_mean,
@@ -56,6 +73,7 @@ from mava_tpu_torch.parallel import (
     sharded_env_reset,
     tile_for_shards,
 )
+from mava_tpu_torch.parallel import mesh as mesh_module
 from mava_tpu_torch.parallel.distributed import rank_generator
 from mava_tpu_torch.replay import StackedTrajectoryBuffer, TrajectoryBuffer
 from mava_tpu_torch.systems.anakin import (
@@ -67,16 +85,19 @@ from mava_tpu_torch.systems.anakin import (
     train_and_evaluate,
 )
 from mava_tpu_torch.systems.q_learning.types import (
+    Carry,
     Draws,
     LearnerState,
     QNetParams,
     Transition,
+    UpdateInputs,
 )
 from mava_tpu_torch.types import ExperimentOutput
 from mava_tpu_torch.utils.config import Config, load_config
+from mava_tpu_torch.utils.cuda_graphs import CapturedPhase
 from mava_tpu_torch.utils.training import (
     make_optimizer,
-    periodic_update,
+    replace_where,
     select_along_last,
     soft_update,
     switch_leading_axes,
@@ -149,14 +170,17 @@ def get_learner_fn(
 ) -> Callable[[LearnerState], ExperimentOutput]:
     """Build `learner_fn(state)`, which runs `num_updates_per_eval` updates,
     data-parallel over `mesh` (by default the process group's, if any).
-    `draws[u]` replaces what update u would draw (see `Draws`)."""
+    `draws[u]` replaces what update u would draw (see `Draws`).
+    `learner_fn.update` is the update's `CapturedPhase`."""
     mesh = mesh or make_mesh()
     sys_cfg = config.system
     num_envs = config.arch.num_envs
     rollout, epochs = sys_cfg.rollout_length, sys_cfg.epochs
+    step_envs = num_envs * config.arch.n_devices  # global env steps an act step
     fused = sys_cfg.get("fused_target_pass", True)
 
-    def update_q(params: QNetParams, opt, data: Transition, t_train: int) -> Dict[str, torch.Tensor]:
+    def update_q(params: QNetParams, opt, data: Transition,
+                 replace: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
         q_loss, q_online, target = q_loss_pass(params, data, sys_cfg.gamma, fused)
         online_params = list(params.online.parameters())
         grads = torch.autograd.grad(q_loss, online_params)
@@ -164,38 +188,64 @@ def get_learner_fn(
         grads, (q_loss, mean_q, mean_target) = all_reduce_mean((grads, info), mesh)
         opt.step(grads)
         if sys_cfg.hard_update:
-            periodic_update(params.target, params.online, t_train, sys_cfg.update_period)
+            replace_where(params.target, params.online, replace)
         else:
             soft_update(params.target, params.online, sys_cfg.tau)
         return {"q_loss": q_loss, "mean_q": mean_q, "mean_target": mean_target}
 
-    def update_step(state: LearnerState, drawn: Draws) -> Tuple[LearnerState, Tuple]:
-        gen = state.key
-        online, _ = state.params
-        obs, terminal, term_or_trunc = state.obs, state.terminal, state.term_or_trunc
-        hidden, env_state, buffer_state = state.hidden_state, state.env_state, state.buffer_state
-        t = state.time_steps
-        device = terminal.device
+    def draw_update(state: LearnerState, drawn: Draws) -> UpdateInputs:
+        """The update's inputs, drawn from the generator in the order the act
+        steps and the epochs take them (the Gumbel noise of every act step,
+        each act step's env noise, then each epoch's sequences) or handed in;
+        the epsilons, ring positions and hard-update flags from the host
+        counters. The sequences are drawn from the ring as it stands after the
+        act steps' writes."""
+        gen, device = state.key, state.terminal.device
         action_noise = drawn.action_noise
         if action_noise is None:
-            shape = (rollout, num_envs, sys_cfg.num_agents, env.action_dim)
-            action_noise = gumbel(shape, gen, device)
+            action_noise = gumbel((rollout, num_envs, sys_cfg.num_agents, env.action_dim), gen,
+                                  device)
+        env_noise = [env.step_noise(num_envs, gen) if drawn.env_noise is None
+                     else drawn.env_noise[step] for step in range(rollout)]
+        epsilon = torch.stack([epsilon_schedule(config, state.time_steps + step * step_envs)
+                               for step in range(rollout)])
+        if device.type == "cuda":  # no host sync: an asynchronous copy from pinned memory
+            epsilon = epsilon.pin_memory().to(device, non_blocking=True)
+        after = buffer.advance(state.buffer_state, rollout)
+        if drawn.rows is None:
+            rows, starts = zip(*(buffer.sample_indices(after, gen) for _ in range(epochs)))
+            rows, starts = torch.stack(rows), torch.stack(starts)
+        else:
+            rows, starts = drawn.rows, drawn.starts
+        replace = None
+        if sys_cfg.hard_update:
+            updates = state.train_steps + torch.arange(epochs, device=device)
+            replace = updates % sys_cfg.update_period == 0
+        carry = Carry(state.obs, state.terminal, state.term_or_trunc, state.hidden_state,
+                      state.env_state)
+        return UpdateInputs(carry, action_noise, env_noise, epsilon,
+                            buffer.write_positions(state.buffer_state, rollout, device),
+                            rows, buffer.physical_starts(after, starts), replace)
 
+    def update_body(state: LearnerState, inputs: UpdateInputs) -> Tuple[Carry, Dict, Dict]:
+        """The act steps, each written into the ring, then the epochs' Q steps,
+        on device tensors only: (the new carry, the act steps' episode metrics
+        and the epochs' losses, each stacked)."""
+        online = state.params.online
+        obs, terminal, term_or_trunc, hidden, env_state = inputs.carry
         metrics: List[Dict[str, torch.Tensor]] = []
         with torch.no_grad(), record_function("rec_iql/rollout"):
             for step in range(rollout):
-                eps = epsilon_schedule(config, t).to(device)
-                hidden, greedy = online(hidden, (_first(obs), term_or_trunc[None]), eps)
-                action = greedy.sample_from_noise(action_noise[step][None])[0]
-                t += num_envs * config.arch.n_devices  # global env steps
-                env_noise = (env.step_noise(num_envs, gen) if drawn.env_noise is None
-                             else drawn.env_noise[step])
-                env_state, timestep = env.step(env_state, action, env_noise)
+                hidden, greedy = online(hidden, (_first(obs), term_or_trunc[None]),
+                                        inputs.epsilon[step])
+                action = greedy.sample_from_noise(inputs.action_noise[step][None])[0]
+                env_state, timestep = env.step(env_state, action, inputs.env_noise[step])
                 transition = Transition(
                     obs, action, timestep.reward, terminal, term_or_trunc,
                     timestep.extras["real_next_obs"],
                 )
-                buffer_state = buffer.add(buffer_state, pytree.tree_map(lambda x: x[:, None], transition))
+                buffer.write(state.buffer_state, pytree.tree_map(lambda x: x[:, None], transition),
+                             inputs.positions[step:step + 1])
                 obs = timestep.observation
                 terminal = (1 - timestep.discount[:, :1]) != 0
                 term_or_trunc = timestep.last()[:, None]
@@ -204,20 +254,21 @@ def get_learner_fn(
         losses = []
         with record_function("rec_iql/train"):
             for epoch in range(epochs):
-                if drawn.rows is None:
-                    rows, starts = buffer.sample_indices(buffer_state, gen)
-                else:
-                    rows, starts = drawn.rows[epoch], drawn.starts[epoch]
-                data = buffer.sample(buffer_state, rows, starts)
+                data = buffer.gather(state.buffer_state, inputs.rows[epoch], inputs.starts[epoch])
                 losses.append(update_q(state.params, state.opt_state, data,
-                                       state.train_steps + epoch))
+                                       None if inputs.replace is None else inputs.replace[epoch]))
+        carry = Carry(obs, terminal, term_or_trunc, hidden, env_state)
+        return carry, stack_trees(metrics), stack_trees(losses)
 
+    def update_step(state: LearnerState, drawn: Draws) -> Tuple[LearnerState, Tuple]:
+        with record_function("rec_iql/update"):
+            carry, metrics, losses = learner_fn.update(state, drawn)
         new_state = state._replace(
-            obs=obs, terminal=terminal, term_or_trunc=term_or_trunc, hidden_state=hidden,
-            env_state=env_state, time_steps=t, train_steps=state.train_steps + epochs,
-            buffer_state=buffer_state,
+            **carry._asdict(), time_steps=state.time_steps + rollout * step_envs,
+            train_steps=state.train_steps + epochs,
+            buffer_state=buffer.advance(state.buffer_state, rollout),
         )
-        return new_state, (stack_trees(metrics), stack_trees(losses))
+        return new_state, (metrics, losses)
 
     def learner_fn(state: LearnerState) -> ExperimentOutput:
         episode_info, train_info = [], []
@@ -231,7 +282,23 @@ def get_learner_fn(
             train_metrics=stack_trees(train_info),
         )
 
+    learner_fn.update = CapturedPhase(draw_update, update_body, update_state_tensors,
+                                      update_counters, "the rec-IQL update")
     return learner_fn
+
+
+def update_state_tensors(state: LearnerState) -> List[torch.Tensor]:
+    """The tensors an update reads or writes in place, beside its inputs: both
+    networks' parameters, the optimizer's state and the ring's storage."""
+    return [*(p for net in state.params for p in net.parameters()),
+            *state.opt_state.state_tensors(), *pytree.tree_leaves(state.buffer_state.experience)]
+
+
+def update_counters(state: LearnerState) -> List:
+    """The host counters an update advances: the optimizer's count, the
+    all-reduces of a data group and the GRU op's launch counts."""
+    return [(state.opt_state, "count"), (mesh_module, "all_reduces"), (gru_ops, "fwd_launches"),
+            (gru_ops, "bwd_launches"), gru_ops.kernel_launches, gru_ops.launch_shapes]
 
 
 def make_q_network(env: Any, config: Config, device: torch.device, seed: int) -> RecQNetwork:

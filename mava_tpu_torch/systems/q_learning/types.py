@@ -49,6 +49,38 @@ class LearnerState(NamedTuple):
     key: torch.Generator
 
 
+class Carry(NamedTuple):
+    """What the act steps carry from step to step, and an update to the next."""
+
+    obs: Any
+    terminal: torch.Tensor  # (E, 1) bool
+    term_or_trunc: torch.Tensor  # (E, 1) bool
+    hidden_state: torch.Tensor  # (E, A, H)
+    env_state: Any
+
+
+class UpdateInputs(NamedTuple):
+    """Every input of an update's body besides the parameters, the optimizer
+    and the ring: the carry, copied in by value, and the draws, with what the
+    host counters say of this update made into device tensors.
+
+    epsilon: (rollout,) each act step's epsilon; positions: (rollout,) the ring
+    position each act step writes; rows and starts: (epochs, sample_batch_size)
+    the sequences of each epoch, their starts as ring positions; replace:
+    (epochs,) bool, whether a hard update replaces the target after each
+    epoch's step (None with the soft update).
+    """
+
+    carry: Carry
+    action_noise: torch.Tensor
+    env_noise: list
+    epsilon: torch.Tensor
+    positions: torch.Tensor
+    rows: torch.Tensor
+    starts: torch.Tensor
+    replace: Optional[torch.Tensor]
+
+
 class Draws(NamedTuple):
     """What one update of rec-IQL draws, to be handed in (a test hands in the
     reference's); a None field is drawn from the learner's generator.

@@ -1,8 +1,9 @@
 """CUDA graph capture, shared by the port's captured programs: the articulated
-envs' integrator step (`envs/_dynamics.py` `CapturedStep`) and the SAC train
-phase (`systems/sac/ff_isac.py`, `advanced_usage/ff_isac_vmap_seeds.py`), the
-counterparts of the reference's `jax.jit` of the step and compiled `lax.scan`
-of the train steps.
+envs' integrator step (`envs/_dynamics.py` `CapturedStep`), the SAC train
+phase (`systems/sac/ff_isac.py`, `advanced_usage/ff_isac_vmap_seeds.py`) and
+the whole rec-IQL update (`systems/q_learning/rec_iql.py`), the counterparts
+of the reference's `jax.jit` of the step and compiled `lax.scan`s of the act
+and train steps.
 
 `Captured` runs a function once on a side stream (the warm-up that creates the
 library handles and workspaces its ops need, and lets autograd see its first
@@ -10,11 +11,13 @@ run on that stream), then captures it on the same stream into the device's one
 memory pool (`graph_pool`), and replays it. Host counters that the function
 advances as it runs (kernel launches, optimizer counts, all-reduces) are rolled
 back after the capture, which executes nothing, and advanced by what the
-capture recorded at every replay. A capture that fails raises with the op that
-failed (`failing_op`).
+capture recorded at every replay: an attribute of an object, or every key of
+a dict of counts (the GRU op's launches by kernel and by shape). A capture
+that fails raises with the op that failed (`failing_op`).
 
-`CapturedPhase` is a phase of an update split into its draws, made on the host
-in the order an eager loop makes them, and a body that reads and writes only
+`CapturedPhase` is a phase of an update split into its inputs (the draws, made
+on the host in the order an eager loop makes them, and any state the phase
+carries from call to call by value), and a body that reads and writes only
 device tensors at fixed addresses (parameters, optimizer moments, a replay
 ring). On CPU tensors the body runs op by op; on CUDA tensors the first call
 runs the body for real as the warm-up and captures it, and every later call
@@ -26,15 +29,17 @@ other memory.
 
 from __future__ import annotations
 
+import gc
 import linecache
 import os
 import re
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, MutableMapping, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import is_in_torch_dispatch_mode
 
 # The memory pool of every captured graph on a device: the graphs draw their
 # intermediates and outputs from one pool. That is safe because each replay
@@ -44,8 +49,33 @@ _GRAPH_POOLS: Dict[torch.device, Tuple[int, int]] = {}
 
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# A host counter that a captured function advances: (object, attribute name).
-Counter = Tuple[Any, str]
+# A host counter that a captured function advances: (object, attribute name),
+# or a dict whose every value is a count.
+Counter = Union[Tuple[Any, str], MutableMapping]
+
+
+def _read(counter: Counter) -> Any:
+    if isinstance(counter, MutableMapping):
+        return dict(counter)
+    obj, name = counter
+    return getattr(obj, name)
+
+
+def _restore(counter: Counter, value: Any) -> None:
+    if isinstance(counter, MutableMapping):
+        counter.clear()
+        counter.update(value)
+    else:
+        setattr(*counter, value)
+
+
+def _advance(counter: Counter, step: Any) -> None:
+    if isinstance(counter, MutableMapping):
+        for key, n in step.items():
+            counter[key] = counter.get(key, 0) + n
+    else:
+        obj, name = counter
+        setattr(obj, name, getattr(obj, name) + step)
 
 
 def graph_pool(device: torch.device) -> Tuple[int, int]:
@@ -98,25 +128,40 @@ class Captured:
             with torch.cuda.stream(stream):
                 self.warm_up_result = fn()
             self.graph = torch.cuda.CUDAGraph()
-            before = [getattr(obj, name) for obj, name in counters]
+            before = [_read(counter) for counter in counters]
+            # No garbage collection inside the capture: a collection there can
+            # free another graph that only a reference cycle still held (a
+            # discarded learner), and a graph's reset is not permitted while a
+            # stream captures. Such graphs are freed here, just before.
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
             try:
                 with torch.cuda.graph(self.graph, pool=graph_pool(device), stream=stream):
                     self.outputs = fn()
             except RuntimeError as error:
                 raise RuntimeError(f"capturing {what} as a CUDA graph failed at "
                                    f"{failing_op(error)}: {error}") from error
+            finally:
+                if collecting:
+                    gc.enable()
             torch.cuda.current_stream(device).wait_stream(stream)
         # A capture executes nothing; every replay does what it recorded.
         self.advances = []
-        for (obj, name), value in zip(counters, before):
-            self.advances.append((obj, name, getattr(obj, name) - value))
-            setattr(obj, name, value)
+        for counter, value in zip(counters, before):
+            after = _read(counter)
+            if isinstance(counter, MutableMapping):
+                step = {k: n - value.get(k, 0) for k, n in after.items() if n != value.get(k, 0)}
+            else:
+                step = after - value
+            self.advances.append((counter, step))
+            _restore(counter, value)
         self.seconds = time.perf_counter() - start
 
     def replay(self) -> Any:
         self.graph.replay()
-        for obj, name, step in self.advances:
-            setattr(obj, name, getattr(obj, name) + step)
+        for counter, step in self.advances:
+            _advance(counter, step)
         return self.outputs
 
 
@@ -124,18 +169,26 @@ def _address(t: torch.Tensor) -> Tuple:
     return t.data_ptr(), tuple(t.shape), tuple(t.stride()), t.dtype
 
 
+def _tensors(tree: Any) -> List[torch.Tensor]:
+    return [x for x in pytree.tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
 class CapturedPhase:
-    """A phase of an update: `draw(state, handed)` makes its random numbers (or
-    takes the handed-in ones) as a pytree of tensors, `body(state, draws)`
-    computes on the state's device tensors and returns a pytree of tensors.
+    """A phase of an update: `draw(state, handed)` makes its inputs, its random
+    numbers (or the handed-in ones) and any state it carries by value, as a
+    pytree of tensors (a leaf that is no tensor, such as the None of a draw an
+    env does not make, is held as it is), `body(state, draws)` computes on
+    them and on the state's device tensors and returns a pytree of tensors.
     `state_tensors(state)` lists every tensor outside the draws that the body
     reads or writes, `counters(state)` the host counters it advances.
 
-    A call draws, then runs the body: op by op on CPU tensors; on CUDA, the
-    first call (and the first on a state at other addresses) runs the body
-    for real on the capture stream and captures it, every later call copies
-    its draws into the captured static tensors, replays, and returns copies of
-    the outputs. `eager(state, handed)` is the phase op by op on any device.
+    A call draws, then runs the body: op by op on CPU tensors, and under a
+    Python dispatch mode that watches the ops (a FLOP counter, an op
+    recorder), which a replay would run unseen; on CUDA, the first call (and
+    the first on a state at other addresses) runs the body for real on the
+    capture stream and captures it, every later call copies its draws into
+    the captured static tensors, replays, and returns copies of the outputs.
+    `eager(state, handed)` is the phase op by op on any device.
     """
 
     def __init__(self, draw: Callable, body: Callable, state_tensors: Callable[[Any], List],
@@ -152,12 +205,12 @@ class CapturedPhase:
 
     def __call__(self, state: Any, handed: Any) -> Any:
         draws = self.draw(state, handed)
-        device = pytree.tree_leaves(draws)[0].device
-        if device.type != "cuda":
+        device = _tensors(draws)[0].device
+        if device.type != "cuda" or is_in_torch_dispatch_mode():
             return self.body(state, draws)
         addresses = [_address(t) for t in self.state_tensors(state)]
         if self.graph is not None and addresses == self.addresses:
-            for static, value in zip(pytree.tree_leaves(self.static), pytree.tree_leaves(draws)):
+            for static, value in zip(_tensors(self.static), _tensors(draws)):
                 static.copy_(value)
             return pytree.tree_map(torch.clone, self.graph.replay())
         if self.graph is not None:
@@ -166,8 +219,9 @@ class CapturedPhase:
                   f"restore, or another learner's state): captured again "
                   f"({self.recaptures} re-capture{'s' if self.recaptures > 1 else ''})")
         self.graph = None  # the old graph's memory goes back to the pool first
-        self.static = pytree.tree_map(lambda x: x.clone(memory_format=torch.contiguous_format),
-                                      draws)
+        self.static = pytree.tree_map(
+            lambda x: x.clone(memory_format=torch.contiguous_format)
+            if isinstance(x, torch.Tensor) else x, draws)
         self.graph = Captured(lambda: self.body(state, self.static), self.what, device,
                               self.counters(state))
         self.addresses = addresses

@@ -273,6 +273,14 @@ def periodic_update(target: torch.nn.Module, online: torch.nn.Module, steps: int
             t.copy_(o)
 
 
+@torch.no_grad()
+def replace_where(target: torch.nn.Module, online: torch.nn.Module, flag: torch.Tensor) -> None:
+    """`periodic_update` with its test made beforehand, as a bool tensor `flag`:
+    target <- online where `flag`, else kept; in place, no host read."""
+    for t, o in zip(target.parameters(), online.parameters()):
+        t.copy_(torch.where(flag, o, t))
+
+
 # Loss-info keys that carry mean Q-value estimates across the off-policy
 # systems (SAC: q{1,2}_a_vals, rec-IQL: mean_q / mean_target).
 _Q_MAGNITUDE_KEYS = ("q1_a_vals", "q2_a_vals", "mean_q", "mean_target")

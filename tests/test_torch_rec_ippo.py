@@ -5,6 +5,7 @@ learner from the same parameters, env state, Gumbel noise and epoch
 permutations; losses and new parameters must agree to rtol = atol = 1e-5.
 """
 
+import functools
 import json
 import sys
 
@@ -50,8 +51,16 @@ def _prepare(cfg):
 
 
 def _jax_update(layout, system="rec_ippo", centralised=False, env_overrides=(), tiny=TINY):
+    """The JAX learner's state, draws and output of one update, made once per
+    arguments in a process: the port's GRU routes (`gru_impl`) are each held
+    against the same update. Read only."""
+    return _jax_update_once(layout, system, centralised, tuple(env_overrides), tuple(tiny))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_update_once(layout, system, centralised, env_overrides, tiny):
     cfg = _prepare(jax_load_config(
-        f"default_{system}", tiny + [f"system.chunk_layout={layout}", *env_overrides]))
+        f"default_{system}", [*tiny, f"system.chunk_layout={layout}", *env_overrides]))
     env, _ = jenvs.make(cfg, add_global_state=centralised)
     keys = jax.random.split(jax.random.PRNGKey(3), 3)
     learn, _, state = jrec_ippo.learner_setup(
