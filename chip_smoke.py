@@ -154,11 +154,21 @@ Run from the root of the repository. It
      with the clusters asked against those held; `rec_iql_vmap_seeds` through
      `run_experiment` at S = 4 on SMAX 3s5z, 2 updates with exactly 4 stacked
      K1 and 2 of each stacked backward kernel an update (no unstacked launch);
-     one stacked update against 4 stock ones from the same draws (1e-4);
+     one stacked update against 4 stock ones from the same draws (1e-4); the
+     stacked update as one CUDA graph (its act steps and epochs, the stacked
+     GRU kernels inside) at S = 4 on SMAX 3s_vs_5z at 64 envs a seed, on a
+     ring of 24 steps: 14 updates replayed against 14 op by op, every leaf
+     bitwise, the ring wrapping, with the soft update and with a hard one
+     whose period replaces the targets inside the checked updates, exactly
+     those launches an update both ways and no unstacked one, one capture, a
+     replayed update with no host sync; at S = 1, 4 and 8 (SMAX 3s5z, 16 envs
+     a seed) an update's host ms replayed and op by op in turns, env-steps/s,
+     and one update each way under `torch.profiler` (host launches, kernels,
+     idle share), the replayed launches at S = 8 at most 1.5x those at S = 1;
      `ff_isac_vmap_seeds` (S = 4) and `ff_masac_vmap_sweep` (4 lrs) on MaSwarm
      through `run_experiment`, cut in depth (`SAC_VMAP_CUTS`); env-steps/s at
      S = 1, 4, 8 and the launches of an update at S = 8 against S = 1 (at most
-     1.5x) for rec-IQL and ff-ISAC, beside one stock update; the ring
+     1.5x) for ff-ISAC, beside one stock update; the ring
      writes' share of a stacked act step's host ms; the ring's bytes an entry
      and the peak memory; `ff_ippo_store_experience` writing a vault (under
      `build/`) and `examples.bc_from_vault` cloning from it;
@@ -215,13 +225,19 @@ their evaluations (`eval_sizing`), and whether `torch.linalg.solve_ex` alone
 can be captured in a CUDA graph at each system size
 (`library_solve_captures`); `--dynamics NAME[,NAME...]` sizes only the named
 anchors of `ANCHORS`, an update and the evaluations, each under its own
-overrides (a rec-IQL anchor: its update replayed and op by op). `--anchors NAME[,NAME...]` runs the named learning
+overrides (a rec-IQL anchor: its update replayed and op by op; a stacked one
+or a band at its number of seeds, with its rings' bytes against the card's
+memory; an anchor ruled seed by seed: a uniform random policy's return,
+`random_policy_return`). `--anchors NAME[,NAME...]` runs the named learning
 anchors (`ANCHORS`: the articulated suite's twelve SAC runs under the
 reference jobs' overrides, MaSwarm under j200's and its 8-seed band, the
 shipped MaReacher and MaSwarm runs; rec-IQL on SMAX 3s_vs_5z over three seeds
-and 2s3z under j170-j172's and j976's, ruled on the win rate), each the stock CLI in
-a process of its own with its log in `chiprun_out/anchors/`, and prints a line
-an anchor: the absolute metric, its rule, pass or miss, the seconds. It exits
+and 2s3z under j170-j172's and j976's, ruled on the win rate, and 8 stacked
+seeds on 3s_vs_5z, a band ruled on how many pass; the stacked program under
+j908's overrides, ruled seed by seed on the final return), each the CLI in a
+process of its own (a band: `--band NAME`, `seed_band`) with its log in
+`chiprun_out/anchors/`, and prints a line an anchor: the absolute metric (or
+each seed's final return), its rule, pass or miss, the seconds. It exits
 non-zero if a run raised or printed no absolute metric; a miss is a reading.
 It prints one JSON line with the kernels' records, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -1396,19 +1412,22 @@ def iql_host_counts(state) -> tuple:
             state.buffer_state.is_full, state.opt_state.count)
 
 
-def iql_graph_bitwise(gru, overrides) -> dict:
-    """Two rec-IQL learners from one seed on a ring of 24 steps: the update
-    replayed (the main path; its first update runs the update for real and
-    captures it) and op by op (`learn.update.eager`), `IQL_GRAPH_UPDATES`
-    updates each, the launch counts set to 0 before each update. Every update:
-    every leaf bitwise equal, the host counts and generators alike, exactly
-    `IQL_PER_UPDATE` launches both ways. The ring wraps; one capture. Then
-    one replayed update under the profiler: no host sync, no device-to-host
-    copy."""
-    cfg, learn, state, _, _ = iql_learner([*overrides, *IQL_GRAPH_RING])
-    _, learn_eager, state_eager, _, _ = iql_learner([*overrides, *IQL_GRAPH_RING])
+def iql_graph_bitwise(gru, overrides, make=iql_learner, per_update=None,
+                      label: str = "rec-IQL update") -> dict:
+    """Two rec-IQL learners from one seed on a ring of 24 steps (`make`: by
+    default the stock learner, else a stacked one), the update replayed (the
+    main path; its first update runs the update for real and captures it) and
+    op by op (`learn.update.eager`), `IQL_GRAPH_UPDATES` updates each, the
+    launch counts set to 0 before each update. Every update: every leaf
+    bitwise equal, the host counts and generators alike, exactly `per_update`
+    launches both ways (by default `IQL_PER_UPDATE`) and no other GRU launch.
+    The ring wraps; one capture. Then one replayed update under the profiler:
+    no host sync, no device-to-host copy."""
+    per_update = per_update or IQL_PER_UPDATE
+    cfg, learn, state, _, _ = make([*overrides, *IQL_GRAPH_RING])
+    _, learn_eager, state_eager, _, _ = make([*overrides, *IQL_GRAPH_RING])
     learn_eager.update = learn_eager.update.eager
-    want = {**dict.fromkeys(gru.KERNELS, 0), **IQL_PER_UPDATE}
+    want = {**dict.fromkeys(gru.KERNELS, 0), **per_update}
     diffs, wraps = {}, 0
     for _ in range(IQL_GRAPH_UPDATES):
         counts = []
@@ -1424,20 +1443,20 @@ def iql_graph_bitwise(gru, overrides) -> dict:
             else:
                 eager = out
         check(counts[0] == counts[1] and counts[0][0] == want,
-              f"rec-IQL update: replayed launched {counts[0]}, op by op {counts[1]}, not {want}")
+              f"{label}: replayed launched {counts[0]}, op by op {counts[1]}, not {want}")
         check(iql_host_counts(graph.learner_state) == iql_host_counts(eager.learner_state),
-              "rec-IQL update: the host counts differ replayed and op by op")
+              f"{label}: the host counts differ replayed and op by op")
         for name, d in relative_differences(iql_leaves(graph), iql_leaves(eager)).items():
             diffs[name] = max(d, diffs.get(name, 0.0))
         state, state_eager = graph.learner_state, eager.learner_state
     if diffs:
-        print("  rec-IQL update: replayed vs op by op NOT bitwise; max relative difference by "
+        print(f"  {label}: replayed vs op by op NOT bitwise; max relative difference by "
               "leaf: " + ", ".join(f"{k} {v:.2e}" for k, v in sorted(diffs.items())[:12]))
-    check(not diffs, "the replayed rec-IQL update is not bitwise the update op by op")
-    check(wraps >= 1, f"rec-IQL update: the ring of {cfg.system.buffer_size} did not wrap")
+    check(not diffs, f"the replayed {label} is not bitwise the update op by op")
+    check(wraps >= 1, f"{label}: the ring of {cfg.system.buffer_size} did not wrap")
     phase = learn.update
     check(phase.captures == 1 and phase.recaptures == 0,
-          f"rec-IQL update: {phase.captures} captures, {phase.recaptures} re-captures")
+          f"{label}: {phase.captures} captures, {phase.recaptures} re-captures")
     box = [state]
 
     def one():
@@ -1445,25 +1464,26 @@ def iql_graph_bitwise(gru, overrides) -> dict:
 
     syncs = launches_and_syncs(one)
     check(syncs["syncs"] == 0 and syncs["dtoh"] == 0,
-          f"a replayed rec-IQL update synchronised with the host: {syncs}")
-    print(f"  rec-IQL update ({' '.join(overrides)}, ring {cfg.system.buffer_size}): replayed vs "
+          f"a replayed {label} synchronised with the host: {syncs}")
+    print(f"  {label} ({' '.join(overrides)}, ring {cfg.system.buffer_size}): replayed vs "
           f"op by op over {IQL_GRAPH_UPDATES} updates bitwise, the ring wrapped {wraps} times, "
-          f"{IQL_PER_UPDATE} launches an update both ways, 1 capture; a replayed update under "
-          f"the profiler: {syncs['launches']} host launches, {syncs['kernels']} kernels, "
-          f"{syncs['syncs']} host syncs, {syncs['dtoh']} device-to-host copies")
+          f"{per_update} launches an update both ways and no other, 1 capture; a replayed "
+          f"update under the profiler: {syncs['launches']} host launches, {syncs['kernels']} "
+          f"kernels, {syncs['syncs']} host syncs, {syncs['dtoh']} device-to-host copies")
     return {"updates": IQL_GRAPH_UPDATES, "wraps": wraps, "syncs": syncs}
 
 
-def iql_update_costs(overrides, gpu: str, label: str) -> dict:
-    """A rec-IQL update's host ms replayed and op by op, in turns (op by op,
-    replayed, replayed, op by op; `IQL_GRAPH_TIMED` updates a turn) after 3
-    warm-up updates each way, then one update each way under torch.profiler:
+def iql_update_costs(overrides, gpu: str, label: str, make=iql_learner, entries: int = 1) -> dict:
+    """A rec-IQL update's host ms replayed and op by op (`make`: by default the
+    stock learner, else a stacked one of `entries` entries), in turns (op by
+    op, replayed, replayed, op by op; `IQL_GRAPH_TIMED` updates a turn) after
+    3 warm-up updates each way, then one update each way under torch.profiler:
     host launches, device kernels, idle share. Returns what was read."""
     from mava_tpu_torch.utils.cuda_graphs import graph_pool
 
     pool = graph_pool(torch.device("cuda"))
-    cfg, learn, state, _, _ = iql_learner(overrides)
-    _, learn_eager, state_eager, _, _ = iql_learner(overrides)
+    cfg, learn, state, _, _ = make(overrides)
+    _, learn_eager, state_eager, _, _ = make(overrides)
     learn_eager.update = learn_eager.update.eager
     learners = {"graph": [learn, state], "eager": [learn_eager, state_eager]}
 
@@ -1486,7 +1506,7 @@ def iql_update_costs(overrides, gpu: str, label: str) -> dict:
     seconds = {"eager": [], "graph": []}
     for route in ("eager", "graph", "graph", "eager"):
         seconds[route] += [step(route) for _ in range(IQL_GRAPH_TIMED)]
-    steps = cfg.system.rollout_length * cfg.arch.num_envs
+    steps = cfg.system.rollout_length * cfg.arch.num_envs * entries
     costs = {}
     for route in ("eager", "graph"):
         run, st = learners[route]
@@ -1506,7 +1526,10 @@ def iql_update_costs(overrides, gpu: str, label: str) -> dict:
           f"{learn.update.capture_seconds[0]:.2f} s, {graph_bytes} bytes added to the graphs' "
           f"pool; on {gpu}")
     return {"ms": ms, "env_steps_per_s": rate, "capture_s": learn.update.capture_seconds[0],
-            "graph_bytes": graph_bytes}
+            "graph_bytes": graph_bytes,
+            "profiled": {route: {k: costs[route][k] for k in
+                                 ("launches", "kernels", "idle_share", "busy_ms")}
+                         for route in costs}}
 
 
 def feedforward_phase(gru, gpu: str) -> None:
@@ -2424,14 +2447,19 @@ def dynamics_ab(gpu: str) -> None:
 
 # ------------------------------------------------------------------ anchors
 class Anchor(NamedTuple):
-    """A learning anchor: the stock CLI of `systems/<system>/<module>` under
-    `overrides`, seed 1 unless they say otherwise (a SAC anchor with `seeds`:
-    that many stacked seeds of its vmap-seeds program instead, a band, read
-    and not ruled), beside the random policy's metric (SAC: the explore
-    phase's ACTOR line, the return; rec-IQL: a win rate of 0) and the JAX
-    run's absolute metric (the win rate where the log has one, else the
-    return), from `source`. It passes where its absolute metric
-    closes 80 % of the gap from random to JAX (`rule`)."""
+    """A learning anchor: the stock CLI of `systems/<system>/<module>` (with
+    `system` "advanced_usage", the program `advanced_usage/<module>`) under
+    `overrides`, seed 1 unless they say otherwise (with `seeds`: that many
+    stacked seeds of the system's vmap-seeds program instead, a band:
+    `seed_band`), beside the random policy's metric (SAC: the explore phase's
+    ACTOR line, the return; rec-IQL: a win rate of 0, or the return
+    `random_policy_return` read) and the JAX run's absolute metric (the win
+    rate where the log has one, else the return), from `source`. It passes
+    where its absolute metric closes 80 % of the gap from random to JAX
+    (`rule`). With `jax_seeds` (a stacked program, which logs no absolute
+    metric) each seed's final evaluation return must close 80 % of the gap to
+    its JAX seed's (`seed_rules`). A band passes where `need` of its seeds'
+    absolute metrics pass `rule`; a band with `need` 0 is read and not ruled."""
     module: str
     overrides: tuple
     random: float
@@ -2439,10 +2467,23 @@ class Anchor(NamedTuple):
     source: str
     seeds: int = 0
     system: str = "sac"
+    jax_seeds: tuple = ()
+    need: int = 0
 
     @property
     def rule(self) -> float:
         return self.random + 0.8 * (self.jax - self.random)
+
+    @property
+    def seed_rules(self) -> list:
+        return [self.random + 0.8 * (jax - self.random) for jax in self.jax_seeds]
+
+    @property
+    def program(self) -> str:
+        """The module that `python -m` runs."""
+        package = ("advanced_usage" if self.system == "advanced_usage"
+                   else f"systems.{self.system}")
+        return f"mava_tpu_torch.{package}.{self.module}"
 
 
 # The reference's articulated jobs (scripts/tpu_queue/r3/j100-j122) ran at 64
@@ -2455,6 +2496,11 @@ J200 = ("system.total_timesteps=500000", "arch.num_envs=64", "arch.num_evaluatio
 # system.total_timesteps=10000000 arch.num_evaluation=40.
 IQL_J170 = ("env=smax", "arch.num_envs=64", "system.total_timesteps=10000000",
             "arch.num_evaluation=40")
+# j908's overrides (scripts/tpu_queue/r5/j908_rec_iql_2seed_vmap_2m.sh), and the
+# return of a uniform random policy over the legal actions on 2s3z.
+J908 = ("env=smax", "env/scenario=2s3z", "arch.num_envs=64", "system.total_timesteps=2000000",
+        "arch.num_evaluation=20", "+system.num_seeds=2")
+J908_RANDOM = 2.529  # `random_policy_return` on an H100, 320 episodes (PERF.md)
 ANCHORS = {
     **{f"{system}_{env}": Anchor(
         f"ff_{system}", (f"env={env}", f"system.total_timesteps={steps}", "arch.num_envs=64",
@@ -2497,16 +2543,29 @@ ANCHORS = {
             "BASELINE.md:214; results/r3_queue/j171_rec_iql_3s_vs_5z_seed7.log"),
            ("iql_3s_vs_5z_seed123", "3s_vs_5z", ("system.seed=123",), 100.0,
             "BASELINE.md:214; results/r3_queue/j172_rec_iql_3s_vs_5z_seed123.log")]},
+    # Eight stacked seeds (1-8) of rec-IQL at j170's settings, each seed's
+    # absolute win rate against the mean of j170-j172's (99.688, 99.375, 100.0).
+    "iql_3s_vs_5z_band": Anchor("rec_iql", IQL_J170[:1] + ("env/scenario=3s_vs_5z",) + IQL_J170[1:],
+                                0.0, 99.688, "BASELINE.md:214; results/r3_queue/j170-j172",
+                                seeds=8, system="q_learning", need=7),
+    # j908: the stacked program over 2 seeds on 2s3z, ruled on each seed's final
+    # evaluation return against its JAX seed's, from a uniform random policy's
+    # return (`random_policy_return`, 320 episodes).
+    "iql_vmap_j908": Anchor("rec_iql_vmap_seeds", J908, J908_RANDOM, 17.344,
+                            "scripts/tpu_queue/r5/j908_rec_iql_2seed_vmap_2m.sh; "
+                            "results/r5_queue/j908_rec_iql_2seed_vmap_2m.log",
+                            system="advanced_usage", jax_seeds=(17.15, 17.54)),
 }
 
 
 def seed_band(name: str) -> None:
     """`--band NAME`: `ANCHORS[NAME].seeds` stacked seeds (system.seed + s) of
-    the vmap-seeds program under the anchor's overrides, its explore phase
-    then its rounds; after each round every seed's mean Q1 and one evaluation
-    of each seed's actor with the stock evaluator. Prints a section a seed
-    (`== port, stacked seed N`) with a TRAINER, an EVALUATOR and a MISC line a
-    round, which `mava_tpu_torch.examples.sac_anchors` reads."""
+    the vmap-seeds program under the anchor's overrides (rec-IQL:
+    `iql_seed_band`), its explore phase then its rounds; after each round
+    every seed's mean Q1 and one evaluation of each seed's actor with the
+    stock evaluator. Prints a section a seed (`== port, stacked seed N`) with
+    a TRAINER, an EVALUATOR and a MISC line a round, which
+    `mava_tpu_torch.examples.sac_anchors` reads."""
     from mava_tpu_torch import envs as environments
     from mava_tpu_torch.advanced_usage import ff_isac_vmap_seeds
     from mava_tpu_torch.advanced_usage.common import entry_seeds, schedule_rounds
@@ -2515,6 +2574,9 @@ def seed_band(name: str) -> None:
     from mava_tpu_torch.utils.config import load_config
 
     anchor = ANCHORS[name]
+    if anchor.module == "rec_iql":
+        iql_seed_band(anchor)
+        return
     centralised = anchor.module == "ff_masac"
     cfg = load_config(f"default_{anchor.module}", ["+arch.device=cuda", *anchor.overrides])
     cfg.arch.n_devices = 1
@@ -2553,6 +2615,113 @@ def seed_band(name: str) -> None:
         print("\n".join(seed_lines))
 
 
+def iql_seed_band(anchor: Anchor, device: str = "cuda") -> None:
+    """`seed_band` for rec-IQL: `anchor.seeds` stacked seeds of
+    `rec_iql_vmap_seeds` (its update one CUDA graph) in the reference's rounds
+    (`schedule_rounds`); after each round every seed's mean Q and one
+    evaluation of each seed's Q-network with the stock rec-IQL evaluator
+    (epsilon 0, the SMAX win rate); at the end each seed's absolute metric,
+    its best evaluation's network over `num_absolute_metric_eval_episodes`, as
+    the stock loop makes it (`anakin.train_and_evaluate`). A section a seed
+    with TRAINER, EVALUATOR and MISC lines a round and an ABSOLUTE line. On
+    the card unless `device` says otherwise."""
+    import numpy as np
+
+    from mava_tpu_torch import envs as environments
+    from mava_tpu_torch.advanced_usage import rec_iql_vmap_seeds
+    from mava_tpu_torch.advanced_usage.common import entry_seeds, schedule_rounds
+    from mava_tpu_torch.evaluator import get_eval_fn, get_num_eval_envs
+    from mava_tpu_torch.networks import ScannedRNN
+    from mava_tpu_torch.systems.anakin import eval_generator
+    from mava_tpu_torch.systems.q_learning import rec_iql
+    from mava_tpu_torch.utils.config import load_config
+
+    seeds, device = anchor.seeds, torch.device(device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    cfg = load_config(f"default_{anchor.module}", [f"+arch.device={device.type}",
+                                                   *anchor.overrides])
+    cfg.arch.n_devices = 1
+    cfg, steps_per_round = schedule_rounds(cfg)
+    env, eval_env = environments.make(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(cfg.system.seed)
+    learn, _, state = rec_iql_vmap_seeds.learner_setup(env, gen, cfg, device, seeds)
+    act_fn = rec_iql.make_eval_act_fn()
+    evaluate = {absolute: get_eval_fn(eval_env, act_fn, cfg, absolute) for absolute in (False, True)}
+
+    def carry(absolute):
+        return {"hidden_state": ScannedRNN.initialize_carry(
+            (get_num_eval_envs(cfg, absolute), cfg.system.num_agents),
+            cfg.network.hidden_state_dim, device)}
+
+    def metric_line(event, metrics):
+        won = np.asarray(torch.as_tensor(metrics["won_episode"]).cpu())
+        ret = float(torch.as_tensor(metrics["episode_return"]).double().mean())
+        return ret, f"{event} - Episode return mean: {ret:.3f} | Win rate: {100.0 * won.sum() / won.size:.3f}"
+
+    eval_gen = eval_generator(cfg, device)
+    best = [(-float("inf"), None)] * seeds
+    lines = [[] for _ in range(seeds)]
+    for t in range(steps_per_round, int(cfg.system.total_timesteps) + 1, steps_per_round):
+        sync()
+        begin = time.perf_counter()
+        out = learn(state)
+        sync()
+        learn_s = time.perf_counter() - begin
+        state = out.learner_state
+        q = out.train_metrics["mean_q"].reshape(seeds, -1).mean(1).tolist()
+        begin = time.perf_counter()
+        evaluated = []
+        for s in range(seeds):
+            policy = state.params.online.entry(s)
+            ret, line = metric_line("EVALUATOR", evaluate[False](policy, eval_gen, carry(False)))
+            if best[s][0] <= ret:
+                best[s] = (ret, policy)
+            evaluated.append(line)
+        eval_s = (time.perf_counter() - begin) / seeds
+        for s in range(seeds):
+            lines[s] += [f"TRAINER - Mean q: {q[s]:.3f}", evaluated[s],
+                         f"MISC - Time eval: {eval_s:.3f} | Time learn: {learn_s:.3f} | "
+                         f"Timestep: {t}"]
+    for s in range(seeds):
+        lines[s].append(metric_line("ABSOLUTE", evaluate[True](best[s][1], eval_gen, carry(True)))[1])
+    for seed, seed_lines in zip(entry_seeds(cfg, seeds, False), lines):
+        print(f"== port, stacked seed {seed}")
+        print("\n".join(seed_lines))
+
+
+def random_policy_return(overrides, device: str = "cuda") -> dict:
+    """The mean return (and win rate, where the env logs one) of a uniform
+    random policy over the legal actions under `overrides` of
+    `default_rec_iql`, over `num_absolute_metric_eval_episodes` episodes of
+    the stock evaluator from the evaluation generator: a random policy's
+    metric where a JAX log has none."""
+    import numpy as np
+
+    from mava_tpu_torch import envs as environments
+    from mava_tpu_torch.distributions import masked_greedy
+    from mava_tpu_torch.evaluator import get_eval_fn
+    from mava_tpu_torch.systems.anakin import eval_generator
+    from mava_tpu_torch.utils.config import load_config
+
+    cfg = load_config("default_rec_iql", [f"+arch.device={device}", *overrides])
+    cfg.arch.n_devices = 1
+    _, eval_env = environments.make(cfg, torch.device(device))
+
+    def act(params, timestep, generator, actor_state):
+        mask = timestep.observation.action_mask
+        noise = torch.rand(mask.shape, generator=generator, device=mask.device)
+        return masked_greedy(noise, mask), actor_state
+
+    metrics = get_eval_fn(eval_env, act, cfg, absolute_metric=True)(
+        None, eval_generator(cfg, torch.device(device)), {})
+    out = {"episodes": int(torch.as_tensor(metrics["episode_return"]).numel()),
+           "return": float(torch.as_tensor(metrics["episode_return"]).double().mean())}
+    if "won_episode" in metrics:
+        won = np.asarray(torch.as_tensor(metrics["won_episode"]).cpu())
+        out["win_rate"] = 100.0 * won.sum() / won.size
+    return out
+
+
 def run_anchors(names, gpu: str, out_dir=None) -> int:
     """`--anchors NAME[,NAME...]`: each named anchor of `ANCHORS` in a process of
     its own (so that its graphs and pools are freed before the next), its
@@ -2573,9 +2742,7 @@ def run_anchors(names, gpu: str, out_dir=None) -> int:
         if anchor.seeds:
             command = [sys.executable, str(Path(__file__).resolve()), "--band", name]
         else:
-            command = [sys.executable, "-m",
-                       f"mava_tpu_torch.systems.{anchor.system}.{anchor.module}",
-                       *anchor.overrides]
+            command = [sys.executable, "-m", anchor.program, *anchor.overrides]
         log = out_dir / f"{name}.log"
         begin = time.perf_counter()
         with open(log, "w") as out:
@@ -2587,13 +2754,36 @@ def run_anchors(names, gpu: str, out_dir=None) -> int:
             runs = read_sections(str(log))
             diverged = [h for h, run in runs.items() if run.diverged() is not None]
             bests = [run.best()[0] for run in runs.values() if run.evals]
-            print(f"{head}: {len(diverged)} of {len(runs)} seeds pass |Q1| 100; best evaluations "
-                  + (f"{min(bests):.2f} to {max(bests):.2f}" if bests else "none") + f" on {gpu}")
+            ruled = ""
+            if anchor.need:
+                passed = sum(run.absolute is not None and run.absolute >= anchor.rule
+                             for run in runs.values())
+                ruled = (f"{passed} of {len(runs)} seeds' absolute >= {anchor.rule:.2f} "
+                         f"(JAX {anchor.jax:g}, {anchor.source}; {anchor.need} needed): "
+                         f"{'pass' if passed >= anchor.need else 'miss'}; ")
+            print(f"{head}: {ruled}{len(diverged)} of {len(runs)} seeds pass |Q| 100; best "
+                  "evaluations " + (f"{min(bests):.2f} to {max(bests):.2f}" if bests else "none")
+                  + f" on {gpu}")
             for heading, run in runs.items():
                 print(f"  {heading}: {run.summary()}")
-            failed += code != 0 or len(runs) != anchor.seeds
+            failed += code != 0 or len(runs) != anchor.seeds or (
+                anchor.need and any(run.absolute is None for run in runs.values()))
             continue
         run = read_log(log.read_text().splitlines())
+        if anchor.jax_seeds:
+            finals = run.per_seed
+            if code != 0 or len(finals) != len(anchor.jax_seeds):
+                failed += 1
+                print(f"{head}: FAILED, no final return of each seed (see {log}) on {gpu}")
+                continue
+            verdicts = ["pass" if r >= rule else "miss" for r, rule in zip(finals, anchor.seed_rules)]
+            print(f"{head}: final returns " + ", ".join(
+                f"{r:.2f} (rule >= {rule:.2f}: JAX {jax:g}) {v}" for r, rule, jax, v in
+                zip(finals, anchor.seed_rules, anchor.jax_seeds, verdicts))
+                + f" (random {anchor.random:g}, {anchor.source}): "
+                f"{'pass' if all(v == 'pass' for v in verdicts) else 'miss'}; {run.summary()} "
+                f"on {gpu}")
+            continue
         if code != 0 or run.absolute is None:
             failed += 1
             print(f"{head}: FAILED, no absolute metric (see {log}) on {gpu}")
@@ -2616,9 +2806,11 @@ def named_sizing(names) -> tuple:
         anchor = ANCHORS[name]
         config_name, centralised = f"default_{anchor.module}", anchor.module == "ff_masac"
         overrides = list(anchor.overrides)
-        if anchor.module == "rec_iql":
+        if anchor.module.startswith("rec_iql"):
+            stack = anchor.seeds or (2 if anchor.jax_seeds else 0)
             for label, eager in ((name, False), (f"{name}, op by op", True)):
-                sizing.append((label, lambda o=overrides, e=eager: iql_sizing_learner(o, e)))
+                sizing.append((label, lambda o=overrides, e=eager, k=stack: iql_sizing_learner(
+                    o, e, k)))
             evals.append((name, lambda o=overrides: iql_eval_actor(o)))
             continue
         if anchor.seeds:
@@ -2632,10 +2824,21 @@ def named_sizing(names) -> tuple:
     return sizing, evals
 
 
-def iql_sizing_learner(overrides, eager: bool) -> tuple:
+def iql_sizing_learner(overrides, eager: bool, stack: int = 0) -> tuple:
     """`sac_learner`'s (config, explore, learn, state) for the stock rec-IQL
-    learner: no explore phase; its update replayed, or op by op with `eager`."""
-    cfg, learn, state, _, _ = iql_learner(overrides)
+    learner, or with `stack` a stacked one of that many seeds (its rings'
+    bytes printed against the card's memory): no explore phase; its update
+    replayed, or op by op with `eager`."""
+    if stack:
+        cfg, learn, state, _, _ = iql_vmap_graph_learner(stack)(overrides)
+        ring = sum(x.numel() * x.element_size()
+                   for x in pytree.tree_leaves(state.buffer_state.experience))
+        total = torch.cuda.get_device_properties(0).total_memory
+        print(f"  {stack} stacked rings of {cfg.system.buffer_size} steps x "
+              f"{cfg.arch.num_envs} envs: {ring} bytes ({ring / stack / 1e9:.3f} GB a seed), "
+              f"{ring / total:.4f} of the card's {total / 1e9:.1f} GB")
+    else:
+        cfg, learn, state, _, _ = iql_learner(overrides)
     if eager:
         learn.update = learn.update.eager
     return cfg, lambda st: (st, None), learn, state
@@ -3162,6 +3365,11 @@ IQL_VMAP_PER_UPDATE = {"fwd_stacked": 4, "bwd_gates_stacked": 2, "bwd_recurrence
 IQL_VMAP_RUN = SMAX + ["system.num_updates=2", "arch.num_evaluation=1",
                        "arch.num_eval_episodes=16", "arch.absolute_metric=False",
                        "+arch.device=cuda", "logger.use_console=False"]
+# The stacked update replayed against op by op (`iql_graph_bitwise`): 4 seeds on
+# SMAX 3s_vs_5z at 64 envs a seed, a ring of 24 that wraps; soft, and hard with a
+# period that replaces the targets at train steps 0, 5, ..., 25 of the 28 checked.
+IQL_VMAP_GRAPH_SEEDS = 4
+IQL_VMAP_HARD = ["system.hard_update=True", "system.update_period=5"]
 # The SAC seed programs on MaSwarm at the shipped width (16 envs, rollout 2, batch 32,
 # delay 4), cut in depth: a 64-step explore phase, a 65,536-item ring an entry, 8
 # epochs an update (the rates and the profiled update too), and 2 rounds of 1
@@ -3247,6 +3455,15 @@ def iql_vmap_learner(stack: int, draws: bool = False, overrides=(), device: str 
     learn, _, state = rec_iql_vmap_seeds.learner_setup(
         env, gen, cfg, device, stack, draws=None if inject is None else [inject])
     return cfg, env, learn, state, inject
+
+
+def iql_vmap_graph_learner(stack: int):
+    """`iql_learner`'s signature for a stacked learner of `stack` seeds: (config,
+    learn, state, None, None) under `IQL_VMAP_RUN` and the overrides."""
+    def make(overrides):
+        cfg, _, learn, state, _ = iql_vmap_learner(stack, overrides=overrides)
+        return cfg, learn, state, None, None
+    return make
 
 
 def iql_vmap_against_stock(stack: int, device: str = "cuda") -> float:
@@ -3347,10 +3564,13 @@ def sac_vmap_run(gru, label: str, module, config_name: str, extra) -> float:
 def offpolicy_phase(gru, gpu: str) -> dict:
     """The off-policy seed axis: the stacked kernels at rec-IQL's new stack shapes;
     rec_iql_vmap_seeds through run_experiment at S = 4 with the exact launch
-    counts; one stacked rec-IQL update against 4 stock ones; ff_isac_vmap_seeds
-    and ff_masac_vmap_sweep through run_experiment, cut in depth; env-steps/s at
-    S = 1, 4, 8 and the launch ratios; the ring write's share of the act step;
-    the vault written by the recording program and read by bc_from_vault."""
+    counts; one stacked rec-IQL update against 4 stock ones; the stacked
+    update's graph bitwise its op-by-op run, soft and hard (`iql_graph_bitwise`),
+    and its costs both ways at S = 1, 4, 8 (`iql_update_costs`);
+    ff_isac_vmap_seeds and ff_masac_vmap_sweep through run_experiment, cut in
+    depth; ff-ISAC's env-steps/s at S = 1, 4, 8 and the launch ratios; the ring
+    write's share of the act step; the vault written by the recording program
+    and read by bc_from_vault."""
     import os
     import tempfile
 
@@ -3388,16 +3608,34 @@ def offpolicy_phase(gru, gpu: str) -> dict:
     print(f"  one stacked rec-IQL update of {OFF_POLICY_SEEDS} seeds against "
           f"{OFF_POLICY_SEEDS} stock updates from the same draws: max |param diff| {worst:.3e}")
 
-    def iql(stack):
-        _, _, learn, state, _ = iql_vmap_learner(stack)
-        return learn, state
+    # The stacked update as one graph: bitwise its op-by-op run, soft and hard.
+    graphs = {case: iql_graph_bitwise(
+        gru, [*IQL_ANCHOR_RUN, *extra], iql_vmap_graph_learner(IQL_VMAP_GRAPH_SEEDS),
+        IQL_VMAP_PER_UPDATE, f"stacked rec-IQL update, S = {IQL_VMAP_GRAPH_SEEDS}, {case}")
+        for case, extra in (("soft", []), ("hard", IQL_VMAP_HARD))}
+    print(f"  ({time.perf_counter() - start:.1f} s into the off-policy phase)")
 
     cfg, _, _, state, _ = iql_vmap_learner(8)
     ring = sum(x.numel() * x.element_size() for x in pytree.tree_leaves(state.buffer_state.experience))
     del state
     iql_steps = cfg.system.rollout_length * cfg.arch.num_envs
     torch.cuda.reset_peak_memory_stats()
-    iql_rates = stacked_rates("rec-IQL", iql, iql_steps, gpu)
+    iql_costs = {stack: iql_update_costs([], gpu, f"stacked rec-IQL S = {stack}, SMAX 3s5z",
+                                         iql_vmap_graph_learner(stack), stack)
+                 for stack in (1, 4, 8)}
+    launches_at = {stack: c["profiled"]["graph"]["launches"] for stack, c in iql_costs.items()}
+    ratio = launches_at[8] / launches_at[1]
+    check(ratio <= 1.5, f"a replayed stacked rec-IQL update launches {ratio:.2f}x at S = 8 what "
+                        "it does at S = 1")
+    print("  the stacked rec-IQL update, replayed against op by op (host ms; host launches; "
+          "kernels; idle share): " + "; ".join(
+              f"S = {stack} {c['ms']['graph']:.2f} / {c['ms']['eager']:.2f} ms, "
+              f"{c['profiled']['graph']['launches']} / {c['profiled']['eager']['launches']}, "
+              f"{c['profiled']['graph']['kernels']} / {c['profiled']['eager']['kernels']}, "
+              f"{c['profiled']['graph']['idle_share']:.3f} / "
+              f"{c['profiled']['eager']['idle_share']:.3f}, "
+              f"{c['env_steps_per_s']['graph']:.1f} / {c['env_steps_per_s']['eager']:.1f} "
+              f"env-steps/s" for stack, c in iql_costs.items()) + f" on {gpu}")
     stock_s, _, _, _ = one_update("rec_iql", SMAX, repeats=3)
     print(f"  rec-IQL: one stock update {iql_steps / stock_s[-1]:.1f} env-steps/s; the ring "
           f"{ring / 8 / 1e6:.3f} MB an entry ({cfg.system.buffer_size} steps x "
@@ -3446,7 +3684,7 @@ def offpolicy_phase(gru, gpu: str) -> dict:
     print(f"  vault: ff_ippo_store_experience 2 updates (mean return {recorded:.3f}), "
           f"bc_from_vault 2 epochs (eval return {cloned:.3f})")
     print(f"  off-policy phase: {time.perf_counter() - start:.1f} s")
-    return {"errs": errs, "times": times, "launches": launches, "iql": iql_rates,
+    return {"errs": errs, "times": times, "launches": launches, "iql": iql_costs, "iql_graph": graphs,
             "sac": sac_rates, "stacked_vs_stock": worst, "ring_share": ring_ms / max(act_ms, 1e-9),
             "stock_sac": stock_sac}
 
@@ -3840,6 +4078,10 @@ def main() -> int:
             print("updates and evaluations of the named anchors under their overrides:")
             anchor_sizing(gpu, rows=sizing)
             eval_sizing(gpu, rows=evals)
+            for name in names:
+                if ANCHORS[name].jax_seeds:
+                    print(f"  {name}: a uniform random policy "
+                          f"{random_policy_return(ANCHORS[name].overrides)}")
             print(gpu)
             return 0
         print("dynamics A/B (tracing q̈ or a whole substep):")

@@ -21,6 +21,19 @@ whatever S is: at `epochs = 2`, 4 stacked K1 and 2 of each stacked backward
 kernel, and no unstacked GRU launch. `system.fused_target_pass=False` runs the
 target pass as two stacked launches over S (online, then target).
 
+The reference compiles the vmapped update into one program. Here, as in the
+stock learner, an update is two parts: its inputs (`types.UpdateInputs` with
+the entry axis in front: the draws in the order the act steps and epochs take
+them; each act step's epsilon and ring position and each epoch's hard-update
+flag from the host counters, one for all entries; the sequences' starts as
+ring positions; the carry by value), then a body on device tensors only, which
+runs the act steps with their ring writes and the epochs' Q steps and updates
+the parameters, Adam's moments and the rings in place. On CUDA the body is one
+CUDA graph (`learner_fn.update`, a `utils.cuda_graphs.CapturedPhase`), the
+stacked GRU kernels and a world-1 all-reduce inside it; CPU tensors, and so a
+gloo group's ranks, run it op by op. The rings' counters, the env-step and
+train-step counts stay on the host and advance after the body.
+
 With `sweep_lrs` the entries share their init, resets and draws and differ by
 `q_lr` alone (`rec_iql_vmap_sweep.py`). Each entry is evaluated at epsilon = 0
 from a fresh carry with the stock evaluator.
@@ -62,12 +75,19 @@ from mava_tpu_torch.replay import StackedTrajectoryBuffer
 from mava_tpu_torch.systems.anakin import stack_trees, start_experiment
 from mava_tpu_torch.systems.q_learning import rec_iql
 from mava_tpu_torch.systems.q_learning.types import Draws as IqlDraws
-from mava_tpu_torch.systems.q_learning.types import LearnerState, QNetParams, Transition
+from mava_tpu_torch.systems.q_learning.types import (
+    Carry,
+    LearnerState,
+    QNetParams,
+    Transition,
+    UpdateInputs,
+)
 from mava_tpu_torch.types import ExperimentOutput
 from mava_tpu_torch.utils.config import Config, load_config
+from mava_tpu_torch.utils.cuda_graphs import CapturedPhase
 from mava_tpu_torch.utils.training import (
     make_swept_adam,
-    periodic_update,
+    replace_where,
     select_along_last,
     soft_update,
 )
@@ -138,14 +158,17 @@ def get_learner_fn(
     `env.step_noise` of the S * E rows a step. By default every entry draws its
     own from the state's generator, or one entry's for all when `shared`.
     Every Q step averages the gradients and the losses over `mesh`'s data
-    group (by default the process group's ranks), each entry's over its own."""
+    group (by default the process group's ranks), each entry's over its own.
+    `learner_fn.update` is the update's `CapturedPhase`."""
     mesh = mesh or make_mesh()
     sys_cfg = config.system
     num_envs, agents = config.arch.num_envs, sys_cfg.num_agents
     rollout, epochs = sys_cfg.rollout_length, sys_cfg.epochs
+    step_envs = num_envs * config.arch.n_devices  # one entry's env steps an act step
     fused = sys_cfg.get("fused_target_pass", True)
 
-    def update_q(params: QNetParams, opt, data: Transition, t_train: int) -> Dict[str, torch.Tensor]:
+    def update_q(params: QNetParams, opt, data: Transition,
+                 replace: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
         q_loss, q_online, target = q_loss_pass(params, data, sys_cfg.gamma, fused)
         grads = torch.autograd.grad(q_loss.sum(), params.online.parameters())
         info = {
@@ -155,42 +178,59 @@ def get_learner_fn(
         }
         grads, info = all_reduce_mean((grads, info), mesh)
         opt.step(grads)
-        if sys_cfg.hard_update:
-            periodic_update(params.target, params.online, t_train, sys_cfg.update_period)
+        if sys_cfg.hard_update:  # the entries' train steps move in lockstep: one flag
+            replace_where(params.target, params.online, replace)
         else:
             soft_update(params.target, params.online, sys_cfg.tau)
         return info
 
-    def update_step(state: LearnerState, drawn: IqlDraws) -> Tuple[LearnerState, Tuple]:
-        online, _ = state.params
-        obs, terminal, term_or_trunc = state.obs, state.terminal, state.term_or_trunc
-        hidden, env_state, buffer_state = state.hidden_state, state.env_state, state.buffer_state
-        t = state.time_steps
-        device = terminal.device
+    def draw_update(state: LearnerState, drawn: IqlDraws) -> UpdateInputs:
+        """The update's inputs for every entry, drawn in the order the act steps
+        and the epochs take them (the Gumbel noise of every act step, each act
+        step's env noise, then each epoch's sequences) or handed in; the
+        epsilons, ring positions and hard-update flags from the host counters.
+        The sequences are drawn from the rings as they stand after the act
+        steps' writes: rows and starts (S, epochs, B), the starts as ring
+        positions."""
+        device = state.terminal.device
         draw = Draws(num, shared, state.key, device)
         action_noise = drawn.action_noise
         if action_noise is None:
             action_noise = draw(gumbel, (rollout, num_envs, agents, env.action_dim))
+        env_noise = [draw.env(env, num_envs) if drawn.env_noise is None
+                     else drawn.env_noise[step] for step in range(rollout)]
+        epsilon, positions, after, replace = rec_iql.host_inputs(config, buffer, state, step_envs)
+        if drawn.rows is None:
+            rows, starts = zip(*(buffer.sample_indices(after, draw) for _ in range(epochs)))
+            rows, starts = torch.stack(rows, 1), torch.stack(starts, 1)
+        else:
+            rows, starts = drawn.rows, drawn.starts
+        return UpdateInputs(rec_iql.carry_of(state), action_noise, env_noise, epsilon, positions,
+                            rows, buffer.physical_starts(after, starts), replace)
 
+    def update_body(state: LearnerState, inputs: UpdateInputs) -> Tuple[Carry, Dict, Dict]:
+        """Every entry's act steps, each written into its ring, then the epochs'
+        Q steps, on device tensors only: (the new carry, the act steps' episode
+        metrics and the epochs' losses (epochs, S), each stacked)."""
+        online = state.params.online
+        obs, terminal, term_or_trunc, hidden, env_state = inputs.carry
         metrics: List[Dict[str, torch.Tensor]] = []
         with torch.no_grad(), record_function("rec_iql_vmap/rollout"):
             for step in range(rollout):
-                eps = rec_iql.epsilon_schedule(config, t).to(device)
                 entry_obs = stack_observation(obs, num)
                 resets = term_or_trunc.reshape(num, 1, num_envs, 1)
-                hidden, greedy = online(hidden, (one_step(entry_obs), resets), eps)
-                action = greedy.sample_from_noise(action_noise[:, step][:, None])[:, 0]
-                t += num_envs * config.arch.n_devices  # one entry's env steps
-                env_noise = (draw.env(env, num_envs) if drawn.env_noise is None
-                             else drawn.env_noise[step])
-                env_state, timestep = env.step(env_state, action.flatten(0, 1), env_noise)
+                hidden, greedy = online(hidden, (one_step(entry_obs), resets),
+                                        inputs.epsilon[step])
+                action = greedy.sample_from_noise(inputs.action_noise[:, step][:, None])[:, 0]
+                env_state, timestep = env.step(env_state, action.flatten(0, 1),
+                                               inputs.env_noise[step])
                 transition = Transition(
                     entry_obs, action, timestep.reward.reshape(num, num_envs, agents),
                     terminal.reshape(num, num_envs, 1), term_or_trunc.reshape(num, num_envs, 1),
                     stack_observation(timestep.extras["real_next_obs"], num),
                 )
-                buffer_state = buffer.add(buffer_state,
-                                          pytree.tree_map(lambda x: x[:, :, None], transition))
+                buffer.write(state.buffer_state, pytree.tree_map(lambda x: x[:, :, None], transition),
+                             inputs.positions[step:step + 1])
                 obs = timestep.observation
                 terminal = (1 - timestep.discount[:, :1]) != 0
                 term_or_trunc = timestep.last()[:, None]
@@ -199,20 +239,22 @@ def get_learner_fn(
         losses = []
         with record_function("rec_iql_vmap/train"):
             for epoch in range(epochs):
-                if drawn.rows is None:
-                    rows, starts = buffer.sample_indices(buffer_state, draw)
-                else:
-                    rows, starts = drawn.rows[:, epoch], drawn.starts[:, epoch]
-                data = buffer.sample(buffer_state, rows, starts)
+                data = buffer.gather(state.buffer_state, inputs.rows[:, epoch],
+                                     inputs.starts[:, epoch])
                 losses.append(update_q(state.params, state.opt_state, data,
-                                       state.train_steps + epoch))
+                                       None if inputs.replace is None else inputs.replace[epoch]))
+        carry = Carry(obs, terminal, term_or_trunc, hidden, env_state)
+        return carry, stack_trees(metrics), stack_trees(losses)
 
+    def update_step(state: LearnerState, drawn: IqlDraws) -> Tuple[LearnerState, Tuple]:
+        with record_function("rec_iql_vmap/update"):
+            carry, metrics, losses = learner_fn.update(state, drawn)
         new_state = state._replace(
-            obs=obs, terminal=terminal, term_or_trunc=term_or_trunc, hidden_state=hidden,
-            env_state=env_state, time_steps=t, train_steps=state.train_steps + epochs,
-            buffer_state=buffer_state,
+            **carry._asdict(), time_steps=state.time_steps + rollout * step_envs,
+            train_steps=state.train_steps + epochs,
+            buffer_state=buffer.advance(state.buffer_state, rollout),
         )
-        return new_state, (stack_trees(metrics), stack_trees(losses))
+        return new_state, (metrics, losses)
 
     def learner_fn(state: LearnerState) -> ExperimentOutput:
         episode_info, train_info = [], []
@@ -227,6 +269,8 @@ def get_learner_fn(
             train_metrics={k: v.movedim(-1, 0) for k, v in train.items()},
         )
 
+    learner_fn.update = CapturedPhase(draw_update, update_body, rec_iql.update_state_tensors,
+                                      rec_iql.update_counters, "the stacked rec-IQL update")
     return learner_fn
 
 

@@ -10,7 +10,9 @@ logs file that holds several runs, each under a heading line `== <what ran>`.
 Of each run it reads every round's mean Q (TRAINER line: SAC's `Q1 a vals`,
 rec-IQL's `Mean q`), evaluation metric (EVALUATOR: the win rate where the line
 logs one, else the mean return), env-step count and learn and evaluation
-seconds (MISC), and the absolute metric (ABSOLUTE, read as EVALUATOR). A run diverges where a
+seconds (MISC), the absolute metric (ABSOLUTE, read as EVALUATOR), and a
+stacked program's final return of each seed (its `final eval returns per
+seed` line). A run diverges where a
 round's logged Q (the mean over the round's train steps of the batch mean)
 passes `DIVERGED` in absolute value: the rule for MaSwarm, whose Q values stay
 within about [-20, 10] while its critics hold; on the articulated envs, whose
@@ -48,6 +50,7 @@ class Run:
     absolute: Optional[float] = None
     random: Optional[float] = None  # the first ACTOR line: the explore phase's return
     q_name: str = "Q1"  # SAC's Q1, or rec-IQL's Q
+    per_seed: List[float] = field(default_factory=list)  # a stacked program's final returns
 
     def diverged(self) -> Optional[int]:
         """The env-step count of the first round whose |Q1| passes `DIVERGED`."""
@@ -110,6 +113,8 @@ def read_log(lines: Iterable[str]) -> Run:
             run.absolute = _field(line, metric_of(line))
         elif line.startswith("ACTOR") and run.random is None:
             run.random = _field(line, "Episode return mean")
+        elif "final eval returns per seed:" in line:
+            run.per_seed = [float(r) for r in line.split(":", 1)[1].split(",")]
         elif line.startswith("MISC") and "Timestep" in line:
             run.steps.append(int(_field(line, "Timestep")))
             run.learn_s += _field(line, "Time learn") or 0.0

@@ -8,7 +8,9 @@ adds one slab per env step), so one pair of host counters serves them all and
 one in-place write fills the same ring positions of every entry. Each entry
 samples only its own rows, from its own indices (S, B). The storage is made
 once, zeroed, on the device of the dummy item it is shaped like: never an
-entry at a time on the host.
+entry at a time on the host. The trajectory ring's parts (`write_positions`,
+`write`, `advance`; `physical_starts`, `gather`) take the entry axis too, so
+that the stacked rec-IQL update's graph writes and reads by ring position.
 """
 
 from __future__ import annotations
@@ -43,7 +45,9 @@ def _randint(high: int) -> Callable:
 
 class StackedTrajectoryBuffer(TrajectoryBuffer):
     """`TrajectoryBuffer` over S entries: leaves (S, add_batch_size,
-    max_length_time_axis, ...); `add` takes (S, add_batch_size, T_add, ...)."""
+    max_length_time_axis, ...); `add` takes (S, add_batch_size, T_add, ...),
+    `sample` (the stock `physical_starts`, then `gather`) rows and logical
+    starts (S, B)."""
 
     def __init__(self, entries: int, **kwargs):
         super().__init__(**kwargs)
@@ -62,18 +66,18 @@ class StackedTrajectoryBuffer(TrajectoryBuffer):
             raise ValueError(f"add expects leading dims ({self.entries}, {self.add_batch_size}), "
                              f"got {tuple(leaves[0].shape[:2])}")
         t_add = leaves[0].shape[2]
-        idx = state.current_index
-        positions = (idx + torch.arange(t_add, device=leaves[0].device)) % self.max_length_time_axis
+        self.write(state, batch, self.write_positions(state, t_add, leaves[0].device))
+        return self.advance(state, t_add)
+
+    def write(self, state: TrajectoryBufferState, batch: Any, positions: torch.Tensor) -> None:
+        """Writes `batch` (leaves (S, add_batch_size, T_add, ...)) at the ring
+        `positions` (T_add,) of every entry, in place; the counters are left as
+        they are."""
 
         def write(buf: torch.Tensor, x: torch.Tensor) -> None:
             buf[:, :, positions] = x.to(buf.dtype)
 
         pytree.tree_map(write, state.experience, batch)
-        return TrajectoryBufferState(
-            state.experience,
-            (idx + t_add) % self.max_length_time_axis,
-            state.is_full or idx + t_add >= self.max_length_time_axis,
-        )
 
     def sample_indices(self, state: TrajectoryBufferState,
                        draw: Draw) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -82,14 +86,12 @@ class StackedTrajectoryBuffer(TrajectoryBuffer):
         shape = (self.sample_batch_size,)
         return draw(_randint(self.add_batch_size), shape), draw(_randint(self.num_starts(state)), shape)
 
-    def sample(self, state: TrajectoryBufferState, rows: torch.Tensor,
-               logical_starts: torch.Tensor) -> Any:
-        """Each entry's sequences at its (rows, logical_starts) (S, B): leaves
-        (S, B, sample_sequence_length, ...)."""
-        oldest = state.current_index if state.is_full else 0
-        physical = (oldest + logical_starts.long()) % self.max_length_time_axis
-        steps = torch.arange(self.sample_sequence_length, device=physical.device)
-        time_idx = (physical[..., None] + steps) % self.max_length_time_axis
+    def gather(self, state: TrajectoryBufferState, rows: torch.Tensor,
+               physical_starts: torch.Tensor) -> Any:
+        """Each entry's sequences at its (rows, ring positions of their first
+        steps) (S, B): leaves (S, B, sample_sequence_length, ...)."""
+        steps = torch.arange(self.sample_sequence_length, device=physical_starts.device)
+        time_idx = (physical_starts[..., None] + steps) % self.max_length_time_axis
         entry_idx, row_idx = _entries(rows)[..., None], rows.long()[..., None]
         return pytree.tree_map(lambda buf: buf[entry_idx, row_idx, time_idx], state.experience)
 

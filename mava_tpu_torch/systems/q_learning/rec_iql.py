@@ -207,24 +207,13 @@ def get_learner_fn(
                                   device)
         env_noise = [env.step_noise(num_envs, gen) if drawn.env_noise is None
                      else drawn.env_noise[step] for step in range(rollout)]
-        epsilon = torch.stack([epsilon_schedule(config, state.time_steps + step * step_envs)
-                               for step in range(rollout)])
-        if device.type == "cuda":  # no host sync: an asynchronous copy from pinned memory
-            epsilon = epsilon.pin_memory().to(device, non_blocking=True)
-        after = buffer.advance(state.buffer_state, rollout)
+        epsilon, positions, after, replace = host_inputs(config, buffer, state, step_envs)
         if drawn.rows is None:
             rows, starts = zip(*(buffer.sample_indices(after, gen) for _ in range(epochs)))
             rows, starts = torch.stack(rows), torch.stack(starts)
         else:
             rows, starts = drawn.rows, drawn.starts
-        replace = None
-        if sys_cfg.hard_update:
-            updates = state.train_steps + torch.arange(epochs, device=device)
-            replace = updates % sys_cfg.update_period == 0
-        carry = Carry(state.obs, state.terminal, state.term_or_trunc, state.hidden_state,
-                      state.env_state)
-        return UpdateInputs(carry, action_noise, env_noise, epsilon,
-                            buffer.write_positions(state.buffer_state, rollout, device),
+        return UpdateInputs(carry_of(state), action_noise, env_noise, epsilon, positions,
                             rows, buffer.physical_starts(after, starts), replace)
 
     def update_body(state: LearnerState, inputs: UpdateInputs) -> Tuple[Carry, Dict, Dict]:
@@ -285,6 +274,34 @@ def get_learner_fn(
     learner_fn.update = CapturedPhase(draw_update, update_body, update_state_tensors,
                                       update_counters, "the rec-IQL update")
     return learner_fn
+
+
+def host_inputs(config: Config, buffer: TrajectoryBuffer, state: LearnerState,
+                step_envs: int) -> Tuple[torch.Tensor, torch.Tensor, Any, Optional[torch.Tensor]]:
+    """What an update's inputs take from the host counters (one for every
+    entry of a stacked program, whose entries move in lockstep): each act
+    step's epsilon at the env-step count it starts from (`step_envs` env steps
+    an act step; on CUDA an asynchronous copy from pinned memory, no host
+    sync), the ring positions the act steps write, the ring's counters after
+    them, and each epoch's hard-update flag (None with the soft update)."""
+    sys_cfg, device = config.system, state.terminal.device
+    rollout, epochs = sys_cfg.rollout_length, sys_cfg.epochs
+    epsilon = torch.stack([epsilon_schedule(config, state.time_steps + step * step_envs)
+                           for step in range(rollout)])
+    if device.type == "cuda":
+        epsilon = epsilon.pin_memory().to(device, non_blocking=True)
+    replace = None
+    if sys_cfg.hard_update:
+        updates = state.train_steps + torch.arange(epochs, device=device)
+        replace = updates % sys_cfg.update_period == 0
+    return (epsilon, buffer.write_positions(state.buffer_state, rollout, device),
+            buffer.advance(state.buffer_state, rollout), replace)
+
+
+def carry_of(state: LearnerState) -> Carry:
+    """The learner state's carry, as an update's inputs hold it by value."""
+    return Carry(state.obs, state.terminal, state.term_or_trunc, state.hidden_state,
+                 state.env_state)
 
 
 def update_state_tensors(state: LearnerState) -> List[torch.Tensor]:

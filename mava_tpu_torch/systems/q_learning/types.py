@@ -68,7 +68,10 @@ class UpdateInputs(NamedTuple):
     position each act step writes; rows and starts: (epochs, sample_batch_size)
     the sequences of each epoch, their starts as ring positions; replace:
     (epochs,) bool, whether a hard update replaces the target after each
-    epoch's step (None with the soft update).
+    epoch's step (None with the soft update). A stacked program's inputs put
+    the entry axis in front of the carry's, the action noise's and the
+    sequences' ((S, epochs, sample_batch_size)); the epsilons, positions and
+    flags serve every entry.
     """
 
     carry: Carry

@@ -1,9 +1,10 @@
 """CUDA graph capture, shared by the port's captured programs: the articulated
 envs' integrator step (`envs/_dynamics.py` `CapturedStep`), the SAC train
 phase (`systems/sac/ff_isac.py`, `advanced_usage/ff_isac_vmap_seeds.py`) and
-the whole rec-IQL update (`systems/q_learning/rec_iql.py`), the counterparts
-of the reference's `jax.jit` of the step and compiled `lax.scan`s of the act
-and train steps.
+the whole rec-IQL update, stock (`systems/q_learning/rec_iql.py`) and stacked
+over seeds or a sweep (`advanced_usage/rec_iql_vmap_seeds.py`), the
+counterparts of the reference's `jax.jit` of the step and compiled `lax.scan`s
+of the act and train steps.
 
 `Captured` runs a function once on a side stream (the warm-up that creates the
 library handles and workspaces its ops need, and lets autograd see its first

@@ -264,19 +264,10 @@ def soft_update(target: torch.nn.Module, online: torch.nn.Module, tau: float) ->
 
 
 @torch.no_grad()
-def periodic_update(target: torch.nn.Module, online: torch.nn.Module, steps: int,
-                    update_period: int) -> None:
-    """optax's `periodic_update`: target <- online when `steps % update_period
-    == 0` (`steps` counts the updates before this one), in place."""
-    if steps % update_period == 0:
-        for t, o in zip(target.parameters(), online.parameters()):
-            t.copy_(o)
-
-
-@torch.no_grad()
 def replace_where(target: torch.nn.Module, online: torch.nn.Module, flag: torch.Tensor) -> None:
-    """`periodic_update` with its test made beforehand, as a bool tensor `flag`:
-    target <- online where `flag`, else kept; in place, no host read."""
+    """optax's periodic target update with its test (`steps % update_period == 0`)
+    made beforehand, as a bool tensor `flag`: target <- online where `flag`,
+    else kept; in place, no host read."""
     for t, o in zip(target.parameters(), online.parameters()):
         t.copy_(torch.where(flag, o, t))
 

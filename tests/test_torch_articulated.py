@@ -19,6 +19,7 @@ from mava_tpu.utils.config import load_config as jax_load_config
 from mava_tpu_torch import envs as tenvs
 from mava_tpu_torch.utils.config import load_config
 from test_torch_planar_envs import Pair, _t, assert_step_matches, inner, reset_draws
+from test_torch_planar_envs import jax_accel_once  # noqa: F401 (autouse: q̈ traced once)
 
 torch.set_num_threads(1)
 

@@ -38,6 +38,7 @@ from test_torch_rec_ippo import (
     _prepare,
     _start_from_jax,
 )
+from test_torch_planar_envs import jax_accel_once  # noqa: F401 (autouse: q̈ traced once)
 
 torch.set_num_threads(1)
 FF_TINY = [

@@ -81,8 +81,8 @@ def test_one_rec_iql_update_over_two_ranks_matches_jax_mesh(tmp_path):
     update = jrec_iql.build_learn_fn(cfg, jenv, q_net, opt, rb, mesh, jstate.buffer_state)
     for _ in range(WARMUP_UPDATES):
         jstate, _ = update(jstate)
+    jout = jax.device_get(update(jstate))  # on its own arrays: no second compile
     jstate = jax.device_get(jstate)
-    jout = jax.device_get(update(jstate))
 
     tcfg = _prepare(load_config("default_rec_iql", IQL_TINY + ["+arch.device=cpu"]))
     tcfg.arch.n_devices = 1  # the shard's own state, built in one process

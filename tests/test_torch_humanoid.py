@@ -27,6 +27,7 @@ from test_torch_planar_envs import (
     assert_step_matches,
     run_rollout,
 )
+from test_torch_planar_envs import jax_accel_once  # noqa: F401 (autouse: q̈ traced once)
 
 torch.set_num_threads(1)
 

@@ -7,6 +7,12 @@ evaluations, on 2s3z); its JAX absolute win rate and first evaluation are read
 from the committed logs by the port's reader, and its rule closes 80 % of the
 gap from a win rate of 0. One tiny rec-IQL CLI on SMAX goes through
 `run_anchors` in a process of its own.
+
+`iql_vmap_j908` is the stacked program under j908's overrides
+(`scripts/tpu_queue/r5/`): the reader takes its JAX seeds' final returns from
+the log's per-seed line, and a tiny stacked CLI goes through `run_anchors`,
+ruled seed by seed. The eight-seed band (`iql_3s_vs_5z_band`) is driven once
+at a tiny size on the CPU and its sections read back.
 """
 
 import re
@@ -18,7 +24,8 @@ import chip_smoke
 from mava_tpu_torch.examples import sac_anchors
 
 ROOT = Path(__file__).resolve().parents[1]
-IQL = {name: anchor for name, anchor in chip_smoke.ANCHORS.items() if anchor.module == "rec_iql"}
+IQL = {name: anchor for name, anchor in chip_smoke.ANCHORS.items()
+       if anchor.module == "rec_iql" and not anchor.seeds}
 JOBS = {"iql_3s_vs_5z": "j170_rec_iql_3s_vs_5z", "iql_3s_vs_5z_seed7": "j171_rec_iql_3s_vs_5z_seed7",
         "iql_3s_vs_5z_seed123": "j172_rec_iql_3s_vs_5z_seed123"}
 FIRST_EVAL = {"iql_3s_vs_5z": 0.0, "iql_3s_vs_5z_seed7": 0.0, "iql_3s_vs_5z_seed123": 0.0,
@@ -120,3 +127,79 @@ def test_run_anchors_runs_the_rec_iql_cli_and_reads_its_win_rate(capsys, monkeyp
     assert "Q within" in out[0]
     log = (tmp_path / "tiny_iql.log").read_text()
     assert "ABSOLUTE" in log and "Win rate" in log and "IDQN experiment completed." in log
+
+
+# ------------------------------------------------------------------ j908 and the band
+J908 = chip_smoke.ANCHORS["iql_vmap_j908"]
+J908_LOG = ROOT / "results" / "r5_queue" / "j908_rec_iql_2seed_vmap_2m.log"
+TINY = ("env=smax", "env/scenario=3s_vs_5z", "+env.kwargs.time_limit=6",
+        "arch.num_envs=2", "system.total_timesteps=16", "arch.num_evaluation=2",
+        "arch.num_eval_episodes=2", "arch.num_absolute_metric_eval_episodes=2",
+        "system.sample_batch_size=2", "system.sample_sequence_length=3",
+        "network.hidden_state_dim=8", "network.q_network.pre_torso.layer_sizes=[8]",
+        "network.q_network.post_torso.layer_sizes=[8]")
+
+
+def test_j908_anchor_is_its_reference_job():
+    job = ROOT / "scripts" / "tpu_queue" / "r5" / "j908_rec_iql_2seed_vmap_2m.sh"
+    lines = [line for line in job.read_text().splitlines() if not line.startswith("#")]
+    command = "\n".join(lines).replace("\\\n", " ")
+    module = re.search(r"python -m mava_tpu\.advanced_usage\.(\w+)", command).group(1)
+    overrides = [w for w in command.split() if "=" in w]
+    assert (J908.module, list(J908.overrides)) == (module, overrides)
+    assert J908.program == "mava_tpu_torch.advanced_usage.rec_iql_vmap_seeds"
+    assert J908.source.split("; ")[-1] == str(J908_LOG.relative_to(ROOT))
+
+
+def test_j908_jax_figures_from_its_log():
+    """Each JAX seed's final return from the per-seed line, the last
+    evaluation's mean, 20 evaluations, and 15,625 updates of 2 seeds."""
+    text = J908_LOG.read_text()
+    run = sac_anchors.read_log(text.splitlines())
+    assert run.per_seed == list(J908.jax_seeds) == [17.15, 17.54]
+    assert run.evals[-1] == J908.jax and run.evals[0] == 14.821 and len(run.evals) == 20
+    assert "Setting num_updates = 15625 from total_timesteps = 2000000." in text
+    assert J908.seed_rules == pytest.approx(
+        [J908.random + 0.8 * (jax - J908.random) for jax in (17.15, 17.54)])
+    assert 0 < J908.random < min(J908.jax_seeds)
+
+
+def test_reader_reads_the_per_seed_line():
+    run = sac_anchors.read_log(LOG.splitlines() + [
+        "vmap-seeds final eval returns per seed: 17.15, -2.50, 3.00",
+        "vmap-seeds final eval win rates per seed: 10.0%, 0.0%, 5.0%"])
+    assert run.per_seed == [17.15, -2.5, 3.0] and run.absolute == 99.688
+    assert sac_anchors.read_log(LOG.splitlines()).per_seed == []
+
+
+def test_run_anchors_runs_the_stacked_cli_and_rules_each_seed(capsys, monkeypatch, tmp_path):
+    anchors = {"tiny_j908": chip_smoke.Anchor(
+        "rec_iql_vmap_seeds", ("+arch.device=cpu", *TINY, "+system.num_seeds=2"), -1.0, 99.0,
+        "none", system="advanced_usage", jax_seeds=(-2.0, 99.0))}
+    monkeypatch.setattr(chip_smoke, "ANCHORS", anchors)
+    assert chip_smoke.run_anchors(list(anchors), "CPU", tmp_path) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("anchor tiny_j908 (") and "final returns " in out[0]
+    assert "(rule >= -1.80: JAX -2) pass" in out[0] and "(rule >= 79.00: JAX 99) miss" in out[0]
+    assert out[0].count(": miss;") == 1
+    log = (tmp_path / "tiny_j908.log").read_text()
+    assert "vmap-seeds final eval returns per seed:" in log
+    assert "rec-IQL vmap-seeds experiment completed." in log
+
+
+def test_band_anchor_and_its_stacked_run(capsys, tmp_path):
+    """The band's rule, and a tiny band driven on the CPU: a section a seed,
+    each with a round's TRAINER, EVALUATOR (win rate) and MISC lines and the
+    ABSOLUTE line, which the reader takes."""
+    band = chip_smoke.ANCHORS["iql_3s_vs_5z_band"]
+    assert (band.module, band.seeds, band.need, round(band.rule, 2)) == ("rec_iql", 8, 7, 79.75)
+    assert band.overrides == IQL["iql_3s_vs_5z"].overrides
+    chip_smoke.iql_seed_band(chip_smoke.Anchor("rec_iql", TINY, 0.0, 99.0, "none", seeds=2,
+                                               system="q_learning", need=1), "cpu")
+    path = tmp_path / "band.log"
+    path.write_text(capsys.readouterr().out)
+    runs = sac_anchors.read_sections(str(path))
+    assert sorted(runs) == ["port, stacked seed 1", "port, stacked seed 2"]
+    for run in runs.values():
+        assert len(run.evals) == 2 and run.steps == [8, 16] and run.q_name == "Q"
+        assert run.absolute is not None and len(run.q1) == 2

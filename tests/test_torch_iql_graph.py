@@ -33,7 +33,7 @@ from mava_tpu_torch.systems.q_learning import rec_iql
 from mava_tpu_torch.systems.q_learning.types import Draws, Transition
 from mava_tpu_torch.utils.checkpointing import restore_into, to_host
 from mava_tpu_torch.utils.config import load_config
-from mava_tpu_torch.utils.training import periodic_update, soft_update
+from mava_tpu_torch.utils.training import soft_update
 
 torch.set_num_threads(1)
 UPDATES = 13  # 52 act steps into a ring of 24: it wraps twice
@@ -73,6 +73,14 @@ def stock(env_name: str = "rware", device="cpu", overrides=()):
     learn, _, state = rec_iql.learner_setup(
         env, torch.Generator(device=device).manual_seed(1), cfg, torch.device(device))
     return cfg, env, learn, state
+
+
+@torch.no_grad()
+def periodic_update(target, online, steps: int, update_period: int) -> None:
+    """The hard target update as the learner made it before the split: the test on the host."""
+    if steps % update_period == 0:
+        for t, o in zip(target.parameters(), online.parameters()):
+            t.copy_(o)
 
 
 def pre_split_update(cfg, env, buffer, state):

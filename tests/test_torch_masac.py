@@ -21,6 +21,7 @@ from mava_tpu_torch.systems.sac import ff_masac
 from mava_tpu_torch.utils.config import load_config
 from test_torch_sac import CLI, REWARD_SCALES, _setup, check_one_update
 from test_torch_sac_articulated import articulated_draws
+from test_torch_planar_envs import jax_accel_once  # noqa: F401 (autouse: q̈ traced once)
 
 torch.set_num_threads(1)
 

@@ -13,7 +13,13 @@ enough for truncations, auto-resets and two steps after them
 (`ROLLOUT_STEPS`), in which the hopper and the walker, pushed over at the
 start, terminate with discount 0. The other factorisations
 and the invariants are in `test_torch_articulated.py`.
+
+The JAX envs' q̈ is traced once a file (`jax_accel_once`, which every file
+that builds a JAX program over an articulated env takes up): see
+`jax_accel_traced_once`.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +53,41 @@ BODIES = {
     "maant": (6, 2, 3, 0.05, 0.0),
     "mahumanoid": (6, 2, 3, 0.03, 8.0),
 }
+
+
+# Each JAX articulated env's q̈ (`_accel`) jitted once, the env static. A
+# program that steps such an env then traces q̈ once, where it traced it once
+# a Runge-Kutta stage (four in each substep scan) and a program (the step, the
+# explore phase, the update); XLA inlines the call, so every program computes
+# what it did (the same parameters bit for bit after a MaHumanoid MASAC
+# update). Kept for the process, so that a file's programs share the traces.
+_JITTED_ACCEL = {}
+
+
+@contextlib.contextmanager
+def jax_accel_traced_once():
+    """The JAX articulated envs' `_accel` jitted (`_JITTED_ACCEL`) inside the
+    block, restored after it; not reentrant."""
+    from mava_tpu.envs import maant, macheetah, mahopper, mahumanoid, mareacher, maswimmer
+
+    classes = [maant.MaAnt, macheetah.MaCheetah, mahopper.MaHopper, mahumanoid.MaHumanoid,
+               mareacher.MaReacher, maswimmer.MaSwimmer]
+    plain = {cls: cls.__dict__["_accel"] for cls in classes}
+    for cls, fn in plain.items():
+        cls._accel = _JITTED_ACCEL.setdefault(cls, jax.jit(fn, static_argnums=0))
+    try:
+        yield
+    finally:
+        for cls, fn in plain.items():
+            cls._accel = fn
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_accel_once():
+    """`jax_accel_traced_once` for a whole test file (imported by name into
+    every file that steps a JAX articulated env)."""
+    with jax_accel_traced_once():
+        yield
 
 
 def _t(x, dtype=None):

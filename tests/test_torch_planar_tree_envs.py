@@ -25,6 +25,7 @@ from test_torch_planar_envs import (
     run_rollout,
     shipped,
 )
+from test_torch_planar_envs import jax_accel_once  # noqa: F401 (autouse: q̈ traced once)
 
 torch.set_num_threads(1)
 

@@ -340,8 +340,10 @@ def test_one_update_matches_jax_learner(fused, hard):
     update = jrec_iql.build_learn_fn(cfg, jenv, q_net, opt, rb, mesh, jstate.buffer_state)
     for _ in range(WARMUP_UPDATES):  # 8 steps into a ring of 7: it has wrapped
         jstate, _ = update(jstate)
-    jstate = jax.device_get(jstate)
+    # The update called on the arrays it made, so its compiled program is reused
+    # (host copies in would compile it again).
     jout = jax.device_get(update(jstate))
+    jstate = jax.device_get(jstate)
 
     tcfg = _prepare(load_config("default_rec_iql", overrides + ["+arch.device=cpu"]))
     tenv, _ = tenvs.make(tcfg, "cpu")

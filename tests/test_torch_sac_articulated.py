@@ -15,6 +15,7 @@ import torch
 from mava_tpu_torch.systems.sac import ff_isac
 from test_torch_planar_envs import _t, reset_draws, to_torch_state
 from test_torch_sac import check_one_update
+from test_torch_planar_envs import jax_accel_once  # noqa: F401 (autouse: q̈ traced once)
 
 torch.set_num_threads(1)
 

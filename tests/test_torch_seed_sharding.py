@@ -87,8 +87,8 @@ def iql_jax_run(d: int):
                                                             SEEDS)
     for _ in range(WARMUP_UPDATES):
         jstate, _ = update(jstate)
-    jstate = jax.device_get(jstate)
-    return cfg, jenv.unwrapped, jstate, jax.device_get(update(jstate))
+    jout = jax.device_get(update(jstate))  # on its own arrays: no second compile
+    return cfg, jenv.unwrapped, jax.device_get(jstate), jout
 
 
 def _port_cfg(config, overrides, **extra):
