@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py [--profile | --seeds | --offpolicy | --distributed | --programs |
-                           --standalone | --dynamics [NAME,...] | --anchors NAME[,NAME...]]
+                           --standalone | --ppo | --dynamics [NAME,...] |
+                           --anchors NAME[,NAME...]]
 
 Run from the root of the repository. It
   1. prints the torch and CUDA versions and the card's name and power limit;
@@ -76,7 +77,27 @@ Run from the root of the repository. It
      update with no host sync (`launches_and_syncs`); on the shipped ring an
      update's host ms both ways in turns, env-steps/s, and one update each way
      under `torch.profiler` (host launches, kernels, idle share);
-  9. grid phase: rec-MAPPO with `network=rcnn` (CNN [32, 32] 3x3 -> GRU H =
+  9. PPO graph phase: the PPO update as one CUDA graph (`learn.update`, a
+     `CapturedPhase`: the rollout, the critic pass, GAE and the epochs, the
+     GRU kernels inside). The learning rate and entropy schedules formed
+     from a float64 count on the card against their host forms (bitwise);
+     then ff-IPPO on RWARE tiny-2ag at 16 envs (also with an annealed entropy
+     coefficient and a decayed learning rate), rec-IPPO on RWARE and
+     rec-MAPPO on SMAX 3s5z at 64 envs: 4 updates replayed against 4 op by op
+     (`learn.update.eager`) from one seed, every leaf bitwise, an episode end
+     among them, exactly 17 K1 and 16 of each backward kernel an update on
+     the recurrent path and none on the feed-forward one, one capture, a
+     replayed update with no host sync (`launches_and_syncs`); but for the
+     schedules' learner, an update's host ms both ways in turns and one
+     update each way under
+     `torch.profiler` (host launches, kernels, idle share, busy ms), the
+     capture's seconds and the bytes it added to the graphs' pool; the host
+     launches of a replayed ff-IPPO update and of its draws alone at rollout
+     32 and 128 and 16 and 64 envs (the rest the same at every size); the
+     bench program (`bench_torch.py`'s learner and timing loop at 512 envs)
+     replayed and op by op in one process, in turns, with one update each way
+     profiled;
+  10. grid phase: rec-MAPPO with `network=rcnn` (CNN [32, 32] 3x3 -> GRU H =
      128 -> MLP [128]) on MaConnector con-10x10x10a at the shipped system
      config, 2 updates through `rec_mappo.run_experiment` with exactly 17
      forward and 16 of each backward kernel an update (B = 160 on the critic
@@ -85,7 +106,7 @@ Run from the root of the repository. It
      clean-10x10x10a, ff-MAPPO on LBF 8x8-2p-2f-coop and ff-IPPO on Gigastep
      hide_and_seek_5_vs_5_fobs (no GRU kernel). Each: env-steps/s, launches per
      rollout step and idle share of one profiled update, peak memory on the card;
-  10. SAC phase: `default_ff_isac` and `default_ff_masac` on MaSwarm spread-3ag as
+  11. SAC phase: `default_ff_isac` and `default_ff_masac` on MaSwarm spread-3ag as
      shipped (16 envs, rollout 2, 32 epochs, delay 4, batch 32, the
      1,000,000-item buffer on the card) through their `run_experiment`: the
      4,992-step explore phase and two rounds of 4 updates, every parameter
@@ -100,7 +121,7 @@ Run from the root of the repository. It
      of the train span (at most 300 host launches replayed on MaSwarm), of
      the update, and the idle share; the capture's seconds and the bytes it
      added to the graphs' pool; env-steps/s;
-  11. articulated phase: the batched solve kernel (`csrc/batched_solve.cu`)
+  12. articulated phase: the batched solve kernel (`csrc/batched_solve.cu`)
      against its plain version `torch.linalg.solve_ex` at every env's system
      size (n = 2 to 23) for 16, 320 and 2,560 systems (rtol = atol = 1e-4,
      repeatable bit for bit), timed beside its bound; then for MaReacher
@@ -122,9 +143,11 @@ Run from the root of the repository. It
      timed and profiled (launches per act and train step, idle share);
      ff-MASAC the same on MaHumanoid and MaHopper, without the timed update;
      continuous ff-IPPO on
-     MaWalker (rollout cut to 8, 2 updates; one update of rollout 1 profiled
-     for the launches per rollout step and the idle share);
-  12. resume phase: rec-IPPO on SMAX 3s5z at the shipped width with 64 envs
+     MaWalker (rollout cut to 4, 2 updates, the update one CUDA graph with the
+     integrator's kernels inside; a replayed update timed; one update of
+     rollout 1 profiled op by op for the launches per rollout step and the
+     idle share);
+  13. resume phase: rec-IPPO on SMAX 3s5z at the shipped width with 64 envs
      through `run_experiment`, 4 updates straight against 2 saved with
      `logger.checkpointing.save_full_state` and 2 resumed in a fresh run with
      `load_full_state`: parameters, optimizer moments, generators, env and
@@ -133,7 +156,7 @@ Run from the root of the repository. It
      4,096-item buffer, bitwise; ff-IPPO on RWARE tiny-2ag with
      `arch.stagger_resets=True`: the spread of the envs' step counts after the
      burn-in, the setup's seconds, one update;
-  13. seed phase: the stacked GRU kernels of the seed programs (the stacked K1
+  14. seed phase: the stacked GRU kernels of the seed programs (the stacked K1
      with a keep per entry, K2p, K2a and K2b with the stack entry as one more
      grid dimension) against their plain versions at S = 4 and 8 on the SMAX
      3s5z path shapes (T = 128, B = 128 and 64), gradients bitwise repeatable,
@@ -146,7 +169,7 @@ Run from the root of the repository. It
      step, cut in depth; the launches of a whole stacked update at S = 8
      against S = 1 (at most 1.5x) and env-steps/s at S = 1, 4, 8 beside one
      stock update, at a rollout of 32;
-  14. off-policy seed phase: the stacked K1 over 2S = 8 entries at rec-IQL's
+  15. off-policy seed phase: the stacked K1 over 2S = 8 entries at rec-IQL's
      target pass (T = 20, B = 256, H = 128; each online/target pair with its
      seed's keep) and the stacked K1 and backward over S = 4 at its loss pass,
      against their plain versions, bitwise repeatable, timed beside their
@@ -172,13 +195,13 @@ Run from the root of the repository. It
      writes' share of a stacked act step's host ms; the ring's bytes an entry
      and the peak memory; `ff_ippo_store_experience` writing a vault (under
      `build/`) and `examples.bc_from_vault` cloning from it;
-  15. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
+  16. feed-forward phase: `default_ff_ippo` and `default_ff_mappo` as shipped, 4
      updates each through their `run_experiment` with the same health checks
-     (they reach no hand-written kernel), three timed ff-IPPO updates, ff-IPPO on
+     (they reach no hand-written kernel), ff-IPPO on
      Matrax Penalty-25 for 10 updates with its eval return,
      and a short run of
      the bench program (`bench_torch.run` at 512 envs);
-  16. programs phase: the quickstart (`examples/quickstart.py`'s `main()` at
+  17. programs phase: the quickstart (`examples/quickstart.py`'s `main()` at
      its defaults, LBF 2s-8x8-2p-2f-coop at 128 envs, cut in depth to 131,072
      env-steps and 2 evaluations: its final eval return finite), then the
      tools of `mava_tpu_torch/scripts/`: `bench_suite` on rec_mappo_smax (1
@@ -189,16 +212,18 @@ Run from the root of the repository. It
      `bench_envs_sweep` at 16 and 64 envs, `bench_vmap_seeds` at S = 2 and
      `run_seeds` over 2 seeds of ff-IPPO on Matrax, each number beside the
      card's name and power limit;
-  17. distributed phase (data parallelism over ranks, `parallel/`): rec-IPPO
+  18. distributed phase (data parallelism over ranks, `parallel/`): rec-IPPO
      on RWARE tiny-2ag at the shipped width through `python -m
      torch.distributed.run --standalone --nproc-per-node=1` (a subprocess: 2
      updates and one evaluation under NCCL; its exit code and "completed"
      line); then in this process a world-1 NCCL group (`tcp://localhost`, a
      free port): one data-parallel update against one stock update from the
      same state and draws (parameters and losses bitwise equal), exactly 17
-     K1, 16 of each backward kernel and 8 all-reduces (one a minibatch step,
-     counted with `torch.profiler`) an update, the all-reduces' device and
-     host ms an update and both updates' env-steps/s; the recording program
+     K1, 16 of each backward kernel and 8 all-reduces (one a minibatch step)
+     an update; a replayed data-parallel update under `torch.profiler`: its
+     all-reduces inside the graph (none on the host, 8 counted from the
+     capture; NCCL at world 1 launches no kernel for them); both updates'
+     env-steps/s; the recording program
      (`ff_ippo_store_experience`, RWARE tiny-2ag as shipped, 2 updates in 2
      rounds) through torchrun at world 1, whose vault, read back, equals the
      same learner's trajectories gathered in this process by
@@ -211,13 +236,13 @@ Run from the root of the repository. It
      all-reduces inside the graph), bitwise equal, with exactly 96
      all-reduces an update (32 Q, 32 actor, 32 alpha steps); the group is
      destroyed after it, so it runs last;
-  18. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
+  19. with `--profile`: one full-width rec-IPPO update and one ff-IPPO update at
      512 envs under `torch.profiler`: host ms, launches and kernel ms per span,
      launches per rollout step, per-kernel totals and the device's idle share.
 `--seeds` builds the kernels and runs only the seed phase, `--offpolicy` only
 the off-policy seed phase, `--distributed` only the distributed phase,
 `--programs` only the programs phase, `--standalone` only the standalone
-phase. `--dynamics` runs
+phase, `--ppo` only the PPO graph phase. `--dynamics` runs
 only measurements for the articulated suite and exits: tracing a whole RK4
 substep against tracing q̈ alone (`dynamics_ab`), the host seconds of SAC
 updates at the learning anchors' configurations (`anchor_sizing`) and of
@@ -256,13 +281,14 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch.utils import _pytree as pytree
 
 # The work of a kernel launch and the card's peaks are reckoned in the op's
 # module, which the MFU bench shares; re-exported here under their old names.
+from mava_tpu_torch.examples.quickstart import QUICKSTART_DEFAULTS
 from mava_tpu_torch.ops.gru import PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, kernel_work
 
 RTOL = ATOL = 1e-4  # fp32 kernel vs fp32 plain version: summation order differs
@@ -864,10 +890,13 @@ def learner(system: str, overrides):
     return learn, state, cfg.system.rollout_length * cfg.arch.num_envs
 
 
-def one_update(system: str, overrides, repeats: int):
-    """`repeats` timed updates from the seed's state; returns (seconds, params and losses
-    of the first, env-steps an update)."""
+def one_update(system: str, overrides, repeats: int, eager: bool = False):
+    """`repeats` timed updates from the seed's state (`eager`: op by op, with no
+    capture); returns (seconds, params and losses of the first, env-steps an
+    update, (the learner, its state after the updates, env-steps an update))."""
     learn, state, steps = learner(system, overrides)
+    if eager:
+        learn.update = learn.update.eager
     seconds, first = [], None
     for _ in range(repeats):
         torch.cuda.synchronize()
@@ -879,14 +908,27 @@ def one_update(system: str, overrides, repeats: int):
             params = [p.detach().clone() for net in out.learner_state.params for p in net.parameters()]
             first = (params, out.train_metrics)
         state = out.learner_state
-    return seconds, first[0], first[1], steps
+    return seconds, first[0], first[1], steps, (learn, state, steps)
 
 
-def print_updates(label: str, seconds, steps: int, gpu: str) -> None:
-    mean = sum(seconds) / len(seconds)
+def print_updates(label: str, seconds, steps: int, gpu: str, eager: bool = False) -> None:
+    """Each update's ms; the mean and rate over the updates after the first
+    where there are more, since a new learner's first update also captures
+    its graph (`eager`: the updates ran op by op, none captured)."""
+    timed = seconds if eager else seconds[1:] or seconds
+    mean = sum(timed) / len(timed)
     print(f"  update with {label}: " + " ".join(f"{x * 1e3:.1f}" for x in seconds)
-          + f" ms; mean {mean * 1e3:.1f} ms, {steps / mean:.1f} env-steps/s "
-          f"(range {steps / max(seconds):.1f}-{steps / min(seconds):.1f}) on {gpu}")
+          + f" ms ({'op by op' if eager else 'the first captures'}); mean {mean * 1e3:.1f} ms, "
+          f"{steps / mean:.1f} env-steps/s (range {steps / max(timed):.1f}-"
+          f"{steps / min(timed):.1f}) on {gpu}")
+
+
+def rollout_launches(prof: dict) -> str:
+    """A profiled update's launches: a rollout step's where its body ran op by
+    op, else the replayed update's."""
+    if prof["launches_per_rollout_step"] is None:
+        return f"{prof['launches']} launches a replayed update"
+    return f"{prof['launches_per_rollout_step']:.1f} launches a rollout step"
 
 
 def train(system: str, gru, overrides=()):
@@ -924,11 +966,15 @@ def train(system: str, gru, overrides=()):
 def kernels_against_plain(system: str, repeats: int, overrides=()):
     """Updates of `system` through the kernels and through the plain GRU, from the
     same seed, generator stream and therefore the same first rollout. Returns the
-    kernel run's (seconds, params, env-steps an update) and the plain run's seconds."""
+    kernel run's (seconds, params, env-steps an update), the plain run's seconds
+    and the kernel run's (learner, state, env-steps an update).
+    The plain run is one update op by op: it checks the kernels' numbers, not a
+    graph, and capturing its scan of T small steps costs more than the update."""
     overrides = list(overrides)
-    k_s, k_params, k_losses, steps = one_update(
+    k_s, k_params, k_losses, steps, made = one_update(
         system, overrides + ["network.gru_impl=pallas"], repeats)
-    p_s, p_params, p_losses, _ = one_update(system, overrides + ["network.gru_impl=hoisted"], 1)
+    p_s, p_params, p_losses, _, _ = one_update(
+        system, overrides + ["network.gru_impl=hoisted"], 1, eager=True)
     param_err = max((a - b).abs().max().item() for a, b in zip(k_params, p_params))
     loss_err = max((k_losses[k] - p_losses[k]).abs().max().item() for k in p_losses)
     print(f"  one {system} update, kernels vs plain GRU: max |param diff| {param_err:.3e}, "
@@ -936,7 +982,7 @@ def kernels_against_plain(system: str, repeats: int, overrides=()):
     check(param_err <= 1e-3, f"{system}: kernel and plain updates disagree on the parameters")
     check(all(torch.allclose(k_losses[k], p_losses[k], rtol=1e-3, atol=1e-5)
               for k in p_losses), f"{system}: kernel and plain updates disagree on the losses")
-    return k_s, k_params, steps, p_s
+    return k_s, k_params, steps, p_s, made
 
 
 def slice_phase(gru, gpu: str) -> dict:
@@ -949,15 +995,16 @@ def slice_phase(gru, gpu: str) -> dict:
         check(launches[counter] >= per_update * updates,
               f"{counter} launched {launches[counter]} times on the main path")
 
-    k_s, k_params, steps, p_s = kernels_against_plain("rec_ippo", repeats=2)
+    k_s, k_params, steps, p_s, _ = kernels_against_plain("rec_ippo", repeats=2)
     # The same updates on the streaming kernels: every call of the op is sent
     # there for the length of these runs.
-    s_s, s_params, _, _ = on_streaming(
+    s_s, s_params, _, _, _ = on_streaming(
         gru, lambda: one_update("rec_ippo", ["network.gru_impl=pallas"], repeats=2))()
     stream_err = max((a - b).abs().max().item() for a, b in zip(k_params, s_params))
     check(stream_err <= 1e-3, "resident and streaming updates disagree on the parameters")
-    for label, seconds in (("resident kernels", k_s), ("streaming kernels", s_s), ("plain GRU", p_s)):
+    for label, seconds in (("resident kernels", k_s), ("streaming kernels", s_s)):
         print_updates(label, seconds, steps, gpu)
+    print_updates("plain GRU", p_s, steps, gpu, eager=True)
     return {"launches": launches}
 
 
@@ -1198,9 +1245,9 @@ def mappo_phase(gru, gpu: str) -> dict:
               f"not {per_update} an update")
     check(launches["fwd_calls"] == 17 * updates and launches["bwd_calls"] == 16 * updates,
           f"rec_mappo: {launches['fwd_calls']} forward and {launches['bwd_calls']} backward calls")
-    k_s, _, steps, p_s = kernels_against_plain("rec_mappo", repeats=2)
-    for label, seconds in (("rec-MAPPO, resident kernels", k_s), ("rec-MAPPO, plain GRU", p_s)):
-        print_updates(label, seconds, steps, gpu)
+    k_s, _, steps, p_s, _ = kernels_against_plain("rec_mappo", repeats=2)
+    print_updates("rec-MAPPO, resident kernels", k_s, steps, gpu)
+    print_updates("rec-MAPPO, plain GRU", p_s, steps, gpu, eager=True)
     return {"launches": launches}
 
 
@@ -1215,11 +1262,10 @@ def smax_phase(gru, gpu: str) -> dict:
         check(launches[counter] == per_update * updates,
               f"rec_mappo on SMAX: {counter} launched {launches[counter]} times in {updates} "
               f"updates, not {per_update} an update")
-    k_s, _, steps, p_s = kernels_against_plain("rec_mappo", 2, SMAX)
-    for label, seconds in (("rec-MAPPO on SMAX 3s5z, resident kernels", k_s),
-                           ("rec-MAPPO on SMAX 3s5z, plain GRU", p_s)):
-        print_updates(label, seconds, steps, gpu)
-    profile = profile_phase("rec_mappo", SMAX, 128)
+    k_s, _, steps, p_s, made = kernels_against_plain("rec_mappo", 2, SMAX)
+    print_updates("rec-MAPPO on SMAX 3s5z, resident kernels", k_s, steps, gpu)
+    print_updates("rec-MAPPO on SMAX 3s5z, plain GRU", p_s, steps, gpu, eager=True)
+    profile = profile_phase("rec_mappo", SMAX, 128, made)
     return {"launches": launches, "profile": profile}
 
 
@@ -1234,16 +1280,17 @@ def grid_run(gru, gpu: str, label: str, system: str, overrides) -> dict:
     config, launches = train(system, gru, overrides)
     peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
     if system == "rec_mappo":
-        seconds, _, steps, plain = kernels_against_plain(system, 2, overrides)
-        print_updates(f"{label}, plain GRU", plain, steps, gpu)
+        seconds, _, steps, plain, made = kernels_against_plain(system, 2, overrides)
+        print_updates(f"{label}, plain GRU", plain, steps, gpu, eager=True)
     else:
         check(not any(launches.values()), f"{label} launched a GRU kernel: {launches}")
-        seconds, _, _, steps = one_update(system, overrides, repeats=2)
+        seconds, _, _, steps, made = one_update(system, overrides, repeats=2)
     print_updates(label, seconds, steps, gpu)
-    prof = profile_phase(system, overrides, config.system.rollout_length)
-    rate = steps * len(seconds) / sum(seconds)
-    print(f"  {label}: {rate:.1f} env-steps/s, {prof['launches_per_rollout_step']:.1f} launches "
-          f"a rollout step, idle share {prof['idle_share']:.3f}, peak memory {peak_gb:.3f} GB "
+    prof = profile_phase(system, overrides, config.system.rollout_length, made)
+    timed = seconds[1:] or seconds
+    rate = steps * len(timed) / sum(timed)
+    print(f"  {label}: {rate:.1f} env-steps/s, {rollout_launches(prof)}, "
+          f"idle share {prof['idle_share']:.3f}, peak memory {peak_gb:.3f} GB "
           f"above the {before / 1e9:.3f} GB allocated before the run, on {gpu}")
     return {"launches": launches, "updates": config.system.num_updates,
             "env_steps_per_s": rate, "peak_gb": peak_gb,
@@ -1532,6 +1579,277 @@ def iql_update_costs(overrides, gpu: str, label: str, make=iql_learner, entries:
                          for route in costs}}
 
 
+# ------------------------------------------------------------------ PPO graph phase
+# The PPO update as one CUDA graph (`systems/ppo/ff_ippo.py`, `rec_ippo.py`,
+# `learn.update` a `CapturedPhase`): each learner replayed against op by op
+# (`learn.update.eager`) from one seed, then its costs both ways; then the
+# bench program both ways in turns.
+PPO_SCHEDULES = ["system.ent_coef_final=0.001", "system.decay_learning_rates=True"]
+# (label, system, overrides, whether its costs are read: the schedules' learner
+# is the first one's kernels and graph, so it is only checked bitwise).
+PPO_GRAPH_LEARNERS = [
+    ("ff-IPPO on RWARE tiny-2ag, 16 envs", "ff_ippo", [], True),
+    ("ff-IPPO on RWARE tiny-2ag, 16 envs, annealed entropy, decayed lr", "ff_ippo",
+     PPO_SCHEDULES, False),
+    ("rec-IPPO on RWARE tiny-2ag, 16 envs", "rec_ippo", [], True),
+    ("rec-MAPPO on SMAX 3s5z, 64 envs", "rec_mappo", SMAX + ["arch.num_envs=64"], True),
+]
+PPO_GRAPH_UPDATES = 4  # 512 rollout steps: RWARE's time limit of 500 ends an episode
+# Host launches of a replayed update at other sizes: (label, system, overrides).
+PPO_LAUNCH_SIZES = [("rollout 32, 16 envs", "ff_ippo", ["system.rollout_length=32"]),
+                    ("rollout 128, 64 envs", "ff_ippo", ["arch.num_envs=64"])]
+BENCH_TIMED = 2  # calls timed a turn, ABBA
+
+
+def ppo_leaves(out) -> dict:
+    """What one PPO update leaves behind, by name: both networks' parameters,
+    the losses and episode metrics, both optimizers' moments and device
+    counts, the carry (env state, timestep, done flags and hidden states) and
+    the generator's state."""
+    state = out.learner_state
+    leaves = {f"param {i}": p.detach()
+              for i, p in enumerate(p for net in state.params for p in net.parameters())}
+    leaves.update({f"loss {k}": v for k, v in out.train_metrics.items()})
+    leaves.update({f"metric {k}": v for k, v in out.episode_metrics.items()})
+    for name, opt in zip(("actor", "critic"), state.opt_states):
+        leaves.update({f"{name} adam {i}": t
+                       for i, t in enumerate([*opt.mu, *opt.nu, opt.device_count])})
+    carry = [state.env_state, state.timestep, getattr(state, "dones", None),
+             getattr(state, "hstates", None)]
+    leaves.update({f"carry {i}": x for i, x in enumerate(pytree.tree_leaves(carry))
+                   if isinstance(x, torch.Tensor)})
+    leaves["generator"] = state.key.get_state()
+    return leaves
+
+
+def ppo_schedules_on_card(gpu: str) -> None:
+    """The learning rate and entropy coefficient formed from a float64 count on
+    the card equal the host forms bitwise at every count of a run and past it."""
+    from mava_tpu_torch.utils.config import load_config
+    from mava_tpu_torch.utils.training import entropy_schedule, make_learning_rate_schedule
+
+    cfg = load_config("default_ff_ippo", ["system.num_updates=7", *PPO_SCHEDULES])
+    total = cfg.system.ppo_epochs * cfg.system.num_minibatches * cfg.system.num_updates
+    lr = make_learning_rate_schedule(cfg.system.actor_lr, cfg)
+    counts = torch.arange(total + 12, dtype=torch.float64, device="cuda")
+    on_card = (lr(counts).tolist(), entropy_schedule(cfg, counts).tolist())
+    host = ([lr(n) for n in range(total + 12)],
+            [entropy_schedule(cfg, n) for n in range(total + 12)])
+    check(on_card == host, "a schedule formed on the card differs from its host form")
+    print(f"  the lr and entropy schedules formed on the card: bitwise the host forms at "
+          f"counts 0-{total + 11} (the run's total {total}), on {gpu}")
+
+
+def ppo_graph_check(gru, label: str, system: str, overrides, read_costs: bool,
+                    gpu: str) -> dict:
+    """Two learners of `system` from one seed (`learner`), the update replayed
+    (the main path: its first update runs the body for real and captures it)
+    and op by op, `PPO_GRAPH_UPDATES` updates each, the launch counts set to 0
+    before each update: every leaf bitwise equal, the optimizer counts alike,
+    exactly `KERNELS`' launches an update both ways on the recurrent path and
+    none on the feed-forward one; one capture. Then a replayed update under the
+    profiler (no host sync, no device-to-host copy); with `read_costs`, the
+    host ms of those updates both ways (they ran in turns; the first replayed
+    one, the capture, left out) and one update each way profiled: host
+    launches, kernels, idle share, busy ms; the capture's seconds and the
+    bytes it added to the graphs' pool."""
+    from mava_tpu_torch.utils.cuda_graphs import graph_pool
+
+    pool = graph_pool(torch.device("cuda"))
+    learn, state, steps = learner(system, overrides)
+    learn_eager, state_eager, _ = learner(system, overrides)
+    learn_eager.update = learn_eager.update.eager
+    recurrent = system.startswith("rec")
+    want = {counter: (n if recurrent else 0) for _, counter, _, n in KERNELS}
+    learners = {"graph": [learn, state], "eager": [learn_eager, state_eager]}
+    diffs, ended, first_s, graph_bytes = {}, 0, None, None
+    seconds = {"eager": [], "graph": []}
+    replayed_launches = dict.fromkeys(want, 0)
+    for _ in range(PPO_GRAPH_UPDATES):
+        outs, counts = {}, {}
+        for route in ("graph", "eager"):
+            run, st = learners[route]
+            gru.reset_launch_counts()
+            bytes_before = pool_bytes(pool)
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            outs[route] = run(st)
+            torch.cuda.synchronize()
+            if route == "graph" and first_s is None:
+                first_s = time.perf_counter() - begin
+                graph_bytes = pool_bytes(pool) - bytes_before
+            else:
+                seconds[route].append(time.perf_counter() - begin)
+            counts[route] = dict(gru.kernel_launches)
+            learners[route][1] = outs[route].learner_state
+        for counter in replayed_launches:
+            replayed_launches[counter] += counts["graph"].get(counter, 0)
+        check(counts["graph"] == counts["eager"] == {**counts["eager"], **want},
+              f"{label}: replayed launched {counts['graph']}, op by op {counts['eager']}, "
+              f"not {want}")
+        graph, eager = outs["graph"], outs["eager"]
+        check([o.count for o in graph.learner_state.opt_states]
+              == [o.count for o in eager.learner_state.opt_states],
+              f"{label}: the optimizer counts differ replayed and op by op")
+        for name, d in relative_differences(ppo_leaves(graph), ppo_leaves(eager)).items():
+            diffs[name] = max(d, diffs.get(name, 0.0))
+        ended += int(graph.episode_metrics["is_terminal_step"].sum().item())
+    if diffs:
+        print(f"  {label}: replayed vs op by op NOT bitwise; max relative difference by "
+              "leaf: " + ", ".join(f"{k} {v:.2e}" for k, v in sorted(diffs.items())[:12]))
+    check(not diffs, f"the replayed {label} update is not bitwise the update op by op")
+    check(ended > 0, f"{label}: no episode ended in {PPO_GRAPH_UPDATES} updates")
+    phase = learn.update
+    check(phase.captures == 1 and phase.recaptures == 0,
+          f"{label}: {phase.captures} captures, {phase.recaptures} re-captures")
+
+    def replayed():
+        learners["graph"][1] = learn(learners["graph"][1]).learner_state
+
+    syncs = launches_and_syncs(replayed)
+    check(syncs["syncs"] == 0 and syncs["dtoh"] == 0,
+          f"a replayed {label} update synchronised with the host: {syncs}")
+    from mava_tpu_torch.systems.ppo.types import Draws
+
+    draws = launches_and_syncs(lambda: learn.update.draw(learners["graph"][1], Draws()))
+    checked = {"per_update": want, "launches": replayed_launches, "syncs": syncs,
+               "draw_launches": draws["launches"], "capture_s": phase.capture_seconds[0],
+               "graph_bytes": graph_bytes}
+    if not read_costs:
+        print(f"  {label}: replayed vs op by op over {PPO_GRAPH_UPDATES} updates bitwise, "
+              f"{ended} episode ends, {want if recurrent else 'no'} GRU launches an update "
+              f"both ways, 1 capture; a replayed update: {syncs['launches']} host launches, "
+              f"{syncs['kernels']} kernels, {syncs['syncs']} host syncs, {syncs['dtoh']} "
+              f"device-to-host copies; the capture {phase.capture_seconds[0]:.2f} s, "
+              f"{graph_bytes} bytes added to the graphs' pool; on {gpu}")
+        return checked
+
+    costs = {}
+    for route in ("eager", "graph"):
+        run, st = learners[route]
+        costs[route] = profile_update(f"{label} ({'op by op' if route == 'eager' else 'replayed'})",
+                                      lambda: run(st), steps, 128)
+    ms = {route: 1e3 * sum(v) / len(v) for route, v in seconds.items()}
+    g, e = costs["graph"], costs["eager"]
+    print(f"  {label}: replayed vs op by op over {PPO_GRAPH_UPDATES} updates bitwise, "
+          f"{ended} episode ends, {want if recurrent else 'no'} GRU launches an update both "
+          f"ways, 1 capture; a replayed update under the profiler: {syncs['launches']} host "
+          f"launches, {syncs['kernels']} kernels, {syncs['syncs']} host syncs, {syncs['dtoh']} "
+          f"device-to-host copies. An update of {steps} env-steps: op by op {ms['eager']:.2f} ms "
+          f"host (" + " ".join(f"{x * 1e3:.1f}" for x in seconds["eager"]) + f"), replayed "
+          f"{ms['graph']:.2f} ms host (" + " ".join(f"{x * 1e3:.2f}" for x in seconds["graph"])
+          + f"): {steps / ms['eager'] * 1e3:.1f} and {steps / ms['graph'] * 1e3:.1f} env-steps/s; "
+          f"launches / kernels / idle share profiled op by op {e['launches']} / {e['kernels']} / "
+          f"{e['idle_share']:.3f}, replayed {g['launches']} / {g['kernels']} / "
+          f"{g['idle_share']:.3f} (device busy {e['busy_ms']:.2f} and {g['busy_ms']:.2f} ms); "
+          f"the first update {first_s:.2f} s, of which the body run for real and captured "
+          f"{phase.capture_seconds[0]:.2f} s, {graph_bytes} bytes added to the graphs' pool; "
+          f"on {gpu}")
+    return {**checked, "ms": ms,
+            "profiled": {route: {k: costs[route][k] for k in
+                                 ("launches", "kernels", "idle_share", "busy_ms")}
+                         for route in costs}}
+
+
+def ppo_launch_sizes(base: dict, gpu: str) -> dict:
+    """Host launches of a replayed ff-IPPO update at other rollout lengths and
+    env counts beside `base` (`ppo_graph_check`'s ff-IPPO reading at rollout
+    128, 16 envs), and of its draws alone (`learn.update.draw`, outside the
+    graph): the body is one graph launch at any size; the draws launch a few
+    kernels a rollout step and none more an env."""
+    from mava_tpu_torch.systems.ppo.types import Draws
+
+    out = {"rollout 128, 16 envs": {"update": base["syncs"]["launches"],
+                                    "draws": base["draw_launches"],
+                                    "body": base["syncs"]["launches"] - base["draw_launches"]}}
+    for label, system, overrides in PPO_LAUNCH_SIZES:
+        learn, state, _ = learner(system, overrides)
+        state = learn(state).learner_state
+        update = launches_and_syncs(lambda: learn(state))
+        draws = launches_and_syncs(lambda: learn.update.draw(state, Draws()))
+        out[label] = {"update": update["launches"], "draws": draws["launches"],
+                      "body": update["launches"] - draws["launches"]}
+    bodies = {v["body"] for v in out.values()}
+    check(max(bodies) - min(bodies) <= 4,
+          f"a replayed update's launches beside its draws vary with the size: {out}")
+    print("  host launches of a replayed ff-IPPO update (its draws; the rest): " + "; ".join(
+        f"{k} {v['update']} ({v['draws']}; {v['body']})" for k, v in out.items()) + f", on {gpu}")
+    return out
+
+
+def bench_both_ways(gpu: str) -> dict:
+    """The bench program's update (`bench_torch.py`: ff-IPPO, RWARE tiny-2ag,
+    512 envs, rollout 128; its learner and timing loop, `scripts/common.py`)
+    replayed and op by op in one process, one update a call (the bench makes
+    4 a call: the same work an update): a warm-up call each (the replayed
+    learner's first update captures), then `BENCH_TIMED` calls a turn in the
+    turns op by op, replayed, replayed, op by op, then one call each way
+    profiled."""
+    import bench_torch
+    from mava_tpu_torch.scripts import common
+    from mava_tpu_torch.utils.cuda_graphs import graph_pool
+
+    pool = graph_pool(torch.device("cuda"))
+    overrides = [f"arch.num_envs={bench_torch.NUM_ENVS}",
+                 f"system.rollout_length={bench_torch.ROLLOUT_LENGTH}"]
+    calls = 2 + 2 * BENCH_TIMED
+    made = {route: common.ppo_learner("default_ff_ippo", overrides, "cuda", 1, calls)
+            for route in ("graph", "eager")}
+    made["eager"][0].update = made["eager"][0].update.eager
+    states = {route: made[route][1] for route in made}
+    steps = made["graph"][2]
+    before = pool_bytes(pool)
+    warm = {}
+    for route in ("graph", "eager"):
+        warm[route], states[route] = common.time_calls(
+            common.next_learner_state(made[route][0]), states[route], 0, 1, "cuda")
+    graph_bytes = pool_bytes(pool) - before
+    seconds = {"eager": [], "graph": []}
+    for route in ("eager", "graph", "graph", "eager"):
+        took, states[route] = common.time_calls(common.next_learner_state(made[route][0]),
+                                                states[route], 0, BENCH_TIMED, "cuda")
+        seconds[route].append(took)
+    rate = {route: BENCH_TIMED * len(v) * steps / sum(v) for route, v in seconds.items()}
+    profiled = {}
+    for route in ("eager", "graph"):
+        learn, state = made[route][0], states[route]
+        profiled[route] = profile_update(
+            f"bench program, one update ({'op by op' if route == 'eager' else 'replayed'})",
+            lambda: learn(state), steps, bench_torch.ROLLOUT_LENGTH)
+    capture_s = made["graph"][0].update.capture_seconds[0]
+    g, e = profiled["graph"], profiled["eager"]
+    print(f"  bench program ({bench_torch.NUM_ENVS} envs, rollout {bench_torch.ROLLOUT_LENGTH}, "
+          f"an update a call), ABBA {BENCH_TIMED} calls a turn: op by op {rate['eager']:.1f} "
+          f"env-steps/s (turns " + " ".join(f"{x:.3f}" for x in seconds["eager"]) + " s), "
+          f"replayed {rate['graph']:.1f} env-steps/s (" + " ".join(
+              f"{x:.3f}" for x in seconds["graph"]) + f" s), "
+          f"{rate['graph'] / rate['eager']:.2f}x; warm-up calls {warm['eager']:.2f} and "
+          f"{warm['graph']:.2f} s (the capture {capture_s:.2f} s, {graph_bytes} bytes added to "
+          f"the graphs' pool); one update profiled op by op {e['launches']} launches / "
+          f"{e['kernels']} kernels / idle {e['idle_share']:.3f} / busy {e['busy_ms']:.1f} ms of "
+          f"{e['wall_ms']:.1f}, replayed {g['launches']} / {g['kernels']} / "
+          f"{g['idle_share']:.3f} / {g['busy_ms']:.1f} ms of {g['wall_ms']:.1f}; on {gpu}")
+    return {"env_steps_per_s": rate, "seconds": seconds, "capture_s": capture_s,
+            "graph_bytes": graph_bytes,
+            "profiled": {route: {k: profiled[route][k] for k in
+                                 ("launches", "kernels", "idle_share", "busy_ms", "wall_ms")}
+                         for route in profiled}}
+
+
+def ppo_graph_phase(gru, gpu: str) -> dict:
+    """The PPO updates as CUDA graphs: the schedules on the card, each of
+    `PPO_GRAPH_LEARNERS` replayed against op by op, the host launches of a
+    replayed update at other sizes, the bench program both ways."""
+    start = time.perf_counter()
+    ppo_schedules_on_card(gpu)
+    out = {label: ppo_graph_check(gru, label, system, overrides, read_costs, gpu)
+           for label, system, overrides, read_costs in PPO_GRAPH_LEARNERS}
+    out["launch_sizes"] = ppo_launch_sizes(out[PPO_GRAPH_LEARNERS[0][0]], gpu)
+    out["bench"] = bench_both_ways(gpu)
+    print(f"  PPO graph phase: {time.perf_counter() - start:.1f} s")
+    return out
+
+
 def feedforward_phase(gru, gpu: str) -> None:
     """ff-IPPO and ff-MAPPO on RWARE, ff-IPPO on Matrax, and the bench program,
     short. None of them reaches a hand-written kernel, and the counts say so."""
@@ -1540,8 +1858,6 @@ def feedforward_phase(gru, gpu: str) -> None:
     for system in ("ff_ippo", "ff_mappo"):
         _, launches = train(system, gru)
         check(not any(launches.values()), f"{system} launched a GRU kernel: {launches}")
-    seconds, _, _, steps = one_update("ff_ippo", [], repeats=3)
-    print_updates("ff-IPPO, 16 envs", seconds, steps, gpu)
 
     train("ff_ippo", gru, [
         "env=matrax", "env.scenario.task_name=Penalty-25-stateless-v0", "env.kwargs.time_limit=10",
@@ -1950,7 +2266,7 @@ ARTICULATED_SAC_UPDATES = 1
 ARTICULATED_MASAC = ["mahumanoid", "mahopper"]
 ARTICULATED_PROFILED = [("ff_isac", "mahopper")]
 ARTICULATED_PPO = ["env=mawalker", "env/scenario=walker2d-2x3", "network=continuous_mlp",
-                   "system.rollout_length=8", "system.num_updates=2", *ARTICULATED_CUT]
+                   "system.rollout_length=4", "system.num_updates=2", *ARTICULATED_CUT]
 
 
 def inner_env(env):
@@ -2232,16 +2548,19 @@ def articulated_phase(gru, gpu: str, start: float) -> dict:
     peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
     check(not any(launches.values()), f"{label} launched a GRU kernel: {launches}")
     learn, state, steps = learner("ff_ippo", ARTICULATED_PPO)
+    state = learn(state).learner_state  # the capture, the integrator's kernels inside
     torch.cuda.synchronize()
     begin = time.perf_counter()
     state = learn(state).learner_state
     torch.cuda.synchronize()
     rate = steps / (time.perf_counter() - begin)
+    # A rollout step's launches op by op: what the update's graph holds a step.
     learn, state, steps = learner("ff_ippo", [*ARTICULATED_PPO, "system.rollout_length=1"])
+    learn.update = learn.update.eager
     state = learn(state).learner_state  # warm-up
-    prof = profile_update(label + ", rollout 1", lambda: learn(state), steps, 1)
-    print(f"  {label}: {rate:.1f} env-steps/s, {prof['launches_per_rollout_step']:.1f} launches a "
-          f"rollout step, idle share {prof['idle_share']:.3f}, peak memory {peak_gb:.3f} GB above "
+    prof = profile_update(label + ", rollout 1, op by op", lambda: learn(state), steps, 1)
+    print(f"  {label}: {rate:.1f} env-steps/s replayed, {rollout_launches(prof)} op by op, "
+          f"idle share {prof['idle_share']:.3f}, peak memory {peak_gb:.3f} GB above "
           f"the {before / 1e9:.3f} GB allocated before the run, on {gpu}")
     out[label] = {"env_steps_per_s": rate, "idle_share": prof["idle_share"], "peak_gb": peak_gb,
                   "launches_per_rollout_step": prof["launches_per_rollout_step"]}
@@ -2459,7 +2778,9 @@ class Anchor(NamedTuple):
     (`rule`). With `jax_seeds` (a stacked program, which logs no absolute
     metric) each seed's final evaluation return must close 80 % of the gap to
     its JAX seed's (`seed_rules`). A band passes where `need` of its seeds'
-    absolute metrics pass `rule`; a band with `need` 0 is read and not ruled."""
+    absolute metrics pass `rule`; a band with `need` 0 is read and not ruled.
+    With `floor` the rule is that value, written before the run (a rule
+    stated in the records, not the 80 % one)."""
     module: str
     overrides: tuple
     random: float
@@ -2469,9 +2790,12 @@ class Anchor(NamedTuple):
     system: str = "sac"
     jax_seeds: tuple = ()
     need: int = 0
+    floor: Optional[float] = None
 
     @property
     def rule(self) -> float:
+        if self.floor is not None:
+            return self.floor
         return self.random + 0.8 * (self.jax - self.random)
 
     @property
@@ -2555,6 +2879,13 @@ ANCHORS = {
                             "scripts/tpu_queue/r5/j908_rec_iql_2seed_vmap_2m.sh; "
                             "results/r5_queue/j908_rec_iql_2seed_vmap_2m.log",
                             system="advanced_usage", jax_seeds=(17.15, 17.54)),
+    # The quickstart: ff-IPPO through its CLI at `examples/quickstart.py`'s
+    # defaults (LBF 2s-8x8-2p-2f-coop, 2M env-steps, 128 envs, 10
+    # evaluations), its update one CUDA graph; ruled on the absolute return
+    # at the rule the records give it (>= 0.85; the JAX run 0.957).
+    "ppo_quickstart_lbf": Anchor("ff_ippo", tuple(QUICKSTART_DEFAULTS), 0.0, 0.957,
+                                 "BASELINE.md:216 (j231); PERF.md section 6", system="ppo",
+                                 floor=0.85),
 }
 
 
@@ -2858,10 +3189,15 @@ def flag_names(flag: str) -> list:
 
 
 # ------------------------------------------------------------------ profile
-def profile_phase(system: str, overrides, rollout_length: int) -> dict:
-    """One full-width update of `system` under torch.profiler: where its time goes."""
-    learn, state, steps = learner(system, overrides)
-    state = learn(state).learner_state  # warm-up
+def profile_phase(system: str, overrides, rollout_length: int, made=None) -> dict:
+    """One full-width update of `system` under torch.profiler: where its time
+    goes. `made`: a (learner, state, env-steps an update) of `system` that has
+    already updated (a timed one's), profiled in place of a new one."""
+    if made is None:
+        learn, state, steps = learner(system, overrides)
+        state = learn(state).learner_state  # warm-up
+    else:
+        learn, state, steps = made
     return profile_update(system, lambda: learn(state), steps, rollout_length)
 
 
@@ -3340,7 +3676,7 @@ def seed_phase(gru, gpu: str) -> dict:
         rates[stack] = steps / (time.perf_counter() - t0)
         if stack in (1, 8):
             counts[stack] = launches_and_syncs(lambda: learn(state))["launches"]
-    stock_s, _, _, steps = one_update("rec_ippo", SMAX + SEED_RATE_CUT, repeats=2)
+    stock_s, _, _, steps, _ = one_update("rec_ippo", SMAX + SEED_RATE_CUT, repeats=2)
     ratio = counts[8] / counts[1]
     check(ratio <= 1.5, f"a stacked update launches {ratio:.2f}x at S = 8 what it does at S = 1")
     print(f"  a stacked rec-IPPO update, rollout 32: {counts[1]} launches at S = 1, {counts[8]} "
@@ -3636,7 +3972,7 @@ def offpolicy_phase(gru, gpu: str) -> dict:
               f"{c['profiled']['eager']['idle_share']:.3f}, "
               f"{c['env_steps_per_s']['graph']:.1f} / {c['env_steps_per_s']['eager']:.1f} "
               f"env-steps/s" for stack, c in iql_costs.items()) + f" on {gpu}")
-    stock_s, _, _, _ = one_update("rec_iql", SMAX, repeats=3)
+    stock_s, _, _, _, _ = one_update("rec_iql", SMAX, repeats=3)
     print(f"  rec-IQL: one stock update {iql_steps / stock_s[-1]:.1f} env-steps/s; the ring "
           f"{ring / 8 / 1e6:.3f} MB an entry ({cfg.system.buffer_size} steps x "
           f"{cfg.arch.num_envs} envs); peak allocated "
@@ -3997,18 +4333,26 @@ def distributed_phase(gru, gpu: str) -> dict:
                   f"data-parallel update: {counter} launched {dp_launches[counter]} times, "
                   f"stock {stock_launches[counter]}, not {per_update}")
 
+        before = mesh_module.all_reduces
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             dp = dp_learn(dp.learner_state)
             torch.cuda.synchronize()
+        replay_reduces = mesh_module.all_reduces - before
         events = profiled_events(prof)
-        # The dispatcher's op of `dist.all_reduce`, whatever the backend.
+        # The dispatcher's op of `dist.all_reduce`, whatever the backend: none
+        # on the host of a replayed update, whose all-reduces are in its graph
+        # (counted at each replay from its capture). NCCL at world 1 launches
+        # no kernel for them, so the NCCL kernels are only reported.
         reduce_ops = [e for e in events if e.name == "c10d::allreduce_"]
         nccl_kernels = [e for e in events if "nccl" in e.name.lower()
                         and e.device_type == torch.autograd.DeviceType.CUDA]
         device_us = sum(e.end - e.start for e in nccl_kernels)
         host_us = sum(e.end - e.start for e in reduce_ops)
-        check(len(reduce_ops) == minibatch_steps,
-              f"the profiler counts {len(reduce_ops)} all-reduces, not {minibatch_steps}")
+        check(dp_learn.update.captures == 1 and not reduce_ops
+              and replay_reduces == minibatch_steps,
+              f"a replayed data-parallel update: {dp_learn.update.captures} captures, "
+              f"{len(reduce_ops)} all-reduces on the host (none expected), {replay_reduces} "
+              f"counted from its graph (not {minibatch_steps})")
 
         # Both updates timed in one call, stock and data-parallel in turn, each
         # going on from its own state.
@@ -4026,7 +4370,8 @@ def distributed_phase(gru, gpu: str) -> dict:
         for label, seconds in times.items():
             print_updates(f"{label} rec-IPPO", seconds, steps, gpu)
         update_ms = 1e3 * sum(times["data-parallel"]) / len(times["data-parallel"])
-        print(f"  all-reduces an update: {len(reduce_ops)} (profiler), "
+        print(f"  all-reduces of a replayed update: {replay_reduces} (counted), "
+              f"{len(reduce_ops)} on the host (profiler), "
               f"{device_us / 1e3:.4f} device ms in {len(nccl_kernels)} NCCL kernels, "
               f"{host_us / 1e3:.3f} host ms in c10d::allreduce_, against "
               f"{update_ms:.1f} host ms an update, on {gpu}")
@@ -4038,7 +4383,7 @@ def distributed_phase(gru, gpu: str) -> dict:
         print(f"  the recording program and the staggered sweep: "
               f"{time.perf_counter() - recording:.1f} s in this process, on {gpu}")
         print(f"  phase: {time.perf_counter() - start:.1f} s")
-        return {"launches": dp_launches, "all_reduces": len(reduce_ops),
+        return {"launches": dp_launches, "all_reduces": dp_reduces,
                 "all_reduce_device_ms": device_us / 1e3, "all_reduce_host_ms": host_us / 1e3,
                 **sac, **stored}
     finally:
@@ -4141,6 +4486,11 @@ def main() -> int:
         standalone_phase(gpu)
         print(gpu)
         return 0
+    if "--ppo" in sys.argv[1:]:
+        print("PPO graph phase (the update replayed against op by op; the bench program):")
+        ppo_graph_phase(gru, gpu)
+        print(gpu)
+        return 0
 
     print("kernel phase:")
     kernels = kernel_phase(gru)
@@ -4156,6 +4506,9 @@ def main() -> int:
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     print("rec-IQL phase (SMAX 3s5z; the update replayed on 3s_vs_5z, 64 envs):")
     iql = iql_phase(gru, gpu)
+    print(f"  ({time.perf_counter() - start:.0f} s since the start)")
+    print("PPO graph phase (the update replayed against op by op; the bench program):")
+    ppo = ppo_graph_phase(gru, gpu)
     print(f"  ({time.perf_counter() - start:.0f} s since the start)")
     print("grid phase (rec-MAPPO rcnn on MaConnector; Cleaner, LBF, Gigastep):")
     grid = grid_phase(gru, gpu)
@@ -4208,7 +4561,12 @@ def main() -> int:
                  "launches_maconnector_rcnn_rec_mappo": grid["connector"]["launches"][counter],
                  "launches_bench_suite_rec_mappo_smax": programs["launches"][counter],
                  "launches_bench_mfu_rec_iql_smax":
-                     programs["mfu"]["rec_iql_smax"]["gru_launches_per_call"].get(counter, 0)}
+                     programs["mfu"]["rec_iql_smax"]["gru_launches_per_call"].get(counter, 0),
+                 **{f"launches_replayed_{name}": ppo[label]["launches"][counter]
+                    for name, label in (
+                        ("ff_ippo_rware", PPO_GRAPH_LEARNERS[0][0]),
+                        ("rec_ippo_rware", PPO_GRAPH_LEARNERS[2][0]),
+                        ("rec_mappo_smax_64_envs", PPO_GRAPH_LEARNERS[3][0]))}}
         if counter == "fwd_stacked":
             record["kernels"].append({
                 "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,

@@ -164,10 +164,11 @@ class TanhNormal:
         `log_prob` needs them: a sample does not, and a stacked actor's head
         builds its distribution inside `torch.func.vmap`, where `_LogNdtr`
         cannot run."""
-        # float32 constants, as the reference's jnp calls make them.
+        # float32 constants, as the reference's jnp calls make them; filled
+        # on the device (a copy from the host would not capture in a graph).
         f32 = dict(dtype=self.loc.dtype, device=self.loc.device)
-        inverse_threshold = torch.atanh(torch.tensor(self._threshold, **f32))
-        log_epsilon = torch.log(torch.tensor(1.0 - self._threshold, **f32))
+        inverse_threshold = torch.atanh(torch.full((), self._threshold, **f32))
+        log_epsilon = torch.log(torch.full((), 1.0 - self._threshold, **f32))
         # norm.logcdf(x, loc, scale) = log_ndtr((x - loc) / scale).
         left = _LogNdtr.apply((-inverse_threshold - self.loc) / self.scale) - log_epsilon
         right = _LogNdtr.apply((-inverse_threshold + self.loc) / self.scale) - log_epsilon

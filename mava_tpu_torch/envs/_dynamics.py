@@ -233,7 +233,11 @@ class Integrator:
     (`accel`); `traced_substep`, the whole RK4 substep traced as one graph,
     computes the same. On CUDA tensors the whole step is captured once per
     (shape, dtype, device) of its inputs (`captured`) and replayed; on CPU
-    tensors it runs eagerly (`eager`)."""
+    tensors it runs eagerly (`eager`), and so it does while the stream is
+    capturing another graph (a PPO update captured whole, `systems/ppo/`):
+    a graph neither replays nor is captured inside another capture, and the
+    eager step launches the kernels that its graph replays, the solve kernel
+    included."""
 
     def __init__(self, accel: Callable, dt: float, substeps: int, max_speed: float,
                  wrap_from: int):
@@ -269,7 +273,7 @@ class Integrator:
 
     def __call__(self, q: torch.Tensor, qd: torch.Tensor,
                  tau: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        if q.device.type != "cuda":
+        if q.device.type != "cuda" or torch.cuda.is_current_stream_capturing():
             return self.eager(q, qd, tau)
         key = tuple((a.shape, a.dtype, a.device) for a in (q, qd, tau))
         step = self.captured.get(key)

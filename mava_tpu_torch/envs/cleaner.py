@@ -56,6 +56,10 @@ class Cleaner(DiscreteEnvSpecs):
         init_dirty[0, 0] = False  # the start tile is clean
         self._init_dirty = init_dirty
         self._moves = torch.tensor(_MOVES, device=dev)
+        # What the step writes into its grids, on the device: a Python value
+        # written by index is copied from the host, which a CUDA graph refuses.
+        self._one = torch.ones((), device=dev)
+        self._true = torch.ones((), dtype=torch.bool, device=dev)
         self._limits = torch.tensor([num_rows - 1, num_cols - 1], device=dev)
 
     def reset_noise(self, num_envs: int, generator: Optional[torch.Generator]) -> int:
@@ -77,7 +81,7 @@ class Cleaner(DiscreteEnvSpecs):
         own = torch.zeros(e, a, r, c, device=self.device)
         env_idx = torch.arange(e, device=self.device)[:, None].expand(e, a)
         agent_idx = torch.arange(a, device=self.device)[None, :].expand(e, a)
-        own[env_idx, agent_idx, state.agent_pos[..., 0], state.agent_pos[..., 1]] = 1.0
+        own[env_idx, agent_idx, state.agent_pos[..., 0], state.agent_pos[..., 1]] = self._one
         agents = own.sum(1, keepdim=True).expand(e, a, r, c)
         dirty = state.dirty.float()[:, None].expand(e, a, r, c)
         wall = self._wall.float().expand(e, a, r, c)
@@ -103,7 +107,7 @@ class Cleaner(DiscreteEnvSpecs):
         e = agent_pos.shape[0]
         occupied = torch.zeros_like(state.dirty)
         env_idx = torch.arange(e, device=self.device)[:, None].expand_as(agent_pos[..., 0])
-        occupied[env_idx, agent_pos[..., 0], agent_pos[..., 1]] = True
+        occupied[env_idx, agent_pos[..., 0], agent_pos[..., 1]] = self._true
         dirty = state.dirty & ~occupied
         num_cleaned = state.dirty.sum((1, 2)) - dirty.sum((1, 2))
         reward = num_cleaned.float()[:, None].expand(e, self.num_agents).contiguous()

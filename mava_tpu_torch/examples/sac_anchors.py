@@ -80,10 +80,11 @@ class Run:
         text = (f"{len(self.evals)} rounds; absolute "
                 + ("none" if self.absolute is None else f"{self.absolute:.3f}")
                 + f"; best eval {best:.2f} ({best_t}), final {self.evals[-1]:.2f} "
-                f"({self.steps[-1] if self.steps else -1}); {self.q_name} within "
-                f"[{min(self.q1):.2f}, {max(self.q1):.2f}]; "
-                + (f"no round past |{self.q_name}| 100" if onset is None
-                   else f"|{self.q_name}| past 100 from {onset}")
+                f"({self.steps[-1] if self.steps else -1}); "
+                + (f"{self.q_name} within [{min(self.q1):.2f}, {max(self.q1):.2f}]; "
+                   + (f"no round past |{self.q_name}| 100" if onset is None
+                      else f"|{self.q_name}| past 100 from {onset}") if self.q1
+                   else "no Q logged (an on-policy system)")
                 + f"; learn {self.learn_s:.1f} s, eval {self.eval_s:.1f} s")
         return text
 

@@ -19,6 +19,14 @@ none.
 The reference packs the shuffle payload into one wide int32 matrix (a TPU
 gather workaround); here each tensor is gathered with the permutation.
 
+As in ff-IPPO (`ff_ippo.py`), an update is its inputs (`UpdateInputs`: the
+carry, the env state, timestep, done flags and both hidden states, by value,
+and the draws) then a body on device tensors only, which on CUDA is one CUDA
+graph (`learner_fn.update`) with the GRU kernels inside it: the critic pass
+at T = rollout and each minibatch's BPTT forward and backward; the actor's
+T = 1 steps take the plain path. The reference compiles the same update
+(:149, :335, :352, :367).
+
 CLI: python -m mava_tpu_torch.systems.ppo.rec_ippo [overrides]. The port runs on
 `arch.device` (default "cuda"; add `+arch.device=cpu` to run on the CPU).
 """
@@ -63,15 +71,24 @@ from mava_tpu_torch.systems.anakin import (
     start_experiment,
     train_and_evaluate,
 )
+from mava_tpu_torch.systems.ppo.ff_ippo import (
+    entropy_normals,
+    update_counters,
+    update_state_tensors,
+)
 from mava_tpu_torch.systems.ppo.types import (
+    Carry,
+    Draws,
     HiddenStates,
     OptStates,
     Params,
     RNNLearnerState,
     RNNPPOTransition,
+    UpdateInputs,
 )
 from mava_tpu_torch.types import ExperimentOutput
 from mava_tpu_torch.utils.config import Config, load_config
+from mava_tpu_torch.utils.cuda_graphs import CapturedPhase
 from mava_tpu_torch.utils.training import (
     entropy_coefficient,
     epoch_permutations,
@@ -112,29 +129,50 @@ def get_learner_fn(
     draws included), so a test can hand in the reference's draws; by default
     all come from the learner state's generator (a discrete head's entropy
     draws nothing).
+
+    `learner_fn.update` is the update's `CapturedPhase`: `draw_update`, then
+    `update_body` (one CUDA graph on the card, the GRU kernels inside it).
     """
     noise_fn = make_rollout_noise_fn(config.network.action_head)
     log_prob_from_params = make_log_prob_from_params(config.network.action_head)
     sys_cfg = config.system
     num_envs, rollout = config.arch.num_envs, sys_cfg.rollout_length
+    epochs, minibatches = sys_cfg.ppo_epochs, sys_cfg.num_minibatches
     chunk = sys_cfg.recurrent_chunk_size
     num_chunks = rollout // chunk
     num_sequences = num_chunks * num_envs
     layout = sys_cfg.get("chunk_layout", "contiguous")
-    mb_size = num_sequences // sys_cfg.num_minibatches
+    mb_size = num_sequences // minibatches
     mesh = mesh or make_mesh()
 
-    def _update_step(state: RNNLearnerState, sample_noise, epoch_perms, ent_noise, step_noise):
-        actor, critic = state.params
-        actor_opt, critic_opt = state.opt_states
-        gen = state.key
-        env_state, timestep, last_done = state.env_state, state.timestep, state.dones
-        policy_h = state.hstates.policy_hidden_state
-        critic_h0 = state.hstates.critic_hidden_state
-        device = last_done.device
+    def draw_update(state: RNNLearnerState, drawn: Draws) -> UpdateInputs:
+        """The update's inputs: its draws from the generator in the order the
+        update takes them (the sampling noise, each step's env noise, the
+        epochs' shuffles, a tanh-Normal's entropy normals), or handed in."""
+        gen, device = state.key, state.dones.device
+        sample_noise = drawn.noise
         if sample_noise is None:
             shape = (rollout, num_envs, sys_cfg.num_agents, env.action_dim)
             sample_noise = noise_fn(shape, gen, device)
+        step_noise = [env.step_noise(num_envs, gen) if drawn.env_noise is None
+                      else drawn.env_noise[t] for t in range(rollout)]
+        perms = drawn.permutations
+        if perms is None:
+            perms = epoch_permutations(epochs, num_sequences, gen, device)
+        ent_noise = entropy_normals(
+            noise_fn, drawn.entropy_noise, (epochs, minibatches),
+            (chunk, mb_size, sys_cfg.num_agents, env.action_dim), gen, device)
+        carry = Carry(state.env_state, state.timestep, state.dones, state.hstates)
+        return UpdateInputs(carry, sample_noise, step_noise, perms, ent_noise)
+
+    def update_body(state: RNNLearnerState, inputs: UpdateInputs) -> Tuple[Carry, Dict, Dict]:
+        """The rollout, the critic pass, GAE and the epochs' BPTT, on device
+        tensors only: (the new carry, the episode metrics, the losses)."""
+        actor, critic = state.params
+        actor_opt, critic_opt = state.opt_states
+        env_state, timestep, last_done, hstates = inputs.carry
+        policy_h = hstates.policy_hidden_state
+        critic_h0 = hstates.critic_hidden_state
 
         # ---- rollout: the actor one step at a time; the critic runs after.
         # The record_function spans name the update's phases in a profile.
@@ -145,13 +183,10 @@ def get_learner_fn(
                 new_policy_h, pi = actor(
                     policy_h, (pytree.tree_map(lambda x: x[None], obs), last_done[None])
                 )
-                action = pi.sample_from_noise(sample_noise[t][None]).squeeze(0)
+                action = pi.sample_from_noise(inputs.noise[t][None]).squeeze(0)
                 # A tuple (loc, scale) for a continuous head.
                 logits = pytree.tree_map(lambda x: x.squeeze(0), pi.raw_params())
-                env_state, timestep = env.step(
-                    env_state, action,
-                    env.step_noise(num_envs, gen) if step_noise is None else step_noise[t],
-                )
+                env_state, timestep = env.step(env_state, action, inputs.env_noise[t])
                 done = timestep.last()[:, None].expand(-1, sys_cfg.num_agents)
                 info = timestep.extras["episode_metrics"]
                 steps.append(
@@ -190,16 +225,14 @@ def get_learner_fn(
                 batch[2],
             )
             seq_major = pytree.tree_map(lambda x: x.swapaxes(0, 1), batch)
-            if epoch_perms is None:
-                epoch_perms = epoch_permutations(sys_cfg.ppo_epochs, num_sequences, gen, device)
 
         actor_params = list(actor.parameters())
         critic_params = list(critic.parameters())
         loss_info = []
         with record_function("rec_ippo/epochs"):
-            for epoch in range(sys_cfg.ppo_epochs):
-                shuffled = pytree.tree_map(lambda x: x[epoch_perms[epoch]], seq_major)
-                for i in range(sys_cfg.num_minibatches):
+            for epoch in range(epochs):
+                shuffled = pytree.tree_map(lambda x: x[inputs.permutations[epoch]], seq_major)
+                for i in range(minibatches):
                     mb_traj, mb_adv, mb_targets = pytree.tree_map(
                         lambda x: x[i * mb_size : (i + 1) * mb_size].swapaxes(0, 1), shuffled
                     )
@@ -212,9 +245,10 @@ def get_learner_fn(
                         log_prob, mb_traj.log_prob, mb_adv, sys_cfg.clip_eps
                     )
                     # A tanh-Normal's entropy is a one-sample estimate: one
-                    # standard normal of loc's shape a minibatch, from `gen`.
+                    # standard normal of loc's shape a minibatch, drawn ahead.
                     entropy = pi.entropy(
-                        gen, None if ent_noise is None else ent_noise[epoch, i]
+                        None, None if inputs.entropy_noise is None
+                        else inputs.entropy_noise[epoch, i]
                     ).mean()
                     actor_total = actor_loss - ent_coef * entropy
                     actor_grads = torch.autograd.grad(actor_total, actor_params)
@@ -240,29 +274,21 @@ def get_learner_fn(
                     })
 
         loss_info = {
-            k: torch.stack([m[k] for m in loss_info]).reshape(
-                sys_cfg.ppo_epochs, sys_cfg.num_minibatches
-            )
+            k: torch.stack([m[k] for m in loss_info]).reshape(epochs, minibatches)
             for k in loss_info[0]
         }
-        new_state = state._replace(
-            env_state=env_state,
-            timestep=timestep,
-            dones=last_done,
-            hstates=HiddenStates(policy_h, critic_h_after),
-        )
-        return new_state, (traj.info, loss_info)
+        carry = Carry(env_state, timestep, last_done, HiddenStates(policy_h, critic_h_after))
+        return carry, infos, loss_info
 
     def learner_fn(state: RNNLearnerState) -> ExperimentOutput:
         episode_info, train_info = [], []
         for u in range(sys_cfg.num_updates_per_eval):
-            state, (info, losses) = _update_step(
-                state,
-                None if noise is None else noise[u],
-                None if permutations is None else permutations[u],
-                None if entropy_noise is None else entropy_noise[u],
-                None if env_noise is None else env_noise[u],
-            )
+            drawn = Draws(*(None if x is None else x[u]
+                            for x in (noise, env_noise, permutations, entropy_noise)))
+            with record_function("rec_ippo/update"):
+                carry, info, losses = learner_fn.update(state, drawn)
+            state = state._replace(env_state=carry.env_state, timestep=carry.timestep,
+                                   dones=carry.dones, hstates=carry.hstates)
             episode_info.append(info)
             train_info.append(losses)
         return ExperimentOutput(
@@ -271,6 +297,8 @@ def get_learner_fn(
             train_metrics=stack_trees(train_info),
         )
 
+    learner_fn.update = CapturedPhase(draw_update, update_body, update_state_tensors,
+                                      update_counters, "the rec-IPPO update")
     return learner_fn
 
 

@@ -1,10 +1,13 @@
 """CUDA graph capture, shared by the port's captured programs: the articulated
 envs' integrator step (`envs/_dynamics.py` `CapturedStep`), the SAC train
-phase (`systems/sac/ff_isac.py`, `advanced_usage/ff_isac_vmap_seeds.py`) and
+phase (`systems/sac/ff_isac.py`, `advanced_usage/ff_isac_vmap_seeds.py`),
 the whole rec-IQL update, stock (`systems/q_learning/rec_iql.py`) and stacked
-over seeds or a sweep (`advanced_usage/rec_iql_vmap_seeds.py`), the
-counterparts of the reference's `jax.jit` of the step and compiled `lax.scan`s
-of the act and train steps.
+over seeds or a sweep (`advanced_usage/rec_iql_vmap_seeds.py`), and the whole
+PPO update of ff-IPPO and ff-MAPPO (`systems/ppo/ff_ippo.py`) and of
+rec-IPPO and rec-MAPPO (`systems/ppo/rec_ippo.py`), the counterparts of the
+reference's `jax.jit` of the step and compiled `lax.scan`s of the rollout,
+the act and train steps and the epochs. A graph is not captured inside
+another: while a stream captures, the integrator runs its step op by op.
 
 `Captured` runs a function once on a side stream (the warm-up that creates the
 library handles and workspaces its ops need, and lets autograd see its first
@@ -22,7 +25,9 @@ carries from call to call by value), and a body that reads and writes only
 device tensors at fixed addresses (parameters, optimizer moments, a replay
 ring). On CPU tensors the body runs op by op; on CUDA tensors the first call
 runs the body for real as the warm-up and captures it, and every later call
-copies its draws into the graph's static tensors and replays. A call whose
+copies its draws into the graph's static tensors and replays. An input or
+output leaf that is no tensor (the None of a field a system does not carry)
+is passed through as it is. A call whose
 state no longer lives at the captured addresses (a restored checkpoint,
 another learner's state) captures again, and says so: it never replays onto
 other memory.
@@ -170,6 +175,12 @@ def _address(t: torch.Tensor) -> Tuple:
     return t.data_ptr(), tuple(t.shape), tuple(t.stride()), t.dtype
 
 
+def _copy(x: Any) -> Any:
+    """A copy of a tensor leaf; any other leaf (the None of a carry's unused
+    field) as it is."""
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
 def _tensors(tree: Any) -> List[torch.Tensor]:
     return [x for x in pytree.tree_leaves(tree) if isinstance(x, torch.Tensor)]
 
@@ -213,7 +224,7 @@ class CapturedPhase:
         if self.graph is not None and addresses == self.addresses:
             for static, value in zip(_tensors(self.static), _tensors(draws)):
                 static.copy_(value)
-            return pytree.tree_map(torch.clone, self.graph.replay())
+            return pytree.tree_map(_copy, self.graph.replay())
         if self.graph is not None:
             self.recaptures += 1
             print(f"{self.what}: the learner state is not at the captured addresses (a "

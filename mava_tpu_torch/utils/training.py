@@ -15,9 +15,13 @@ held in the optimizer's state (the reference's `scale_by_swept_lr`,
 programs of `advanced_usage/` step.
 
 A step reads nothing from the host, so that it can be captured in a CUDA graph
-(the SAC systems' train phase): the count the bias corrections need is also
-kept on the parameters' device (`device_count`), which the step advances in
-place, beside the host `count` that schedules and checkpoints read.
+(the SAC train phase, the rec-IQL and PPO updates): the count is also kept on
+the parameters' device (`device_count`, float64 and exact), which the step
+advances in place, beside the host `count` that checkpoints read. The bias
+corrections, a decayed learning rate and the PPO entropy coefficient are
+formed from the device count, as optax forms them from its count in the
+reference; each schedule also takes a host count, and the two forms are
+bitwise equal at every count.
 """
 
 from __future__ import annotations
@@ -29,19 +33,43 @@ import torch
 from torch.utils import _pytree as pytree
 
 
-def make_learning_rate_schedule(init_lr: float, config) -> Callable[[int], float]:
-    """Linear decay to zero over every minibatch update of the run (clamped at 0)."""
-    total_updates = (
-        config.system.ppo_epochs * config.system.num_minibatches * config.system.num_updates
-    )
+Count = Union[int, torch.Tensor]
 
-    def linear_schedule(count: int) -> float:
-        return init_lr * max(0.0, 1.0 - count / total_updates)
+
+def _minibatch_updates(config) -> int:
+    """Every minibatch update of the run: what the PPO schedules run over."""
+    return config.system.ppo_epochs * config.system.num_minibatches * config.system.num_updates
+
+
+def _fraction(count: Count, total: int) -> Count:
+    """count / total in float64. A device count is divided by a tensor: CUDA
+    divides by a host scalar as a product with its reciprocal, which is not
+    always the quotient."""
+    if isinstance(count, torch.Tensor):
+        return count / torch.full_like(count, total)
+    return count / total
+
+
+def decay_fraction(count: Count, total: int) -> Count:
+    """1 - count / total clamped at 0, in float64: a float of a host count, a
+    tensor of a float64 device count."""
+    if isinstance(count, torch.Tensor):
+        return torch.clamp(1.0 - _fraction(count, total), min=0.0)
+    return max(0.0, 1.0 - _fraction(count, total))
+
+
+def make_learning_rate_schedule(init_lr: float, config) -> Callable[[Count], Count]:
+    """Linear decay to zero over every minibatch update of the run (clamped at
+    0), of a host count or of a device count (`decay_fraction`)."""
+    total_updates = _minibatch_updates(config)
+
+    def linear_schedule(count: Count) -> Count:
+        return init_lr * decay_fraction(count, total_updates)
 
     return linear_schedule
 
 
-def make_learning_rate(init_lr: float, config) -> Union[float, Callable[[int], float]]:
+def make_learning_rate(init_lr: float, config) -> Union[float, Callable[[Count], Count]]:
     if config.system.get("decay_learning_rates", False):
         return make_learning_rate_schedule(init_lr, config)
     return init_lr
@@ -99,22 +127,15 @@ class ClippedAdam:
         bias = 1 - powers
         return bias[0], bias[1]
 
-    def _refuse_capture(self, what: str) -> None:
-        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(f"{what} reads the host count: a step with it cannot be "
-                               "captured in a CUDA graph.")
-
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         keep = g_norm < self.max_grad_norm
         grads = [torch.where(keep, g, (g / g_norm) * self.max_grad_norm) for g in grads]
 
-        if callable(self.lr):
-            self._refuse_capture("A scheduled learning rate")
-            lr = self.lr(self.count)
-        else:
-            lr = self.lr
+        # A scheduled rate of the count before this step, a float64 tensor
+        # that the update rounds to the parameters' dtype.
+        lr = self.lr(self.device_count) if callable(self.lr) else self.lr
         bc1, bc2 = self._advance()
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
             mu.copy_((1 - self.b1) * g + self.b1 * mu)
@@ -169,8 +190,7 @@ class SweptClippedAdam(ClippedAdam):
         """(S,) float32: each entry's learning rate for the next step."""
         frac = 1.0
         if self.decay_updates is not None:
-            self._refuse_capture("A decayed learning rate")
-            frac = max(0.0, 1.0 - self.count / self.decay_updates)
+            frac = decay_fraction(self.device_count, self.decay_updates)
         return (self.peak_lr * frac).to(self.params[0].dtype)
 
     @torch.no_grad()
@@ -209,7 +229,7 @@ def make_swept_optimizer(params, config, max_grad_norm: float, peak_lr) -> Swept
     `make_swept_optimizer`, :123-141)."""
     decay = None
     if config.system.get("decay_learning_rates", False):
-        decay = config.system.ppo_epochs * config.system.num_minibatches * config.system.num_updates
+        decay = _minibatch_updates(config)
     return SweptClippedAdam(params, peak_lr, max_grad_norm, decay, eps=1e-5)
 
 
@@ -222,16 +242,25 @@ def make_swept_adam(params, lr, max_grad_norm: float, eps: float = 1e-8) -> Swep
     return SweptClippedAdam(params, lr, max_grad_norm, decay_updates=None, eps=eps)
 
 
-def entropy_coefficient(config, actor_optimizer: ClippedAdam) -> float:
+def entropy_coefficient(config, actor_optimizer: ClippedAdam) -> Union[float, torch.Tensor]:
     """PPO entropy coefficient: constant `system.ent_coef`, or annealed linearly
-    to `system.ent_coef_final` over every minibatch update, read from the actor
-    optimizer's Adam count (reference :37-66)."""
-    init = config.system.ent_coef
-    final = config.system.get("ent_coef_final", None)
-    if final is None:
-        return init
-    total = config.system.ppo_epochs * config.system.num_minibatches * config.system.num_updates
-    frac = min(actor_optimizer.count / total, 1.0)
+    to `system.ent_coef_final` over every minibatch update, formed from the
+    actor optimizer's device count (reference :37-66) as a float32 tensor, so
+    that an update reads no host count (`entropy_schedule`)."""
+    if config.system.get("ent_coef_final", None) is None:
+        return config.system.ent_coef
+    return entropy_schedule(config, actor_optimizer.device_count).to(torch.float32)
+
+
+def entropy_schedule(config, count: Count) -> Count:
+    """The annealed entropy coefficient in float64 at a host count (a float)
+    or a float64 device count (a tensor)."""
+    init, final = config.system.ent_coef, config.system.ent_coef_final
+    total = _minibatch_updates(config)
+    if isinstance(count, torch.Tensor):
+        frac = torch.clamp(_fraction(count, total), max=1.0)
+    else:
+        frac = min(_fraction(count, total), 1.0)
     return init + (final - init) * frac
 
 

@@ -115,7 +115,8 @@ def test_entropy_draws_come_from_the_learner_generator():
     """Without injected draws the update takes its entropy normals from the
     learner's generator: the same seed gives the same update whatever the
     global RNG holds, and the global RNG is left as it was."""
-    cfg = _prepare(load_config("default_ff_ippo", FF_TINY + WALKER))
+    # A rollout of 2: the minibatches' entropy normals are what is checked.
+    cfg = _prepare(load_config("default_ff_ippo", FF_TINY + WALKER + ["system.rollout_length=2"]))
     env, _ = tenvs.make(cfg, "cpu")
 
     def update(global_seed):
@@ -133,7 +134,7 @@ def test_entropy_draws_come_from_the_learner_generator():
 def test_ff_ippo_cli_on_mawalker(monkeypatch, capsys):
     monkeypatch.setattr(sys, "argv", [
         "ff_ippo", "env=mawalker", "network=continuous_mlp", "system.rollout_length=4",
-        "system.num_updates=2", "arch.num_envs=2", "arch.num_evaluation=1",
+        "system.num_updates=1", "arch.num_envs=2", "arch.num_evaluation=1",
         "arch.num_eval_episodes=2", "arch.absolute_metric=False", "env.kwargs.time_limit=6",
         "network.actor_network.pre_torso.layer_sizes=[16]",
         "network.critic_network.pre_torso.layer_sizes=[16]", "+arch.device=cpu"])
